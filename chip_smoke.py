@@ -5,9 +5,11 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 
-1. setup   — TF32 off, build the grouped-matmul kernels from
-             ``src/repro_torch/kernels/grouped_matmul/csrc`` with nvcc
-             (sm_90a), print the card's name and power limit;
+1. setup   — TF32 off, build both kernel libraries from
+             ``src/repro_torch/kernels/*/csrc`` with nvcc (sm_90a, one nvcc
+             per library, side by side), print each one's build time and
+             registers, spills and entry functions, and the card's name and
+             power limit;
 2. kernels — ``gmm`` and ``tgmm`` and the autograd Function's dx/dw against
              their plain PyTorch versions on the card: the three layer
              shapes of the FEMNIST MLP client and the ragged edge cases,
@@ -23,16 +25,36 @@ Phases (any failure exits non-zero before the last line is printed):
              leaf by leaf, within a relative norm of TWIN_REL_TOL; the same
              wave through a kernel that reads every group boundary one row
              late must fail that limit;
-5. timings — each kernel at the main path's shapes (median of 50 launches)
-             beside its plain version, one PyTorch library call and the
-             least time the card could take; one profiled wave (card busy
-             time against wall time); the wall seconds of each phase of a
-             round.
+5. timings — each grouped-matmul kernel at the main path's shapes (median of
+             50 launches) beside its plain version, one PyTorch library call
+             and the least time the card could take; one profiled wave (card
+             busy time against wall time); the wall seconds of each phase of
+             a round;
+6. flash   — the flash-attention kernel against its plain version on the
+             card: the reference's sweep (GQA, window, MQA + window at
+             S=384, non-causal), a suffix (Sq=128, Skv=512), a ragged length
+             and the serve shape, f32 within 2e-5, bf16 within 2e-2;
+7. serve   — the second path: ``repro_torch.launch.serve.serve`` on
+             qwen1.5-0.5b at its published width (24 layers, d_model 1024,
+             vocab 151,936), seeded random weights, batch 4, prompt 2048,
+             32 greedy decode steps; the flash launches of that run (one per
+             layer, all in the prefill), wall times, memory, and the card
+             busy share of one prefill and one decode step (torch.profiler);
+8. twin    — the same prefill and teacher-forced decode with attention
+             through the plain version on the card: the logits of the
+             prefill and of every decode step within a relative norm of
+             SERVE_TWIN_REL_TOL (bf16 compute, the served model), the
+             prefill's in f32 compute within SERVE_TWIN_F32_REL_TOL; the
+             kernel fed K/V rolled by one position must fail each limit;
+9. timings — the flash kernel at the serve shape (median of 50 launches)
+             beside its plain version, scaled_dot_product_attention and the
+             least time the card could take.
 
-The last three lines are ``{"kernels": [...]}``, the card's name and power
-limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-The script uses one card: unless ``CUDA_VISIBLE_DEVICES`` names exactly one,
-it is set to the first.
+The last three lines are ``{"kernels": [...]}`` (``gmm`` and ``tgmm`` with
+the launches of phase 3, ``flash_attention`` with those of phase 7), the
+card's name and power limit as ``nvidia-smi`` prints them, and
+``{"ok": true, "device": {...}}``.  The script uses one card: unless
+``CUDA_VISIBLE_DEVICES`` names exactly one, it is set to the first.
 """
 from __future__ import annotations
 
@@ -43,21 +65,45 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# outside the tensor cores (the kernels accumulate with FFMA).
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, f32
+# outside the tensor cores (the kernels accumulate with FFMA) and dense bf16
+# on the tensor cores (the least time for bf16 work).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 CLIENT_BATCH_SIZES = (16, 32, 48, 64)
 LAYERS = (("784->128", 784, 128), ("128->128", 128, 128), ("128->62", 128, 62))
 GMM_SOURCE = "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu"
 # ‖Δcuda − Δcpu‖ / ‖Δcpu‖ for each client and leaf of one 10-step wave
 TWIN_REL_TOL = 2e-2
+
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+# (B, Sq, Skv, Hq, Hk, D, causal, window)
+SERVE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 16, 64, True, None)
+FLASH_CASES = [            # tests/test_kernels.py:26-34, a suffix, a ragged length, the serve shape
+    ("MHA", (1, 128, 128, 4, 4, 32, True, None)),
+    ("GQA", (2, 256, 256, 8, 2, 64, True, None)),
+    ("GQA + window", (2, 256, 256, 8, 2, 64, True, 64)),
+    ("MQA + window, S=384", (1, 384, 384, 4, 1, 32, True, 128)),
+    ("non-causal", (2, 128, 128, 4, 4, 64, False, None)),
+    ("suffix Sq=128 Skv=512", (1, 128, 512, 4, 2, 64, True, None)),
+    ("ragged S=200 + window", (2, 200, 200, 4, 2, 32, True, 48)),
+    ("serve shape (qwen1.5-0.5b)", SERVE_SHAPE),
+]
+# ‖logits(kernel) − logits(plain)‖ / ‖logits(plain)‖ over the prefill and
+# every decode step in bf16 compute (the served model), and over the prefill
+# in f32 compute (the same weights, where bf16 rounding does not mask the kernel)
+SERVE_TWIN_REL_TOL = 1e-1
+SERVE_TWIN_F32_REL_TOL = 1e-3
 
 
 def say(*a):
@@ -259,35 +305,15 @@ def twin_wave(torch, ops, mcfg, opt, wave_cids, globals_r1):
 
 def profile_wave(torch, mcfg, opt, wave_cids, params):
     """Wall time of one warm ragged wave on the card against the time the
-    card spends in kernels (torch.profiler): how far the host holds the
-    card back in COLLECT."""
+    card spends in kernels: how far the host holds the card back in COLLECT."""
     from repro_torch.fed.batch_exec import BatchedExecutor
 
     clients, _ = build_world(mcfg)
     by_id = {c.client_id: c for c in clients}
     wave = [by_id[c] for c in wave_cids]
     ex = BatchedExecutor(mcfg, opt, device="cuda")
-    ex.run_wave(params, wave, 10)                      # warm: same envelope
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        ex.run_wave(params, wave, 10)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only (the kernels themselves), so nothing counts twice
-    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    if busy_ms == 0:
-        say(f"  one warm wave: wall {wall_ms:.2f} ms; card busy time not measured "
-            f"(the profiler saw no device time)")
-        return
-    say(f"  one warm wave ({len(wave)} clients x 10 steps): wall {wall_ms:.2f} ms, "
-        f"card busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
-        f"{sum(r[1] for r in rows)} kernel launches")
-    for ms, count, key in rows[:8]:
-        say(f"    {ms:8.3f} ms  x{count:<5} {key[:90]}")
+    profile_call(torch, f"one warm wave ({len(wave)} clients x 10 steps)",
+                 lambda: ex.run_wave(params, wave, 10), share_of="gmm_kernel")
 
 
 def median_ms(torch, fn, reps=50, warm=5):
@@ -338,10 +364,20 @@ def time_kernels(torch, ops, ref, sizes):
             assert lib.repro_tgmm(code, x_.data_ptr(), dy_.data_ptr(), offs.data_ptr(),
                                   dw_.data_ptr(), m, k, n, g, stream) == 0
 
+        # the library call wants K and N multiples of 16: N = 62 is timed on
+        # operands zero-padded to 64 (the padding is the library's cost, not ours)
         lib_gmm = lib_tgmm = None
-        if has_lib and n % 16 == 0 and k % 16 == 0:   # the library call's alignment rule
-            lib_gmm = median_ms(torch, lambda: torch._grouped_mm(xb, wb, offs=ends))
-            lib_tgmm = median_ms(torch, lambda: torch._grouped_mm(xb.t(), dyb, offs=ends))
+        n_pad = -(-n // 16) * 16
+        lib_note = f"operands zero-padded to N={n_pad}" if n_pad != n else ""
+        if has_lib and k % 16 == 0:
+            wb_p = torch.nn.functional.pad(wb, (0, n_pad - n))
+            dyb_p = torch.nn.functional.pad(dyb, (0, n_pad - n))
+            try:
+                lib_gmm = median_ms(torch, lambda: torch._grouped_mm(xb, wb_p, offs=ends))
+                lib_tgmm = median_ms(torch, lambda: torch._grouped_mm(xb.t(), dyb_p, offs=ends))
+            except RuntimeError as e:   # the yardstick refused: say why, time nothing
+                lib_gmm = lib_tgmm = None
+                lib_note = f"library call refused ({lib_note or 'unpadded'}): {str(e)[:200]}"
         io_bytes = 4 * (m * k + g * k * n + m * n) + 4 * (g + 1)
         flops = 2 * m * k * n
         t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
@@ -360,9 +396,234 @@ def time_kernels(torch, ops, ref, sizes):
             r = rows[-1]
             say(f"  {name:<4} {layer:<8} M={m} G={g}: {r['ms']:.4f} ms f32, {r['bf16_ms']:.4f} ms bf16;"
                 f" plain {r['plain_ms']:.4f} ms; library(bf16) "
-                f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {r['bound_ms']:.4f} ms "
+                f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                f"{f' ({lib_note})' if lib_note else ''}; bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, {io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return rows
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def flash_inputs(torch, case, dtype, seed=0):
+    b, sq, skv, hq, hk, d = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, sq, hq, d), (b, skv, hk, d), (b, skv, hk, d))]
+
+
+def check_flash(torch, fa_ops, fa_ref):
+    """The flash kernel against its plain version on the card: the
+    reference's sweep, a suffix, a ragged length and the serve shape, f32
+    within 2e-5 and bf16 within 2e-2.  Returns the largest f32 error."""
+    worst = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for name, case in FLASH_CASES:
+            causal, window = case[6:]
+            q, k, v = flash_inputs(torch, case, dtype)
+            got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == want.dtype == dtype, name
+            assert torch.isfinite(got.float()).all(), name
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                       msg=lambda m_: f"flash {name} {dtype}: {m_}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            say(f"  {str(dtype)[6:]:>8} {name:<30} {str(case):<40} max|err| {err:.2e} (tol {tol:g})")
+    return worst
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def device_rows(torch, prof):
+    """(ms, count, name) of each kernel the profiler saw on the card: device
+    rows only (the kernels themselves), so nothing counts twice."""
+    return sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+
+
+def profile_call(torch, what, fn, share_of=None):
+    """Wall time of one warm call against the card's busy time in it (and
+    the share of that time in kernels whose name holds ``share_of``)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms == 0:
+        say(f"  {what}: wall {wall_ms:.2f} ms; card busy time not measured "
+            f"(the profiler saw no device time)")
+        return
+    share = ""
+    if share_of:
+        ms = sum(r[0] for r in rows if share_of in r[2])
+        share = f"; {share_of} {ms:.2f} ms ({100 * ms / busy_ms:.1f} % of busy)"
+    say(f"  {what}: wall {wall_ms:.2f} ms, card busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches{share}")
+    for ms, count, key in rows[:8]:
+        say(f"    {ms:8.3f} ms  x{count:<5} {key[:90]}")
+
+
+def run_serve(torch, ops, fa_ops, cfg):
+    """The serve path at full width: one short warm-up call, then the
+    counted run of ``serve`` with its own printed lines."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.tree import tree_leaves
+
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, seed=0)
+    serve(cfg, decode_steps=1, log=lambda *a: None, **kw)   # warm: allocator, library handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (ops.LAUNCHES, fa_ops.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    res = serve(cfg, decode_steps=SERVE_STEPS,
+                log=lambda *a: say("  " + " ".join(map(str, a))), **kw)
+    launches = {**ops.LAUNCHES, **fa_ops.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    param_gb = sum(t.numel() * t.element_size() for t in tree_leaves(res["params"])) / 1e9
+    cache_gb = (cfg.total_layers * 2 * b * (s + SERVE_STEPS + 1) * cfg.n_kv_heads
+                * cfg.resolved_head_dim * 2) / 1e9
+    say(f"  prefill {res['prefill_s']:.4f} s ({b * s / res['prefill_s']:.0f} tok/s), decode "
+        f"{res['decode_s']:.4f} s ({b * SERVE_STEPS / res['decode_s']:.1f} tok/s); launches "
+        f"{launches}; weights {param_gb:.2f} GB, bf16 KV cache {cache_gb:.2f} GB, "
+        f"peak allocated {peak_gb:.2f} GB")
+    assert launches["flash_attention"] == cfg.total_layers, launches   # one per layer, prefill only
+    tokens = res["tokens"]
+    assert tokens.shape == (b, SERVE_STEPS + 1), tokens.shape
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
+    for lg in res["logits"]:
+        assert lg.shape == (b, cfg.vocab_size) and torch.isfinite(lg.float()).all()
+    return res, launches
+
+
+def profile_serve(torch, cfg, res):
+    """Card busy share of one prefill and of one decode step, with the
+    kernels that take the time."""
+    from repro_torch.models.registry import model_fns
+
+    fns = model_fns(cfg.replace(attn_impl="pallas"))
+    batch = {"tokens": res["prompts"], "cache_len": SERVE_PROMPT + SERVE_STEPS + 1}
+    with torch.no_grad():
+        profile_call(torch, "one prefill (4 x 2048 tokens)",
+                     lambda: fns.prefill(res["params"], batch), share_of="flash_fwd_kernel")
+        _, cache = fns.prefill(res["params"], batch)
+        step = {"token": res["tokens"][:, 0], "pos": SERVE_PROMPT}
+        profile_call(torch, "one decode step (batch 4)", lambda: fns.decode(res["params"], cache, step))
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def teacher_forced_logits(torch, cfg, params, prompts, tokens):
+    """Last-token logits of the prefill, then of each decode step fed the
+    served tokens."""
+    from repro_torch.models.registry import model_fns
+
+    fns = model_fns(cfg)
+    s, steps = prompts.shape[1], tokens.shape[1] - 1
+    with torch.no_grad():
+        logits, cache = fns.prefill(params, {"tokens": prompts, "cache_len": s + steps + 1})
+        out = [logits]
+        for i in range(steps):
+            logits, cache = fns.decode(params, cache, {"token": tokens[:, i], "pos": s + i})
+            out.append(logits)
+    return out
+
+
+def serve_twin(torch, fa_ops, cfg, res):
+    """The served logits against the same prefill and decode with attention
+    through the plain version on the card, as ‖kernel − plain‖ / ‖plain‖;
+    then the kernel with K/V rolled by one position (each query also sees
+    the next key) must fail the same limit.  The prefill again in f32
+    compute, held to a tighter limit, with the same control."""
+    real = fa_ops.flash_attention
+
+    def rolled(q, k, v, *a, **kw):
+        return real(q, torch.roll(k, -1, dims=1), torch.roll(v, -1, dims=1), *a, **kw)
+
+    def rel(got, want):
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    def readings(cfg_, tokens):
+        args = (res["params"], res["prompts"], tokens)
+        plain = teacher_forced_logits(torch, cfg_.replace(attn_impl="reference"), *args)
+        kernel = (res["logits"] if tokens is res["tokens"] else
+                  teacher_forced_logits(torch, cfg_.replace(attn_impl="pallas"), *args))
+        with mock.patch.object(fa_ops, "flash_attention", rolled):
+            wrong = teacher_forced_logits(torch, cfg_.replace(attn_impl="pallas"), *args)
+        return ([rel(a, b) for a, b in zip(kernel, plain)],
+                [rel(a, b) for a, b in zip(wrong, plain)], plain)
+
+    sound, control, plain = readings(cfg, res["tokens"])
+    agree = float(torch.stack([torch.argmax(p, -1) == t for p, t in
+                               zip(plain, res["tokens"].unbind(1))]).float().mean())
+    say(f"  bf16 compute, kernel against plain: last-token logits {sound[0]:.3e}, decode "
+        f"steps {min(sound[1:]):.3e} .. {max(sound[1:]):.3e} (max {max(sound):.3e}); "
+        f"greedy tokens agreeing {100 * agree:.2f} %")
+    say(f"  bf16 compute, K/V rolled by one: last-token logits {control[0]:.3e}, decode steps "
+        f"{min(control[1:]):.3e} .. {max(control[1:]):.3e} (max {max(control):.3e}); "
+        f"limit relative {SERVE_TWIN_REL_TOL:g}")
+    sound32, control32, _ = readings(cfg.replace(compute_dtype="float32"), res["tokens"][:, :1])
+    say(f"  f32 compute, prefill last-token logits: kernel against plain {sound32[0]:.3e}, "
+        f"K/V rolled by one {control32[0]:.3e} (limit relative {SERVE_TWIN_F32_REL_TOL:g})")
+    assert max(sound) < SERVE_TWIN_REL_TOL, sound
+    assert max(control) > SERVE_TWIN_REL_TOL, control
+    assert sound32[0] < SERVE_TWIN_F32_REL_TOL, sound32
+    assert control32[0] > SERVE_TWIN_F32_REL_TOL, control32
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def live_pairs(sq, skv, causal, window):
+    """(query, key) pairs the masks leave live: the work this input needs."""
+    n = 0
+    for i in range(sq):
+        p = i + skv - sq
+        hi = min(skv - 1, p) if causal else skv - 1
+        lo = max(0, p - window + 1) if window is not None else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def time_flash(torch, fa_ops, fa_ref):
+    """The kernel at the serve shape beside its plain version, the library's
+    attention and the least time the card could take."""
+    b, sq, skv, hq, hk, d, causal, window = SERVE_SHAPE
+    q, k, v = flash_inputs(torch, SERVE_SHAPE, torch.bfloat16, seed=3)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # (B, H, S, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {
+        "ms": median_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
+        "f32_ms": median_ms(torch, lambda: fa_ops.flash_attention(q32, k32, v32)),
+        "plain_ms": median_ms(torch, lambda: fa_ref.attention_ref(q, k, v), reps=10),
+        "library_ms": median_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True)),
+    }
+    pairs = live_pairs(sq, skv, causal, window)
+    flops = 4 * b * hq * d * pairs                     # q·k and p·v on each live pair
+    io_bytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hk * d)   # q, o, k, v in bf16
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ffma_ms=flops / F32_FLOPS * 1e3)
+    say(f"  flash_attention B={b} S={sq} H={hq} D={d} causal bf16: {row['ms']:.4f} ms "
+        f"(f32 {row['f32_ms']:.4f} ms); plain {row['plain_ms']:.4f} ms; library "
+        f"(scaled_dot_product_attention, bf16) {row['library_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s, "
+        f"{io_bytes / 1e6:.1f} MB at 3.35 TB/s); at the f32 FFMA rate {row['ffma_ms']:.4f} ms; "
+        f"kernel / bound {row['ms'] / row['bound_ms']:.1f}, kernel / library "
+        f"{row['ms'] / row['library_ms']:.1f}")
+    return row
 
 
 # ---------------------------------------------------------------- main
@@ -382,7 +643,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.grouped_matmul import ops, ref
     from repro_torch.models.small import SmallModelConfig
 
@@ -396,12 +660,17 @@ def main() -> int:
     smi = smi_line()
     say(f"  card: {smi}")
     t0 = time.perf_counter()
-    ops.library()
-    say(f"  kernels built in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.BUILD_SECONDS['grouped_matmul']:.2f} s)")
-    for line in build.BUILD_LOG.get("grouped_matmul", "").splitlines():
-        if "registers" in line or "spill" in line:
-            say("   ", line.strip())
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per library, side by side
+        for fut in [pool.submit(ops.library), pool.submit(fa_ops.library)]:
+            fut.result()
+    say(f"  kernels built in {time.perf_counter() - t0:.2f} s")
+    for name in ("grouped_matmul", "flash_attention"):
+        say(f"  {name}: nvcc {build.BUILD_SECONDS[name]:.2f} s")
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                say("   ", line.strip())
+    say("  flash_attention dynamic shared memory a block: " + ", ".join(
+        f"D<={d} {fa_ops.library().repro_flash_attention_smem_bytes(d)} B" for d in (32, 64, 128, 256)))
 
     say("PHASE 2 kernels against their plain versions")
     worst = check_kernels(torch, ops, ref, list(CLIENT_BATCH_SIZES) * 8, edge_cases())
@@ -424,7 +693,26 @@ def main() -> int:
     profile_wave(torch, mcfg, trainer.opt, waves[0], globals_r1)
     for i, walls in enumerate(phase_s, 1):
         say(f"  round {i} phase wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
-    say(f"  main path {run_s:.2f} s; whole script {time.perf_counter() - t_all:.1f} s")
+    say(f"  main path {run_s:.2f} s; so far {time.perf_counter() - t_all:.1f} s")
+    del trainer, globals_r1
+
+    say("PHASE 6 flash attention against its plain version")
+    worst["flash_attention"] = check_flash(torch, fa_ops, fa_ref)
+
+    cfg = get_config(SERVE_ARCH)
+    say(f"PHASE 7 serve path: {SERVE_ARCH} at its published width ({cfg.total_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy decode steps")
+    res, serve_launches = run_serve(torch, ops, fa_ops, cfg)
+    profile_serve(torch, cfg, res)
+
+    say("PHASE 8 serve twin: the same prefill and decode with attention through the plain version")
+    serve_twin(torch, fa_ops, cfg, res)
+    del res
+
+    say("PHASE 9 flash attention timings at the serve shape")
+    flash_row = time_flash(torch, fa_ops, fa_ref)
+    say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
                 "tgmm": "src/repro/kernels/grouped_matmul/ops.py:45"}
@@ -438,6 +726,14 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": worst["flash_attention"], "ms": flash_row["ms"],
+        "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"], "library_ms": flash_row["library_ms"],
+    })
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

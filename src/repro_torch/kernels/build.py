@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}   # one per library: different libraries build in parallel
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: seconds each library took to compile in this process (0.0 when reused)
 BUILD_SECONDS: Dict[str, float] = {}
@@ -44,8 +45,11 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     """Compile ``sources`` into ``lib<name>-<hash>.so`` once, then load it.
 
     Concurrent builders (several processes on one checkout) each compile to
-    a private temporary file and rename it into place atomically."""
+    a private temporary file and rename it into place atomically; threads of
+    one process build different libraries at the same time."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib

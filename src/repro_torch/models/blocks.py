@@ -1,0 +1,151 @@
+"""Residual block: attention mixer + {dense | none} FFN.  The port of
+``repro.models.blocks`` for the dense family.
+
+The ``LayerSpec`` selects the mixer/FFN per layer; ``LayerGroup`` patterns
+hold stacked parameters (see ``repro_torch.models.lm``).  Mamba-2, RG-LRU,
+MoE and cross-attention blocks are not ported yet and raise.
+
+Modes:
+  * ``prefill`` — whole-sequence forward that also emits a decode cache
+  * ``decode``  — single-token step against the cache, written in place
+  (``full``, the training forward, comes with the training slice.)
+
+Caches are per-block dicts; local-attention layers use ring buffers of
+window size.  The reference's sharding constraints have no counterpart
+until the port's sharding rules exist (ROADMAP item 17).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import FFN_DENSE, FFN_NONE, MIXER_ATTN, LayerSpec, ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+def _check_ported(spec: LayerSpec) -> None:
+    if spec.mixer != MIXER_ATTN:
+        raise NotImplementedError(
+            f"mixer {spec.mixer!r} is not ported yet (ROADMAP: models/mamba2.py, models/rglru.py)")
+    if spec.cross_attn:
+        raise NotImplementedError(
+            "cross-attention blocks are not ported yet (ROADMAP: models/encdec.py)")
+    if spec.ffn not in (FFN_DENSE, FFN_NONE):
+        raise NotImplementedError(f"ffn {spec.ffn!r} is not ported yet (ROADMAP: models/moe.py)")
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> Tuple[Params, Params]:
+    _check_ported(spec)
+    p, a = {}, {}
+    p["norm1"], a["norm1"] = L.init_rmsnorm(cfg.d_model, cfg, gen.device)
+    p["mixer"], a["mixer"] = L.init_attention(gen, cfg)
+    if spec.ffn == FFN_DENSE:
+        p["norm2"], a["norm2"] = L.init_rmsnorm(cfg.d_model, cfg, gen.device)
+        p["ffn"], a["ffn"] = L.init_mlp(gen, cfg)
+    return p, a
+
+
+# --------------------------------------------------------------------------
+# Cache allocation
+# --------------------------------------------------------------------------
+
+
+def block_cache(
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    batch: int,
+    cache_len: int,
+    device=None,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    _check_ported(spec)
+    ring = spec.window is not None and spec.window < cache_len
+    size = spec.window if ring else cache_len
+    c = {"kv": L.make_kv_cache(batch, size, cfg.n_kv_heads, cfg.resolved_head_dim,
+                               getattr(torch, cfg.compute_dtype),
+                               quantized=cfg.kv_cache_quant, device=device)}
+    return c, {"kv": L.kv_cache_axes(quantized=cfg.kv_cache_quant)}
+
+
+def _is_ring(spec: LayerSpec, cache_size: int) -> bool:
+    return spec.window is not None and spec.window == cache_size
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+
+def _attn_full(params, x, cfg, spec, positions, causal, mode, cache_len):
+    q, k, v = L.qkv_project(params, x, cfg)
+    if cfg.use_rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    y = L.attention(
+        q, k, v, positions, positions,
+        impl=cfg.attn_impl, causal=causal, window=spec.window, chunk=cfg.attn_chunk,
+    )
+    out = L.out_project(params, y, cfg)
+    cache = None
+    if mode == "prefill":
+        ring = spec.window is not None and spec.window < cache_len
+        size = spec.window if ring else cache_len
+        cache = L.prefill_cache_from_kv(k, v, size, ring=ring, quantized=cfg.kv_cache_quant)
+    return out, cache
+
+
+def _attn_decode(params, x, cfg, spec, pos: int, cache):
+    """One token against the whole cache through the plain attention, as the
+    reference does (an int8 cache is dequantized first); ``cache`` is
+    written in place."""
+    b = x.shape[0]
+    q, k, v = L.qkv_project(params, x, cfg)  # (B,1,·,·)
+    qpos = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.use_rope:
+        q = L.apply_rope(q, qpos, cfg.rope_theta)
+        k = L.apply_rope(k, qpos, cfg.rope_theta)
+    size = cache["k"].shape[1]
+    ring = _is_ring(spec, size)
+    cache = L.update_cache(cache, k, v, pos, ring=ring)
+    kvpos = L.cache_positions(size, pos, ring, x.device).expand(b, size)
+    kc, vc = L.cache_kv_arrays(cache)
+    y = L.attention_reference(q, kc, vc, qpos, kvpos, causal=True, window=spec.window)
+    return L.out_project(params, y, cfg), cache
+
+
+def block_apply(
+    params: Params,
+    x: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    mode: str = "prefill",
+    positions: Optional[torch.Tensor] = None,
+    pos: Optional[int] = None,
+    cache: Optional[Dict[str, Any]] = None,
+    causal: bool = True,
+    cache_len: int = 0,
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
+    """Returns (x_out, new_cache (or None), aux_loss scalar)."""
+    _check_ported(spec)
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported yet (ROADMAP: LM training, launch/train.py)")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if mode == "decode":
+        out, kv = _attn_decode(params["mixer"], h, cfg, spec, pos, cache["kv"])
+    else:
+        out, kv = _attn_full(params["mixer"], h, cfg, spec, positions, causal, mode, cache_len)
+    x = x + out.to(x.dtype)
+    if spec.ffn == FFN_DENSE:
+        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp(params["ffn"], h, cfg).to(x.dtype)
+    return x, {"kv": kv}, aux

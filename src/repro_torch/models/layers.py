@@ -1,0 +1,454 @@
+"""Core neural-net layers: norms, RoPE, GQA attention (three impls), KV
+caches, MLPs, embeddings.  The port of ``repro.models.layers``.
+
+Conventions (the reference's)
+-----------------------------
+* ``init_*`` returns ``(params, axes)``: ``axes`` mirrors the params tree
+  with tuples of *logical* axis names for the sharding rules (still to port,
+  ROADMAP item 17; nothing in the port reads them yet).  Draws come from a
+  ``torch.Generator``, on the generator's device; they differ from
+  ``jax.random``'s, so a parity test bridges the reference's weights.
+* Weights live in ``cfg.param_dtype``; matmuls run in ``cfg.compute_dtype``;
+  softmax/norm accumulations in float32.
+* Attention impls:
+    - ``reference``: full-score softmax (oracle; O(S²) memory)
+    - ``chunked``:   flash-style online-softmax loop over KV chunks
+    - ``pallas``:    the hand-written Hopper kernel in
+                     ``repro_torch.kernels.flash_attention`` (the name is the
+                     reference's config value)
+* Local attention uses ring-buffer KV caches of window size at decode.
+  ``update_cache`` writes the cache in place (the reference gets the same
+  from buffer donation).
+
+``sinusoidal_positions`` (whisper) is not ported yet (ROADMAP item 14).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, Any]
+# finite on purpose: the online softmax relies on exp(-1e30 - m) == 0 and on
+# rows that saw only masked scores being wiped by ``corr`` later; -inf
+# would give NaN there
+MASK_VALUE = -1e30
+
+
+def _dt(cfg: ModelConfig, kind: str) -> torch.dtype:
+    return getattr(torch, getattr(cfg, kind))
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, cfg: ModelConfig, device=None) -> Tuple[Params, Params]:
+    return ({"scale": torch.ones((d,), dtype=_dt(cfg, "param_dtype"), device=device)},
+            {"scale": ("embed",)})
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)                 # (half,)
+    angles = positions[..., None].float() * freqs          # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention parameter init and projections
+# --------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Tuple[Params, Params]:
+    d, hq, hk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    pd = _dt(cfg, "param_dtype")
+    std = 0.02
+    out_std = 0.02 / math.sqrt(2.0 * max(cfg.total_layers, 1))
+    params = {
+        "wq": _normal(gen, (d, hq, dh), std, pd),
+        "wk": _normal(gen, (d, hk, dh), std, pd),
+        "wv": _normal(gen, (d, hk, dh), std, pd),
+        "wo": _normal(gen, (hq, dh, d), out_std, pd),
+    }
+    axes = {
+        "wq": ("embed", "qheads", "head"),
+        "wk": ("embed", "kvheads", "head"),
+        "wv": ("embed", "kvheads", "head"),
+        "wo": ("qheads", "head", "embed"),
+    }
+    if cfg.qkv_bias:
+        params["bq"] = torch.zeros((hq, dh), dtype=pd, device=gen.device)
+        params["bk"] = torch.zeros((hk, dh), dtype=pd, device=gen.device)
+        params["bv"] = torch.zeros((hk, dh), dtype=pd, device=gen.device)
+        axes["bq"] = ("qheads", "head")
+        axes["bk"] = ("kvheads", "head")
+        axes["bv"] = ("kvheads", "head")
+    return params, axes
+
+
+def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def qkv_project(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    cd = _dt(cfg, "compute_dtype")
+    x = x.to(cd)
+    q = _proj_in(x, params["wq"].to(cd))
+    k = _proj_in(x, params["wk"].to(cd))
+    v = _proj_in(x, params["wv"].to(cd))
+    if "bq" in params:
+        q = q + params["bq"].to(cd)
+        k = k + params["bk"].to(cd)
+        v = v + params["bv"].to(cd)
+    return q, k, v
+
+
+def out_project(params: Params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    cd = _dt(cfg, "compute_dtype")
+    h, k, d = params["wo"].shape
+    return o.to(cd).reshape(*o.shape[:-2], h * k) @ params["wo"].to(cd).reshape(h * k, d)
+
+
+# --------------------------------------------------------------------------
+# Attention cores.  q: (B,Sq,Hq,D)  k,v: (B,Skv,Hk,D)
+# kv_positions: (B,Skv) absolute positions of cache slots (-1 = invalid)
+# q_positions:  (B,Sq)
+# --------------------------------------------------------------------------
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    mask = kpos >= 0
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-materialization oracle attention (O(Sq·Skv) memory)."""
+    b, sq, hq, d = q.shape
+    n_kv = k.shape[2]
+    g = hq // n_kv
+    scale = softmax_scale or (1.0 / math.sqrt(d))
+    qg = q.reshape(b, sq, n_kv, g, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores * scale
+    mask = _mask(q_positions[:, None, None, :, None], kv_positions[:, None, None, None, :],
+                 causal, window)
+    scores = torch.where(mask, scores, MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style online-softmax attention looping over KV chunks; never
+    materializes (Sq × Skv) scores."""
+    b, sq, hq, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    g = hq // n_kv
+    scale = softmax_scale or (1.0 / math.sqrt(d))
+    chunk = min(chunk, skv)
+    n_chunks = (skv + chunk - 1) // chunk
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+
+    qg = q.reshape(b, sq, n_kv, g, d).float() * scale
+    qpos = q_positions[:, None, None, :, None]  # (b,1,1,sq,1)
+    m = torch.full((b, n_kv, g, sq), MASK_VALUE, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, n_kv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, n_kv, g, sq, d), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, sl].float())
+        mask = _mask(qpos, kv_positions[:, None, None, None, sl], causal, window)
+        s = torch.where(mask, s, MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, sl].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return out.to(q.dtype)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    *,
+    impl: str = "chunked",
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    if impl == "reference":
+        return attention_reference(
+            q, k, v, q_positions, kv_positions, causal=causal, window=window
+        )
+    if impl == "pallas":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+
+        return fa_ops.flash_attention(
+            q, k, v, q_positions, kv_positions, causal=causal, window=window
+        )
+    return attention_chunked(
+        q, k, v, q_positions, kv_positions, causal=causal, window=window, chunk=chunk
+    )
+
+
+# --------------------------------------------------------------------------
+# KV caches.  Global layers: linear cache of size S_max.  Local layers:
+# ring buffer of size window.  Slot -> absolute position bookkeeping keeps
+# masking exact in both.
+# --------------------------------------------------------------------------
+
+
+def make_kv_cache(
+    batch: int, size: int, n_kv: int, head_dim: int, dtype: torch.dtype,
+    quantized: bool = False, device=None,
+) -> Dict[str, torch.Tensor]:
+    """KV cache.  ``quantized=True`` stores int8 K/V with per-(b,s,h) bf16
+    scales (KIVI/KVQuant-style): halves decode HBM traffic vs bf16."""
+    shape = (batch, size, n_kv, head_dim)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def kv_cache_axes(quantized: bool = False) -> Dict[str, Tuple[str, ...]]:
+    axes = {
+        "k": ("act_batch", "cache_seq", "kvheads", "head"),
+        "v": ("act_batch", "cache_seq", "kvheads", "head"),
+    }
+    if quantized:
+        axes["k_scale"] = ("act_batch", "cache_seq", "kvheads")
+        axes["v_scale"] = ("act_batch", "cache_seq", "kvheads")
+    return axes
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, S, H, D) -> int8 values + per-(…,S,H) bf16 scale."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale.float()[..., None]
+
+
+def cache_positions(size: int, pos: int, ring: bool, device=None) -> torch.Tensor:
+    """Absolute position stored in each cache slot after writing at ``pos``.
+
+    Linear cache: slot i holds position i (valid iff i <= pos).
+    Ring cache:   slot i holds the largest a <= pos with a % size == i.
+    Returns (size,) int32 with -1 for unwritten slots.
+    """
+    idx = torch.arange(size, dtype=torch.int32, device=device)
+    if not ring:
+        return torch.where(idx <= pos, idx, -1)
+    a = pos - ((pos - idx) % size)   # floor modulo, as jnp's
+    return torch.where(a >= 0, a, -1).to(torch.int32)
+
+
+def update_cache(
+    cache: Dict[str, torch.Tensor],
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pos: int,
+    *,
+    ring: bool,
+) -> Dict[str, torch.Tensor]:
+    """Write one step (Sq=1) of k/v at ``pos`` (ring: pos % size), in place;
+    returns ``cache``."""
+    size = cache["k"].shape[1]
+    slot = min(max(pos % size if ring else pos, 0), size - 1)  # clamped, as dynamic_update_slice
+    if "k_scale" in cache:  # int8 cache
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        cache["k"][:, slot:slot + 1] = kq
+        cache["v"][:, slot:slot + 1] = vq
+        cache["k_scale"][:, slot:slot + 1] = ks
+        cache["v_scale"][:, slot:slot + 1] = vs
+    else:
+        cache["k"][:, slot:slot + 1] = k_new.to(cache["k"].dtype)
+        cache["v"][:, slot:slot + 1] = v_new.to(cache["v"].dtype)
+    return cache
+
+
+def cache_kv_arrays(cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dequantized (k, v) views of a cache (no-op for bf16 caches)."""
+    if "k_scale" in cache:
+        return (
+            dequantize_kv(cache["k"], cache["k_scale"]),
+            dequantize_kv(cache["v"], cache["v_scale"]),
+        )
+    return cache["k"], cache["v"]
+
+
+def prefill_cache_from_kv(
+    k: torch.Tensor, v: torch.Tensor, size: int, *, ring: bool, quantized: bool = False
+) -> Dict[str, torch.Tensor]:
+    """Build a cache of ``size`` slots from a full prefill's k/v (B,S,Hk,D)."""
+    b, s, hk, d = k.shape
+    if not ring:
+        pad = size - s
+        kk = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad > 0 else k[:, :size]
+        vv = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad > 0 else v[:, :size]
+    else:
+        # ring: keep the last `size` positions, placed at slot = abs_pos % size
+        take = min(s, size)
+        slots = torch.arange(s - take, s, device=k.device) % size
+        kk = torch.zeros((b, size, hk, d), dtype=k.dtype, device=k.device)
+        vv = torch.zeros((b, size, hk, d), dtype=v.dtype, device=v.device)
+        kk[:, slots] = k[:, s - take:]
+        vv[:, slots] = v[:, s - take:]
+    if quantized:
+        kq, ks = quantize_kv(kk)
+        vq, vs = quantize_kv(vv)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": kk.contiguous(), "v": vv.contiguous()}
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Tuple[Params, Params]:
+    d, f = cfg.d_model, cfg.d_ff
+    pd = _dt(cfg, "param_dtype")
+    std = 0.02
+    out_std = 0.02 / math.sqrt(2.0 * max(cfg.total_layers, 1))
+    if cfg.mlp_act == "gelu":
+        params = {
+            "w1": _normal(gen, (d, f), std, pd),
+            "b1": torch.zeros((f,), dtype=pd, device=gen.device),
+            "w2": _normal(gen, (f, d), out_std, pd),
+            "b2": torch.zeros((d,), dtype=pd, device=gen.device),
+        }
+        axes = {"w1": ("embed", "mlp"), "b1": ("mlp",), "w2": ("mlp", "embed"), "b2": ("embed",)}
+        return params, axes
+    params = {
+        "wg": _normal(gen, (d, f), std, pd),
+        "wu": _normal(gen, (d, f), std, pd),
+        "wd": _normal(gen, (f, d), out_std, pd),
+    }
+    axes = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+    return params, axes
+
+
+def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = _dt(cfg, "compute_dtype")
+    x = x.to(cd)
+    if cfg.mlp_act == "gelu":
+        h = x @ params["w1"].to(cd) + params["b1"].to(cd)
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+        return h @ params["w2"].to(cd) + params["b2"].to(cd)
+    g = x @ params["wg"].to(cd)
+    u = x @ params["wu"].to(cd)
+    h = F.silu(g) * u
+    return h @ params["wd"].to(cd)
+
+
+# --------------------------------------------------------------------------
+# Embeddings / logits
+# --------------------------------------------------------------------------
+
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Tuple[Params, Params]:
+    pd = _dt(cfg, "param_dtype")
+    params = {"embedding": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, pd)}
+    axes = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab_size), 0.02, pd)
+        axes["unembed"] = ("embed", "vocab")
+    return params, axes
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embedding"][tokens].to(_dt(cfg, "compute_dtype"))
+
+
+def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = _dt(cfg, "compute_dtype")
+    if "unembed" in params:
+        return x.to(cd) @ params["unembed"].to(cd)
+    return x.to(cd) @ params["embedding"].to(cd).T

@@ -63,25 +63,33 @@ def _no_card():
 
 def _entry_points():
     from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.runtime import MeasuredRuntime
     from repro_torch.fed.batch_exec import BatchedExecutor
     from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import init_lm, make_lm_cache
     from repro_torch.models.small import SmallModelConfig, init_small
     from repro_torch.optim.optimizers import make_optimizer
 
     cfg = SmallModelConfig(hidden=4, n_layers=1, image_size=2)
+    lm_cfg = get_config("qwen1.5-0.5b", reduced=True)
     return {
         "init_small": lambda: init_small(0, cfg),
         "BatchedExecutor": lambda: BatchedExecutor(cfg, make_optimizer("sgd", 0.1)),
         "FederatedTrainer": lambda: FederatedTrainer(cfg, [], FedConfig()),
         "MeasuredRuntime": lambda: MeasuredRuntime(),
         "params_from_numpy": lambda: params_from_numpy({"w": np.zeros(2)}),
+        "init_lm": lambda: init_lm(torch.Generator(), lm_cfg),
+        "make_lm_cache": lambda: make_lm_cache(lm_cfg, 1, 8),
+        "serve": lambda: serve(lm_cfg, batch=1, prompt_len=4, decode_steps=1),
     }
 
 
 @pytest.mark.parametrize("name", ["init_small", "BatchedExecutor",
                                   "FederatedTrainer", "MeasuredRuntime",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "init_lm", "make_lm_cache",
+                                  "serve"])
 def test_entry_point_without_device_raises_on_a_cpu_only_host(name):
     _no_card()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.grouped_matmul import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +97,76 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         ops.gmm(x, w, gs[:1])                          # one size for two groups
     with pytest.raises(ValueError):
         ops.gmm(x, w.cpu(), gs)                        # mixed devices
+
+
+# flash attention: (b, sq, skv, hq, hk, d, causal, window) — the reference's
+# sweep (tests/test_kernels.py:26-34), a suffix (Sq < Skv), ragged lengths
+# and head sizes off the kernel's tiles
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 32, True, None),
+    (2, 256, 256, 8, 2, 64, True, None),
+    (2, 256, 256, 8, 2, 64, True, 64),
+    (1, 384, 384, 4, 1, 32, True, 128),
+    (2, 128, 128, 4, 4, 64, False, None),
+    (1, 128, 512, 4, 2, 64, True, None),
+    (2, 200, 200, 4, 2, 32, True, None),
+    (1, 37, 150, 4, 4, 16, True, 24),
+    (1, 70, 70, 2, 2, 48, False, None),
+    (1, 65, 65, 2, 1, 128, True, 5),
+]
+
+
+def _flash_inputs(case, device, dtype, seed=7):
+    b, sq, skv, hq, hk, d = case[:6]
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(device, dtype)
+                 for shape in ((b, sq, hq, d), (b, skv, hk, d), (b, skv, hk, d)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain_version(card, case, dtype):
+    causal, window = case[6:]
+    q, k, v = _flash_inputs(case, card, getattr(torch, dtype))
+    before = fa_ops.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_attention_reads_strided_layouts_in_place(card):
+    """(B, H, S, D) tensors viewed as (B, S, H, D): the kernel follows the
+    strides and gives the contiguous result exactly."""
+    q, k, v = _flash_inputs((2, 96, 96, 4, 2, 64), card, torch.float32)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    want = fa_ops.flash_attention(q, k, v, window=40)
+    got = fa_ops.flash_attention(*views, window=40)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q = torch.zeros((1, 8, 4, 16), device=card)
+    k = torch.zeros((1, 8, 2, 16), device=card)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q[:, :, :3], q[:, :, :3])        # Hk does not divide Hq
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k.cpu(), k)                       # mixed devices
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k, window=0)
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 1, 264), device=card)
+        fa_ops.flash_attention(big, big, big)                       # D above the kernel's 256
+    with pytest.raises(ValueError):
+        odd = torch.zeros((1, 8, 4, 32), device=card)[..., ::2]
+        fa_ops.flash_attention(odd, odd, odd)                       # D not unit-stride
+    with pytest.raises(NotImplementedError):
+        fa_ops.flash_attention(q.requires_grad_(), k, k)            # no backward yet

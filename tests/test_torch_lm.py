@@ -1,0 +1,246 @@
+"""The port's LM serving path against the reference's, on the CPU.
+
+Configs equal field for field; the reference's weights bridged into the
+port; ``lm_prefill`` with ``attn_impl="pallas"`` (the reference's Pallas
+kernel interpreted on the CPU, the port's plain version) on last-token
+logits and every cache leaf; greedy decode steps on tokens and logits; the
+checkpoint keys of params and caches; the layers the path runs; and the
+serve entry point end to end.  Tolerances are the reference's: f32 2e-5, bf16
+compute 2e-2."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.ckpt.checkpoint import _flatten
+from repro.configs import registry as ref_registry
+from repro.models import layers as ref_L
+from repro.models import lm as ref_lm
+from repro.models.registry import make_serve_step as ref_make_serve_step
+from repro_torch.bridge import flatten, params_from_numpy
+from repro_torch.configs import registry
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch.serve import serve
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+from repro_torch.models.registry import make_serve_step, model_fns
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+# (arch, overrides, tolerance): qwen in f32, in bf16 compute and with an
+# int8 KV cache; gemma3 with a window of 8, GQA 4:2, ring caches and groups
+# of two specs
+CASES = {
+    "qwen-f32": ("qwen1.5-0.5b", {}, F32),
+    "qwen-bf16": ("qwen1.5-0.5b", {"compute_dtype": "bfloat16"}, BF16),
+    "qwen-int8kv": ("qwen1.5-0.5b", {"kv_cache_quant": True}, F32),
+    "gemma3": ("gemma3-27b", {}, F32),
+}
+PROMPT, STEPS = 24, 8
+
+
+def _cfgs(arch, overrides):
+    over = dict(overrides, attn_impl="pallas")
+    return (ref_registry.get_config(arch, reduced=True).replace(**over),
+            registry.get_config(arch, reduced=True).replace(**over))
+
+
+def _params(ref_cfg, seed=0):
+    """The reference's weights, randomized further so biases and norm scales
+    are not all zeros and ones, as numpy and as the port's tensors."""
+    params, _ = ref_lm.init_lm(jax.random.PRNGKey(seed), ref_cfg)
+    rng = np.random.default_rng(seed)
+    host = jax.tree.map(np.asarray, jax.device_get(params))
+    host = jax.tree.map(lambda a: a + rng.normal(scale=0.02, size=a.shape).astype(a.dtype)
+                        if a.ndim <= 3 and "float" in a.dtype.name else a, host)
+    return host, params_from_numpy(host, "cpu")
+
+
+def _close(got: torch.Tensor, want, tol, what):
+    want = np.asarray(want)
+    if want.dtype == np.int8:   # int8 cache values: the same rounding on both sides
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=what)
+        return
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), **tol,
+                               err_msg=what)
+
+
+# ---------------------------------------------------------------- configs
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_configs_equal_the_reference_field_for_field(reduced):
+    assert set(registry.ARCH_IDS) == set(ref_registry.ARCH_IDS)
+    for arch in ref_registry.ARCH_IDS:
+        want = ref_registry.get_config(arch, reduced=reduced)
+        got = registry.get_config(arch, reduced=reduced)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
+        assert got.param_count() == want.param_count(), arch
+
+
+# ---------------------------------------------------------------- init
+
+
+@pytest.mark.parametrize("case", ["qwen-f32", "gemma3"])
+def test_init_keeps_the_reference_tree_shapes_dtypes_and_axes(case):
+    arch, over, _ = CASES[case]
+    ref_cfg, cfg = _cfgs(arch, over)
+    ref_params, ref_axes = ref_lm.init_lm(jax.random.PRNGKey(0), ref_cfg)
+    params, axes = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    want, got = _flatten(ref_params), flatten(params)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].shape == want[key].shape and got[key].dtype == want[key].dtype, key
+    assert axes == ref_axes
+    # the init laws: std 0.02, output projections 0.02/√(2·layers), zero biases
+    emb = params["tok"]["embedding"]
+    assert abs(float(emb.std()) - 0.02) < 2e-3
+    wo = params["groups"]["g0"]["p0"]["mixer"]["wo"]
+    assert abs(float(wo.std()) - 0.02 / np.sqrt(2.0 * cfg.total_layers)) < 2e-3
+
+
+# ---------------------------------------------------------------- prefill / decode
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_prefill_and_greedy_decode_match_the_reference(case):
+    arch, over, tol = CASES[case]
+    ref_cfg, cfg = _cfgs(arch, over)
+    host, params = _params(ref_cfg)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    cache_len = PROMPT + STEPS + 1
+
+    want_logits, want_cache = ref_lm.lm_prefill(jax.tree.map(jnp.asarray, host),
+                                                jnp.asarray(tokens), ref_cfg,
+                                                cache_len=cache_len)
+    with torch.no_grad():
+        logits, cache = lm.lm_prefill(params, torch.from_numpy(tokens).long(), cfg,
+                                      cache_len=cache_len)
+    _close(logits, want_logits, tol, "prefill logits")
+    want_flat, got_flat = _flatten(want_cache), flatten(cache)
+    assert list(got_flat) == list(want_flat)
+    for key in want_flat:
+        _close(torch.from_numpy(got_flat[key]), want_flat[key], tol, f"prefill cache {key}")
+
+    # greedy decode, each side on its own tokens; where the reference's best
+    # two logits are closer than the tolerance, both sides take its token
+    ref_step = jax.jit(ref_make_serve_step(ref_cfg))
+    step = make_serve_step(cfg)
+    ref_cache, ref_params = want_cache, jax.tree.map(jnp.asarray, host)
+    want_tok = np.asarray(jnp.argmax(want_logits, -1))
+    tok = torch.argmax(logits, -1)
+    for i in range(STEPS):
+        top2 = np.sort(np.asarray(want_logits, np.float32), -1)[:, -2:]
+        near_tie = (top2[:, 1] - top2[:, 0]) <= 2 * tol["atol"]
+        assert np.array_equal(tok.numpy()[~near_tie], want_tok[~near_tie]), (case, i)
+        tok = torch.from_numpy(want_tok.astype(np.int64))
+        want_logits, ref_cache = ref_step(ref_params, ref_cache,
+                                          {"token": jnp.asarray(want_tok), "pos": PROMPT + i})
+        with torch.no_grad():
+            logits, cache = step(params, cache, {"token": tok, "pos": PROMPT + i})
+        _close(logits, want_logits, tol, f"decode step {i} logits")
+        want_tok = np.asarray(jnp.argmax(want_logits, -1))
+        tok = torch.argmax(logits, -1)
+    for key, want in _flatten(ref_cache).items():
+        _close(torch.from_numpy(flatten(cache)[key]), want, tol, f"decode cache {key}")
+
+
+def test_prefill_runs_the_flash_attention_route_once_per_layer(monkeypatch):
+    _, cfg = _cfgs("gemma3-27b", {})
+    calls = []
+    real = fa_ops.flash_attention
+
+    def spy(q, k, v, *a, **kw):
+        calls.append(kw.get("window"))
+        return real(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(fa_ops, "flash_attention", spy)
+    params, _ = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with torch.no_grad():
+        lm.lm_prefill(params, torch.zeros((1, 16), dtype=torch.long), cfg, cache_len=20)
+    assert calls == [8, None, 8, None]   # (local, global) x 2, in layer order
+
+
+# ---------------------------------------------------------------- keys
+
+
+def test_flatten_keys_equal_the_checkpoint_keys_for_params_and_caches():
+    ref_cfg, cfg = _cfgs("gemma3-27b", {"kv_cache_quant": True})
+    ref_params, _ = ref_lm.init_lm(jax.random.PRNGKey(0), ref_cfg)
+    ref_cache, _ = ref_lm.make_lm_cache(ref_cfg, 2, 20)
+    params, _ = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cache, _ = model_fns(cfg).make_cache(2, 20, device="cpu")
+    for want, got in ((_flatten(ref_params), flatten(params)),
+                      (_flatten(ref_cache), flatten(cache))):
+        assert list(got) == list(want)
+        for key in want:
+            assert got[key].shape == want[key].shape and got[key].dtype == want[key].dtype, key
+    # the bridge gives the port the reference's weights exactly
+    bridged = flatten(params_from_numpy(jax.device_get(ref_params), "cpu"))
+    for key, want in _flatten(ref_params).items():
+        np.testing.assert_array_equal(bridged[key], want)
+
+
+# ---------------------------------------------------------------- layers
+
+
+def test_attention_impls_match_the_reference_with_cache_positions():
+    """reference and chunked attention with invalid slots (-1), a ring of
+    positions, a window and GQA, against the reference's layers."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(2, 5, 4, 8)).astype(np.float32)
+    k = rng.normal(size=(2, 11, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(2, 11, 2, 8)).astype(np.float32)
+    qpos = np.broadcast_to(np.arange(14, 19), (2, 5)).astype(np.int32)
+    kpos = np.broadcast_to(np.array([11, 12, 13, 14, 15, 16, 17, 18, 8, 9, -1]), (2, 11))
+    kpos = kpos.astype(np.int32)
+    args_j = [jnp.asarray(a) for a in (q, k, v, qpos, kpos)]
+    args_t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (q, k, v, qpos, kpos)]
+    for window in (None, 6):
+        want = ref_L.attention_reference(*args_j, window=window)
+        got = L.attention_reference(*args_t, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+        want = ref_L.attention_chunked(*args_j, window=window, chunk=4)
+        got = L.attention_chunked(*args_t, window=window, chunk=4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_cache_helpers_match_the_reference(ring):
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(2, 13, 2, 8)) * 3).astype(np.float32)
+    for pos in (0, 5, 12, 30):
+        np.testing.assert_array_equal(L.cache_positions(8, pos, ring).numpy(),
+                                      np.asarray(ref_L.cache_positions(8, jnp.int32(pos), ring)))
+    size = 8 if ring else 16
+    for quantized in (False, True):
+        want = ref_L.prefill_cache_from_kv(jnp.asarray(x), jnp.asarray(x), size, ring=ring,
+                                           quantized=quantized)
+        got = L.prefill_cache_from_kv(torch.from_numpy(x), torch.from_numpy(x), size,
+                                      ring=ring, quantized=quantized)
+        for key in want:
+            np.testing.assert_array_equal(flatten(got)[key], _flatten(want)[key])
+    kq, ks = L.quantize_kv(torch.from_numpy(x))
+    np.testing.assert_allclose(L.dequantize_kv(kq, ks).numpy(), x, atol=float(np.abs(x).max()) / 100)
+
+
+# ---------------------------------------------------------------- serve
+
+
+def test_serve_runs_end_to_end_on_the_cpu():
+    lines = []
+    out = serve(registry.get_config("qwen1.5-0.5b", reduced=True), batch=2, prompt_len=16,
+                decode_steps=4, device="cpu", log=lambda *a: lines.append(" ".join(map(str, a))))
+    assert out["tokens"].shape == (2, 5) and out["tokens"].dtype == torch.int64
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 512
+    assert all(torch.isfinite(lg.float()).all() for lg in out["logits"])
+    assert [line.split(":")[0] for line in lines] == ["prefill", "decode", "sample token ids"]
+    assert lines[0].startswith("prefill: 2×16 tokens in ")
+    assert lines[1].startswith("decode: 4 steps × batch 2 in ")
+    # greedy: each generated token is the argmax of its step's logits
+    for i, lg in enumerate(out["logits"]):
+        assert torch.equal(torch.argmax(lg, -1), out["tokens"][:, i])
