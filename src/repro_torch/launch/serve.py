@@ -3,6 +3,8 @@ port of ``repro.launch.serve``, with the same flags and printed lines.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \
         --batch 4 --prompt-len 64 --decode-steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced
 
 It runs on the CUDA card (and raises without one); ``serve(...,
 device="cpu")`` runs it on the CPU.
@@ -34,20 +36,22 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
 
     Where it differs from the reference's entry point:
 
-    * the model runs with ``attn_impl="pallas"`` whatever ``cfg`` says, so on
-      the card every prefill attention goes through the hand-written flash
-      kernel (decode attends through the plain attention, as the
-      reference's decode does);
+    * the model runs with ``attn_impl``, ``ssm_impl`` and ``rglru_impl`` set
+      to ``"pallas"`` whatever ``cfg`` says, so on the card every prefill
+      attention, SSD scan and RG-LRU scan goes through its hand-written
+      kernel (flash attention, ``ssd_scan``, ``rglru_scan``); decode attends
+      through the plain attention and steps the recurrences in plain torch,
+      as the reference's decode does;
     * weights come from a ``torch.Generator`` seeded with ``seed``, prompts
       and sampling from one seeded with ``seed + 1`` (the reference's
       ``PRNGKey(0)`` and ``PRNGKey(1)``; the draws differ);
-    * decode writes the KV cache in place (the reference donates it).
+    * decode writes the caches in place (the reference donates them).
 
     Returns the parameters, prompts, generated tokens ``(B, 1 +
     decode_steps)``, the logits of every step, and the wall seconds of
     prefill and decode."""
     dev = resolve_device(device)
-    cfg = cfg.replace(attn_impl="pallas")
+    cfg = cfg.replace(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas")
     fns = model_fns(cfg)
     params, _ = fns.init(torch.Generator(device=dev).manual_seed(seed), dev)
     serve_step = make_serve_step(cfg)

@@ -1,13 +1,15 @@
-"""Residual block: attention mixer + {dense | none} FFN.  The port of
-``repro.models.blocks`` for the dense family.
+"""Residual block: {attn | mamba2 | rglru} mixer + {dense | none} FFN.  The
+port of ``repro.models.blocks`` for the dense, ssm and hybrid families.
 
 The ``LayerSpec`` selects the mixer/FFN per layer; ``LayerGroup`` patterns
-hold stacked parameters (see ``repro_torch.models.lm``).  Mamba-2, RG-LRU,
-MoE and cross-attention blocks are not ported yet and raise.
+hold stacked parameters (see ``repro_torch.models.lm``).  MoE FFNs and
+cross-attention blocks are not ported yet and raise.
 
 Modes:
   * ``prefill`` — whole-sequence forward that also emits a decode cache
   * ``decode``  — single-token step against the cache, written in place
+    (attention writes its slot; the recurrent mixers copy their new conv
+    window and state over the old)
   (``full``, the training forward, comes with the training slice.)
 
 Caches are per-block dicts; local-attention layers use ring buffers of
@@ -20,16 +22,26 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import FFN_DENSE, FFN_NONE, MIXER_ATTN, LayerSpec, ModelConfig
+from repro_torch.configs.base import (
+    FFN_DENSE,
+    FFN_NONE,
+    MIXER_ATTN,
+    MIXER_MAMBA2,
+    MIXER_RGLRU,
+    LayerSpec,
+    ModelConfig,
+)
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import rglru as RG
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.mixer != MIXER_ATTN:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet (ROADMAP: models/mamba2.py, models/rglru.py)")
+    if spec.mixer not in (MIXER_ATTN, MIXER_MAMBA2, MIXER_RGLRU):
+        raise ValueError(spec.mixer)
     if spec.cross_attn:
         raise NotImplementedError(
             "cross-attention blocks are not ported yet (ROADMAP: models/encdec.py)")
@@ -46,7 +58,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> Tuple
     _check_ported(spec)
     p, a = {}, {}
     p["norm1"], a["norm1"] = L.init_rmsnorm(cfg.d_model, cfg, gen.device)
-    p["mixer"], a["mixer"] = L.init_attention(gen, cfg)
+    if spec.mixer == MIXER_ATTN:
+        p["mixer"], a["mixer"] = L.init_attention(gen, cfg)
+    elif spec.mixer == MIXER_MAMBA2:
+        p["mixer"], a["mixer"] = M2.init_mamba2(gen, cfg)
+    else:
+        p["mixer"], a["mixer"] = RG.init_rglru(gen, cfg)
     if spec.ffn == FFN_DENSE:
         p["norm2"], a["norm2"] = L.init_rmsnorm(cfg.d_model, cfg, gen.device)
         p["ffn"], a["ffn"] = L.init_mlp(gen, cfg)
@@ -66,6 +83,10 @@ def block_cache(
     device=None,
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     _check_ported(spec)
+    if spec.mixer == MIXER_MAMBA2:
+        return {"ssm": M2.mamba2_cache(cfg, batch, device)}, {"ssm": M2.mamba2_cache_axes()}
+    if spec.mixer == MIXER_RGLRU:
+        return {"lru": RG.rglru_cache(cfg, batch, device)}, {"lru": RG.rglru_cache_axes()}
     ring = spec.window is not None and spec.window < cache_len
     size = spec.window if ring else cache_len
     c = {"kv": L.make_kv_cache(batch, size, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -140,12 +161,24 @@ def block_apply(
             f"mode {mode!r} is not ported yet (ROADMAP: LM training, launch/train.py)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if mode == "decode":
-        out, kv = _attn_decode(params["mixer"], h, cfg, spec, pos, cache["kv"])
+    if spec.mixer == MIXER_ATTN:
+        key = "kv"
+        if mode == "decode":
+            out, st = _attn_decode(params["mixer"], h, cfg, spec, pos, cache["kv"])
+        else:
+            out, st = _attn_full(params["mixer"], h, cfg, spec, positions, causal, mode,
+                                 cache_len)
     else:
-        out, kv = _attn_full(params["mixer"], h, cfg, spec, positions, causal, mode, cache_len)
+        key, forward, decode = (("ssm", M2.mamba2_forward, M2.mamba2_decode)
+                                if spec.mixer == MIXER_MAMBA2 else
+                                ("lru", RG.rglru_forward, RG.rglru_decode))
+        if mode == "decode":
+            out, st = decode(params["mixer"], h, cache[key], cfg)
+            st = tree_map(lambda old, new: old.copy_(new), cache[key], st)
+        else:
+            out, st = forward(params["mixer"], h, cfg, return_cache=True)
     x = x + out.to(x.dtype)
     if spec.ffn == FFN_DENSE:
         h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
         x = x + L.mlp(params["ffn"], h, cfg).to(x.dtype)
-    return x, {"kv": kv}, aux
+    return x, {key: st}, aux

@@ -1,15 +1,19 @@
 """Decoder-only language model over layer groups.  The port of
-``repro.models.lm`` for serving (prefill and decode).
+``repro.models.lm`` for serving (prefill and decode) of the dense, ssm
+(mamba2) and hybrid (recurrentgemma) families.
 
 Layer groups (``cfg.groups``) hold stacked parameters on a leading layer
 axis, as the reference's scanned groups do; the port loops over that axis
 in Python, and within one step unrolls the group's (short) pattern, so
 gemma3's local/global pattern is a two-block body run ``repeat`` times.
 Caches keep the reference's structure: a dict of groups, a tuple per
-pattern position, a leading layer axis.
+pattern position, a leading layer axis; an attention block holds ``{"kv":
+{"k", "v"}}``, a Mamba-2 block ``{"ssm": {"conv", "ssm"}}`` and an RG-LRU
+block ``{"lru": {"conv", "h"}}``, with the reference's shapes and dtypes.
 
 Not ported yet: the ``full`` training forward, ``chunked_ce`` and
-``lm_loss`` (LM training, ROADMAP item 15), and the VLM prefix.
+``lm_loss`` (LM training, ROADMAP item 15), MoE FFNs (item 13) and the VLM
+prefix.
 """
 from __future__ import annotations
 

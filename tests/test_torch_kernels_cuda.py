@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+``gmm``/``tgmm``, ``flash_attention``, ``ssd_scan`` and ``rglru_scan``.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import neither JAX nor the reference package, so they
@@ -13,6 +14,10 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.grouped_matmul import ops, ref
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.rglru_scan import ref as lru_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +175,139 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
         fa_ops.flash_attention(odd, odd, odd)                       # D not unit-stride
     with pytest.raises(NotImplementedError):
         fa_ops.flash_attention(q.requires_grad_(), k, k)            # no backward yet
+
+
+# SSD scan: (b, l, h, p, g, n) — the reference's sweep (tests/test_kernels.py:
+# 66-68), G > 1 with a ragged tail, one chunk's worth with no tail, a length
+# shorter than the kernel's chunk with P and N off its buckets, and
+# mamba2-1.3b's head and state sizes
+SSD_CASES = [
+    (1, 64, 2, 8, 1, 8),
+    (2, 128, 4, 16, 2, 16),
+    (1, 96, 4, 8, 1, 16),
+    (2, 45, 4, 8, 2, 16),
+    (1, 32, 2, 8, 1, 8),
+    (1, 7, 2, 24, 1, 40),
+    (2, 100, 8, 64, 1, 128),
+]
+
+
+def _ssd_inputs(case, device, dtype, seed=8):
+    b, l, h, p, g, n = case
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, l, h, p))
+    dt = np.log1p(np.exp(rng.normal(size=(b, l, h))))    # softplus
+    a = -np.exp(rng.normal(size=(h,)))
+    bm, cm = rng.normal(size=(b, l, g, n)), rng.normal(size=(b, l, g, n))
+    f32 = torch.float32
+    return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(dt).to(device, f32),
+            torch.from_numpy(a).to(device, f32), torch.from_numpy(bm).to(device, dtype),
+            torch.from_numpy(cm).to(device, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_matches_plain_version(card, case, dtype):
+    """Held against the step recurrence, as tests/test_kernels.py holds the
+    Pallas kernel, at the reference's tolerances: elementwise, but for y at
+    N = 128, where one read-out sums 128 products of unit normals and an
+    element that cancels carries the rounding of those terms on either
+    side: there y is held by its relative norm."""
+    args = _ssd_inputs(case, card, getattr(torch, dtype))
+    before = ssd_ops.LAUNCHES["ssd_scan"]
+    y, s = ssd_ops.ssd(*args, chunk=32, impl="pallas")
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_s = ssd_ref.ssd_sequential(*args)
+    assert y.dtype == args[0].dtype and y.shape == args[0].shape
+    assert s.dtype == torch.float32 and s.shape == want_s.shape
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    if case[-1] <= 32:
+        torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    rel = float((y.float() - want_y.float()).norm() / want_y.float().norm())
+    assert rel < tol["rtol"], rel
+    torch.testing.assert_close(s, want_s, **tol)
+
+
+def test_ssd_scan_reads_strided_layouts_in_place(card):
+    """x, B and C as slices of one wider projection, as a fused projection
+    would hand them over: the kernel follows the strides and gives the
+    contiguous result exactly."""
+    x, dt, a, bm, cm = _ssd_inputs((2, 70, 4, 16, 2, 16), card, torch.float32)
+    wide = torch.cat([x.flatten(2), bm.flatten(2), cm.flatten(2)], dim=-1)
+    xv = wide[..., :64].unflatten(2, (4, 16))
+    bv, cv = wide[..., 64:96].unflatten(2, (2, 16)), wide[..., 96:].unflatten(2, (2, 16))
+    assert not xv.is_contiguous()
+    want = ssd_ops.ssd(x, dt, a, bm, cm, impl="pallas")
+    got = ssd_ops.ssd(xv, dt, a, bv, cv, impl="pallas")
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, dt, a, bm, cm = _ssd_inputs((1, 8, 4, 8, 2, 8), card, torch.float32)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(x.half(), dt, a, bm.half(), cm.half(), impl="pallas")
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(x, dt, a, bm.bfloat16(), cm, impl="pallas")      # mixed dtypes
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x[:, :, :3], dt[:, :, :3], a[:3], bm, cm, impl="pallas")   # G does not divide H
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x, dt.cpu(), a, bm, cm, impl="pallas")           # mixed devices
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 1, 72), device=card)
+        ssd_ops.ssd(big, dt[:, :, :1], a[:1], bm[:, :, :1], cm[:, :, :1], impl="pallas")
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x[..., ::2], dt, a, bm, cm, impl="pallas")       # P not unit-stride
+    with pytest.raises(NotImplementedError):
+        ssd_ops.ssd(x.requires_grad_(), dt, a, bm, cm, impl="pallas")   # no backward yet
+
+
+# RG-LRU scan: (b, l, w) — the reference's sweep (tests/test_kernels.py:111),
+# lengths the Pallas kernel refuses, one step, W off the kernel's 32 lanes
+RGLRU_CASES = [
+    (1, 64, 32),
+    (2, 256, 128),
+    (2, 96, 64),
+    (2, 37, 48),
+    (1, 1, 16),
+    (3, 300, 40),
+    (1, 2048, 96),
+]
+
+
+def _rglru_inputs(case, device, dtype, seed=9):
+    rng = np.random.default_rng(seed)
+    log_a = -np.log1p(np.exp(rng.normal(size=case)))   # -softplus
+    x = rng.normal(size=case)
+    return (torch.from_numpy(log_a).to(device, torch.float32),
+            torch.from_numpy(x).to(device, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_scan_matches_plain_version(card, case, dtype):
+    log_a, x = _rglru_inputs(case, card, getattr(torch, dtype))
+    before = lru_ops.LAUNCHES["rglru_scan"]
+    y, h = lru_ops.rglru_scan(log_a, x, impl="pallas")
+    torch.cuda.synchronize()
+    assert lru_ops.LAUNCHES["rglru_scan"] == before + 1
+    want_y, want_h = lru_ref.rglru_associative(log_a, x)
+    assert y.dtype == x.dtype and y.shape == x.shape and h.dtype == torch.float32
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(card):
+    log_a, x = _rglru_inputs((2, 16, 8), card, torch.float32)
+    with pytest.raises(TypeError):
+        lru_ops.rglru_scan(log_a, x.half(), impl="pallas")
+    with pytest.raises(ValueError):
+        lru_ops.rglru_scan(log_a[:, :8], x, impl="pallas")           # shapes differ
+    with pytest.raises(ValueError):
+        lru_ops.rglru_scan(log_a, x.cpu(), impl="pallas")            # mixed devices
+    with pytest.raises(ValueError):
+        lru_ops.rglru_scan(log_a[..., ::2], x[..., ::2], impl="pallas")   # W not unit-stride
+    with pytest.raises(NotImplementedError):
+        lru_ops.rglru_scan(log_a, x.requires_grad_(), impl="pallas")    # no backward yet

@@ -1,11 +1,13 @@
 """The port's LM serving path against the reference's, on the CPU.
 
 Configs equal field for field; the reference's weights bridged into the
-port; ``lm_prefill`` with ``attn_impl="pallas"`` (the reference's Pallas
-kernel interpreted on the CPU, the port's plain version) on last-token
-logits and every cache leaf; greedy decode steps on tokens and logits; the
-checkpoint keys of params and caches; the layers the path runs; and the
-serve entry point end to end.  Tolerances are the reference's: f32 2e-5, bf16
+port; ``lm_prefill`` with ``attn_impl``, ``ssm_impl`` and ``rglru_impl`` set
+to ``"pallas"`` (the reference's Pallas kernels interpreted on the CPU, the
+port's plain versions) on last-token logits and every cache leaf; greedy
+decode steps on tokens and logits; the checkpoint keys of params and
+caches; the layers the path runs; and the serve entry point end to end.
+The dense family (qwen, gemma3), the ssm family (mamba2) and the hybrid
+family (recurrentgemma).  Tolerances are the reference's: f32 2e-5, bf16
 compute 2e-2."""
 import dataclasses
 
@@ -23,6 +25,8 @@ from repro.models.registry import make_serve_step as ref_make_serve_step
 from repro_torch.bridge import flatten, params_from_numpy
 from repro_torch.configs import registry
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.serve import serve
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -33,18 +37,24 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 
 # (arch, overrides, tolerance): qwen in f32, in bf16 compute and with an
 # int8 KV cache; gemma3 with a window of 8, GQA 4:2, ring caches and groups
-# of two specs
+# of two specs; mamba2 (SSD chunk 16 against a prompt of 24: a ragged tail)
+# in f32 and bf16 compute; recurrentgemma (RG-LRU, RG-LRU, MQA local
+# attention with a window of 8 and a ring cache)
 CASES = {
     "qwen-f32": ("qwen1.5-0.5b", {}, F32),
     "qwen-bf16": ("qwen1.5-0.5b", {"compute_dtype": "bfloat16"}, BF16),
     "qwen-int8kv": ("qwen1.5-0.5b", {"kv_cache_quant": True}, F32),
     "gemma3": ("gemma3-27b", {}, F32),
+    "mamba2": ("mamba2-1.3b", {}, F32),
+    "mamba2-bf16": ("mamba2-1.3b", {"compute_dtype": "bfloat16"}, BF16),
+    "recurrentgemma": ("recurrentgemma-9b", {}, F32),
 }
+KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas")
 PROMPT, STEPS = 24, 8
 
 
 def _cfgs(arch, overrides):
-    over = dict(overrides, attn_impl="pallas")
+    over = dict(overrides, **KERNEL_ROUTES)
     return (ref_registry.get_config(arch, reduced=True).replace(**over),
             registry.get_config(arch, reduced=True).replace(**over))
 
@@ -85,7 +95,7 @@ def test_configs_equal_the_reference_field_for_field(reduced):
 # ---------------------------------------------------------------- init
 
 
-@pytest.mark.parametrize("case", ["qwen-f32", "gemma3"])
+@pytest.mark.parametrize("case", ["qwen-f32", "gemma3", "mamba2", "recurrentgemma"])
 def test_init_keeps_the_reference_tree_shapes_dtypes_and_axes(case):
     arch, over, _ = CASES[case]
     ref_cfg, cfg = _cfgs(arch, over)
@@ -183,6 +193,53 @@ def test_flatten_keys_equal_the_checkpoint_keys_for_params_and_caches():
     bridged = flatten(params_from_numpy(jax.device_get(ref_params), "cpu"))
     for key, want in _flatten(ref_params).items():
         np.testing.assert_array_equal(bridged[key], want)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_bridge_carries_the_recurrent_leaves_under_checkpoint_keys(arch):
+    """The recurrent mixers' own leaves (``a_log``, ``dt_bias``, ``d_skip``,
+    ``conv_*``; ``lam``, ``ba``, ``bi``, ``conv``) and caches (``conv``,
+    ``ssm``; ``conv``, ``h``) keep the checkpoint's keys, shapes and dtypes,
+    and the bridge carries the reference's weights exactly."""
+    ref_cfg, cfg = _cfgs(arch, {})
+    ref_params, _ = ref_lm.init_lm(jax.random.PRNGKey(0), ref_cfg)
+    ref_cache, _ = ref_lm.make_lm_cache(ref_cfg, 2, 20)
+    params, _ = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cache, _ = model_fns(cfg).make_cache(2, 20, device="cpu")
+    leaves = ({"a_log", "dt_bias", "d_skip", "conv_x", "conv_b", "conv_c"}
+              if arch.startswith("mamba2") else {"lam", "ba", "bi", "conv"})
+    assert leaves <= {key.split("/")[-1] for key in _flatten(ref_params)}
+    for want, got in ((_flatten(ref_params), flatten(params)),
+                      (_flatten(ref_cache), flatten(cache))):
+        assert list(got) == list(want)
+        for key in want:
+            assert got[key].shape == want[key].shape and got[key].dtype == want[key].dtype, key
+    bridged = flatten(params_from_numpy(jax.device_get(ref_params), "cpu"))
+    for key, want in _flatten(ref_params).items():
+        np.testing.assert_array_equal(bridged[key], want)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_serve_sends_every_prefill_scan_down_the_kernel_route(arch, monkeypatch):
+    """``serve`` runs each recurrent layer's prefill scan with ``impl="pallas"``
+    whatever the config says, once a layer, and steps decode in plain torch."""
+    calls = []
+    for mod, name in ((ssd_ops, "ssd"), (lru_ops, "rglru_scan")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append((_name, kw.get("impl")))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    cfg = registry.get_config(arch, reduced=True)
+    assert (cfg.ssm_impl, cfg.rglru_impl) == ("chunked", "associative")
+    out = serve(cfg, batch=2, prompt_len=12, decode_steps=3, device="cpu", log=lambda *a: None)
+    assert out["tokens"].shape == (2, 4)
+    n_scans = sum(spec.mixer in ("mamba2", "rglru") for g in cfg.groups for spec in g.pattern
+                  for _ in range(g.repeat))
+    name = "ssd" if arch.startswith("mamba2") else "rglru_scan"
+    assert calls == [(name, "pallas")] * n_scans
 
 
 # ---------------------------------------------------------------- layers
