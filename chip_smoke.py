@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 
-1. setup   — TF32 off, build both kernel libraries from
+1. setup   — TF32 off, build the five kernel libraries from
              ``src/repro_torch/kernels/*/csrc`` with nvcc (sm_90a, one nvcc
              per library, side by side), print each one's build time and
              registers, spills and entry functions, and the card's name and
@@ -33,8 +33,9 @@ Phases (any failure exits non-zero before the last line is printed):
 6. flash   — the flash-attention kernel against its plain version on the
              card: the reference's sweep (GQA, window, MQA + window at
              S=384, non-causal), a suffix (Sq=128, Skv=512), a ragged length
-             and both serve shapes (qwen1.5-0.5b: MHA, D=64; recurrentgemma-9b:
-             MQA, D=256, window 2048), f32 within 2e-5, bf16 within 2e-2;
+             and the serve shapes (qwen1.5-0.5b: MHA, D=64; recurrentgemma-9b:
+             MQA, D=256, window 2048; olmoe-1b-7b: MHA, D=128), f32 within
+             2e-5, bf16 within 2e-2;
 7. serve   — the second path: ``repro_torch.launch.serve.serve`` on
              qwen1.5-0.5b at its published width (24 layers, d_model 1024,
              vocab 151,936), seeded random weights, batch 4, prompt 2048,
@@ -48,7 +49,7 @@ Phases (any failure exits non-zero before the last line is printed):
              SERVE_TWIN_REL_TOL (bf16 compute, the served model), the
              prefill's in f32 compute within SERVE_TWIN_F32_REL_TOL; the
              kernel fed K/V rolled by one position must fail each limit;
-9. timings — the flash kernel at both serve shapes (median of 50 launches)
+9. timings — the flash kernel at the three serve shapes (median of 50 launches)
              beside its plain version, scaled_dot_product_attention and the
              least time the card could take;
 10. ssd    — the SSD-scan kernel against the step recurrence (its plain
@@ -84,18 +85,49 @@ Phases (any failure exits non-zero before the last line is printed):
              kernels' inputs in bf16 and the RG-LRU's alone in f32; every
              layer's RG-LRU scan at phase 11's tolerances;
 16. timings — ``ssd_scan`` and ``rglru_scan`` at their serve shapes (median of
-             50 launches) beside their plain versions and their bounds.
+             50 launches) beside their plain versions and their bounds;
+17. gmm    — ``gmm`` at olmoe-1b-7b's expert shapes (64 experts, 2048 -> 1024
+             and 1024 -> 2048) on the router's splits (a 4 x 2048-token
+             prefill, the same with 16 experts empty, a 4-token decode step)
+             against the plain loop, f32 within 2e-5, bf16 within 2e-2, and
+             timed beside the plain loop, torch._grouped_mm and the bound;
+18. serve  — the fifth path: ``serve`` on olmoe-1b-7b at its published width
+             (16 layers, d_model 2048, 16 heads of 128, 64 experts of 1024,
+             top-8, vocab 50,304, f32 weights): 16 flash launches a prefill
+             and 48 gmm launches a prefill and a decode step;
+19. twin   — against every expert product through the plain loop: f32 end to
+             end (prefill and decode) within SERVE_TWIN_F32_REL_TOL, with the
+             experts' weights shifted by one as the control; bf16 every
+             layer's MoE FFN on its own served inputs with the routing shared,
+             within MOE_LAYER_REL_TOL, with inputs rolled by one token as the
+             control; the bf16 end-to-end reading and the share of top-8
+             sets that differ, printed (a routing flip is no kernel fault);
+20. decode — ``flash_decode_int8`` against its plain version: the reference's
+             cases, the serve decode (S=2081), MQA at D=256, D=128, f32 and
+             bf16 q, within 1e-5;
+21. serve  — qwen1.5-0.5b with an int8 KV cache at full width, profiled as
+             phase 7 is; at the first and last decode steps
+             ``flash_decode_int8`` runs on every layer's served cache and is
+             held against its plain version (1e-5) and
+             the model's own plain decode attention (2e-2 relative, and
+             bf16's rounding elementwise), with K rolled one slot against V
+             as the control; the int8 run's logits against a bf16 cache's,
+             printed;
+22. timings — ``flash_decode_int8`` at that served decode shape beside its
+             plain version, the bound and SDPA over a pre-dequantized cache.
 
-The last three lines are ``{"kernels": [...]}`` (``gmm`` and ``tgmm`` with
-the launches of phase 3, ``flash_attention`` with those of phases 7 and 14,
-``ssd_scan`` with those of phase 12, ``rglru_scan`` with those of phase 14), the
-card's name and power limit as ``nvidia-smi`` prints them, and
+The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
+of phases 3 and 18, ``tgmm`` with those of phase 3, ``flash_attention`` with
+those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
+``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
+phase 21), the card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  The script uses one card: unless
 ``CUDA_VISIBLE_DEVICES`` names exactly one, it is set to the first.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -128,6 +160,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 # (B, Sq, Skv, Hq, Hk, D, causal, window)
 SERVE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 16, 64, True, None)
 RG_ATTN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 1, 256, True, 2048)
+OLMOE_ARCH = "olmoe-1b-7b"
+OLMOE_ATTN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 16, 128, True, None)
 FLASH_CASES = [            # tests/test_kernels.py:26-34, a suffix, a ragged length, the serve shapes
     ("MHA", (1, 128, 128, 4, 4, 32, True, None)),
     ("GQA", (2, 256, 256, 8, 2, 64, True, None)),
@@ -138,6 +172,7 @@ FLASH_CASES = [            # tests/test_kernels.py:26-34, a suffix, a ragged len
     ("ragged S=200 + window", (2, 200, 200, 4, 2, 32, True, 48)),
     ("serve shape (qwen1.5-0.5b)", SERVE_SHAPE),
     ("serve shape (recurrentgemma-9b)", RG_ATTN_SHAPE),
+    ("serve shape (olmoe-1b-7b)", OLMOE_ATTN_SHAPE),
 ]
 
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
@@ -161,7 +196,20 @@ RGLRU_CASES = [            # tests/test_kernels.py:111, a ragged L, the serve sh
     ("ragged L=37", (2, 37, 48)),
     ("serve shape (recurrentgemma-9b)", RGLRU_SERVE_SHAPE),
 ]
-KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas")
+# ‖kernel − plain‖ / ‖plain‖ of one MoE FFN in bf16 compute, on its own inputs
+MOE_LAYER_REL_TOL = 2e-2
+DECODE_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode_int8.cu"
+# (B, Hq, Hk, S, D, kv_len)
+DECODE_CASES = [           # tests/test_kernels.py:166-168, the serve decode, MQA at D=256, D=128
+    ("reference case 1", (1, 4, 4, 128, 32, 100)),
+    ("reference case 2, GQA", (2, 8, 2, 256, 64, 200)),
+    ("reference case 3, MQA", (1, 4, 1, 512, 64, 511)),
+    ("ragged S=2081 (qwen decode)", (SERVE_BATCH, 16, 16, 2081, 64, 2080)),
+    ("MQA, D=256, S=2081", (SERVE_BATCH, 16, 1, 2081, 256, 2049)),
+    ("D=128, S=2081, kv_len 1500", (SERVE_BATCH, 16, 16, 2081, 128, 1500)),
+]
+KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas",
+                     moe_gmm_impl="pallas")
 # ‖logits(kernel) − logits(plain)‖ / ‖logits(plain)‖ over the prefill and
 # every decode step in bf16 compute (the served model), and over the prefill
 # in f32 compute (the same weights, where bf16 rounding does not mask the
@@ -383,13 +431,16 @@ def profile_wave(torch, mcfg, opt, wave_cids, params):
 
 def median_ms(torch, fn, reps=50, warm=5):
     """Median of per-launch CUDA-event times.  All launches are enqueued
-    before one synchronize, so the card runs them back to back and host
-    enqueue time does not land between a launch's events."""
+    behind a sleep kernel (~0.5 ms of card time a launch, longer than any
+    wrapper takes to enqueue one) before one synchronize, so the card runs
+    them back to back and host enqueue time does not land between a
+    launch's events."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
            for _ in range(reps)]
+    torch.cuda._sleep(reps * 1_000_000)
     for a, b in evs:
         a.record()
         fn()
@@ -922,6 +973,392 @@ def time_scans(torch, ssd_ops, ssd_ref, lru_ops, lru_ref):
     return rows
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+def moe_splits(torch, cfg, seed=0):
+    """Row splits of the expert products at olmoe's width, from the port's
+    router (``route``, top-8 of 64) on normal hidden states and a router
+    drawn at init scale: a 4 x 2048-token prefill, the same split with
+    every fourth expert emptied into the next, and one 4-token decode step."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, e = cfg.d_model, cfg.n_experts
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+
+    def routed(tokens):
+        _, top_i, _ = moe.route(router, torch.randn((tokens, d), generator=gen, device="cuda"), cfg)
+        return torch.bincount(top_i.reshape(-1), minlength=e).to(torch.int32)
+
+    prefill = routed(SERVE_BATCH * SERVE_PROMPT)
+    emptied = prefill.clone()
+    emptied[1::4] += emptied[0::4]
+    emptied[0::4] = 0
+    return [("prefill, routed", prefill), ("prefill, 16 experts empty", emptied),
+            ("decode step, routed", routed(SERVE_BATCH))]
+
+
+def moe_products(cfg):
+    """(name, K, N) of the expert products: gate/up, then down."""
+    return [("wg/wu", cfg.d_model, cfg.d_ff_expert), ("wd", cfg.d_ff_expert, cfg.d_model)]
+
+
+def check_moe_gmm(torch, ops, ref, cfg, splits):
+    """``gmm`` against the plain per-group loop at olmoe's shapes and the
+    router's splits, f32 within 2e-5 and bf16 within 2e-2.  Returns the
+    largest f32 error."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for name, sizes in splits:
+        m, live = int(sizes.sum()), int((sizes > 0).sum())
+        for prod, k, n in moe_products(cfg):
+            x0 = torch.randn((m, k), generator=gen, device="cuda")
+            w0 = torch.randn((cfg.n_experts, k, n), generator=gen, device="cuda") / math.sqrt(k)
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                x, w = x0.to(dtype), w0.to(dtype)
+                got, want = ops.gmm(x, w, sizes), ref.grouped_matmul_ref(x, w, sizes)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape == (m, n) and got.dtype == dtype, name
+                err = float((got.float() - want.float()).abs().max())
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                           msg=lambda m_: f"gmm {name} {prod} {dtype}: {m_}")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                say(f"  {str(dtype)[6:]:>8} {name:<26} {prod:<5} M={m} K={k} N={n}, {live} of "
+                    f"{cfg.n_experts} experts live: max|err| {err:.2e} (tol {tol:g})")
+    return worst
+
+
+def time_moe_gmm(torch, ops, ref, cfg, splits):
+    """``gmm`` at olmoe's routed prefill and decode splits (median of CUDA
+    events) beside the plain loop, ``torch._grouped_mm`` and the least time
+    the card could take: the weights of the live experts only, since an
+    empty expert's weights need not be read."""
+    lib = ops.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for name, sizes in (splits[0], splits[2]):
+        m, live, g = int(sizes.sum()), int((sizes > 0).sum()), cfg.n_experts
+        offs = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                          torch.cumsum(sizes, 0, dtype=torch.int32)])
+        ends = offs[1:].contiguous()
+        reps = 10 if m > 1024 else 50
+        for prod, k, n in moe_products(cfg):
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            w = torch.randn((g, k, n), generator=gen, device="cuda") / math.sqrt(k)
+            xb, wb = x.bfloat16(), w.bfloat16()
+            y, yb = torch.empty((m, n), device="cuda"), torch.empty((m, n), device="cuda").bfloat16()
+
+            def launch(x_, w_, y_, code):
+                assert lib.repro_gmm(code, x_.data_ptr(), w_.data_ptr(), offs.data_ptr(),
+                                     y_.data_ptr(), m, k, n, g, *w_.stride(), stream) == 0
+
+            row = {
+                "M": m, "K": k, "N": n, "G": g, "live_experts": live,
+                "ms": median_ms(torch, lambda: launch(xb, wb, yb, 1), reps=reps, warm=2),
+                "f32_ms": median_ms(torch, lambda: launch(x, w, y, 0), reps=reps, warm=2),
+                "plain_ms": median_ms(torch, lambda: ref.grouped_matmul_ref(xb, wb, sizes),
+                                      reps=reps, warm=2),
+                "library_ms": (median_ms(torch, lambda: torch._grouped_mm(xb, wb, offs=ends),
+                                         reps=reps, warm=2)
+                               if hasattr(torch, "_grouped_mm") else None),
+            }
+            flops = 2 * m * k * n
+            io_bytes = 2 * (m * k + live * k * n + m * n) + 4 * (g + 1)
+            t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+            row.update(bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       ffma_ms=flops / F32_FLOPS * 1e3)
+            rows[(name, prod)] = row
+            lib_ms = row["library_ms"]
+            say(f"  gmm {name:<20} {prod:<5} M={m} K={k} N={n} ({live} experts live): "
+                f"{row['ms']:.4f} ms bf16, {row['f32_ms']:.4f} ms f32; plain {row['plain_ms']:.4f} ms; "
+                f"library (torch._grouped_mm, bf16) "
+                f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s, {io_bytes / 1e6:.1f} MB "
+                f"at 3.35 TB/s); at the f32 FFMA rate {row['ffma_ms']:.4f} ms; kernel / bound "
+                f"{row['ms'] / row['bound_ms']:.1f}"
+                + (f", kernel / library {row['ms'] / lib_ms:.1f}" if lib_ms else ""))
+    return rows
+
+
+# ---------------------------------------------------------------- phase 19
+
+
+def routed_logits(torch, cfg, res):
+    """Teacher-forced logits of ``cfg`` and the top-k experts of every
+    (token, layer), in call order."""
+    from repro_torch.models import moe
+
+    tops, real = [], moe.route
+
+    def spy(*a):
+        out = real(*a)
+        tops.append(out[1])
+        return out
+
+    with mock.patch.object(moe, "route", spy):
+        logits, _ = teacher_forced_logits(torch, cfg, res["params"], res["prompts"], res["tokens"])
+    return logits, tops
+
+
+def moe_twin(torch, cfg, res):
+    """The served olmoe against the same prefill and teacher-forced decode
+    with every expert product through the plain loop (``moe_gmm_impl=
+    "dense"``).  f32 compute, end to end, within SERVE_TWIN_F32_REL_TOL,
+    and the kernel fed each expert's weights at the next expert's place must
+    fail it at every step.  In bf16 a token whose 8th and 9th experts nearly
+    tie can be routed differently by sums in another order, so the bf16
+    end-to-end reading is printed with the share of (token, layer) top-8
+    sets that differ, not asserted; bf16 is held layer by layer
+    (``moe_layer_twin``)."""
+    from repro_torch.kernels.grouped_matmul import ops
+
+    kernel_cfg = cfg.replace(**KERNEL_ROUTES)
+    plain = {"moe_gmm_impl": "dense"}
+    kernel, k_tops = routed_logits(torch, kernel_cfg, res)
+    want, p_tops = routed_logits(torch, kernel_cfg.replace(**plain), res)
+    sound = [rel_norm(a, b) for a, b in zip(kernel, want)]
+    assert len(k_tops) == len(p_tops) == cfg.total_layers * (1 + SERVE_STEPS)
+    differ = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                 for a, b in zip(k_tops, p_tops))
+    sets = sum(a.shape[0] for a in k_tops)
+    say(f"  bf16 compute, kernel against plain (reported, not asserted): last-token logits "
+        f"{sound[0]:.3e}, decode steps {min(sound[1:]):.3e} .. {max(sound[1:]):.3e} (max "
+        f"{max(sound):.3e}); (token, layer) top-{cfg.top_k} sets that differ: {differ} of {sets} "
+        f"({100 * differ / sets:.3f} %)")
+
+    f32 = kernel_cfg.replace(compute_dtype="float32")
+    args = (res["params"], res["prompts"], res["tokens"])
+    got, _ = teacher_forced_logits(torch, f32, *args)
+    want, _ = teacher_forced_logits(torch, f32.replace(**plain), *args)
+    real = ops.grouped_matmul
+    with mock.patch.object(ops, "grouped_matmul",
+                           lambda x, w, gs: real(x, torch.roll(w, -1, dims=0), gs)):
+        wrong, _ = teacher_forced_logits(torch, f32, *args)
+    sound32 = [rel_norm(a, b) for a, b in zip(got, want)]
+    wrong32 = [rel_norm(a, b) for a, b in zip(wrong, want)]
+    say(f"  f32 compute, prefill and {SERVE_STEPS} decode steps: kernel against plain max "
+        f"{max(sound32):.3e} (prefill {sound32[0]:.3e}); experts' weights shifted by one "
+        f"(w[g] -> w[(g + 1) % E]) min {min(wrong32):.3e} (limit relative {SERVE_TWIN_F32_REL_TOL:g})")
+    assert max(sound32) < SERVE_TWIN_F32_REL_TOL, sound32
+    assert min(wrong32) > SERVE_TWIN_F32_REL_TOL, wrong32
+    return {"bf16_e2e": max(sound), "topk_sets_differing": differ, "topk_sets": sets,
+            "f32": max(sound32), "f32_control": min(wrong32)}
+
+
+def moe_layer_twin(torch, cfg, res):
+    """Every layer's MoE FFN in the served bf16 prefill through the kernel
+    and through the plain loop on the inputs the kernel saw there, with the
+    routing computed once and shared, so no layer's difference is carried
+    into the next and no routing flip enters: ‖kernel − plain‖ / ‖plain‖
+    within MOE_LAYER_REL_TOL; the kernel fed the inputs rolled by one token
+    (routing kept) must exceed it, layer by layer."""
+    from repro_torch.models import moe
+    from repro_torch.models.registry import model_fns
+
+    real_local, real_route = moe._moe_local, moe.route
+    rows = []
+
+    def compare(router_w, wg, wu, wd, x, c, gmm_impl="ragged"):
+        routing = real_route(router_w, x.reshape(-1, x.shape[-1]), c)
+        with mock.patch.object(moe, "route", lambda *a: routing):
+            got, aux = real_local(router_w, wg, wu, wd, x, c, gmm_impl)
+            want, _ = real_local(router_w, wg, wu, wd, x, c, "dense")
+            wrong, _ = real_local(router_w, wg, wu, wd, torch.roll(x, -1, dims=1), c, gmm_impl)
+        rows.append((rel_norm(got, want), rel_norm(wrong, want)))
+        return got, aux
+
+    with torch.no_grad(), mock.patch.object(moe, "_moe_local", compare):
+        model_fns(cfg.replace(**KERNEL_ROUTES)).prefill(res["params"], {"tokens": res["prompts"]})
+    sound, wrong = max(r[0] for r in rows), min(r[1] for r in rows)
+    say(f"  bf16 compute, each of {len(rows)} layers' MoE FFN on its own served inputs, routing "
+        f"shared: kernel against plain {sound:.3e} (largest); inputs rolled by one token "
+        f"{wrong:.3e} (smallest); limit relative {MOE_LAYER_REL_TOL:g}")
+    assert len(rows) == cfg.total_layers, len(rows)
+    assert sound < MOE_LAYER_REL_TOL and wrong > MOE_LAYER_REL_TOL, (sound, wrong)
+    return sound
+
+
+# ---------------------------------------------------------------- phases 20-22
+
+
+def decode_inputs(torch, case, qdtype, seed=0):
+    """q (B, Hq, D) and an int8 cache of normal K/V in the model's layout
+    ((B, S, Hk, D) values, (B, S, Hk) bf16 scales), viewed as the kernel's
+    (B, Hk, S, D) and (B, Hk, S)."""
+    from repro_torch.models.layers import quantize_kv
+
+    b, hq, hk, s, d, _ = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(qdtype)
+    kq, ks = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device="cuda"))
+    vq, vs = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device="cuda"))
+    return q, kq.transpose(1, 2), vq.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+
+
+def check_decode(torch, decode_ops, decode_ref):
+    """The int8 decode kernel against its plain version on the card within
+    1e-5, the reference's tolerance (tests/test_kernels.py:192).  Returns
+    the largest error."""
+    worst = 0.0
+    for qdtype in (torch.float32, torch.bfloat16):
+        for name, case in DECODE_CASES:
+            args = decode_inputs(torch, case, qdtype)
+            got = decode_ops.flash_decode_int8(*args, kv_len=case[-1])
+            want = decode_ref.flash_decode_int8_ref(*args, kv_len=case[-1])
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == torch.float32, name
+            err = float((got - want).abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m_: f"flash_decode_int8 {name} {qdtype}: {m_}")
+            worst = max(worst, err)
+            say(f"  q {str(qdtype)[6:]:>8} {name:<30} {str(case):<32} max|err| {err:.2e} (tol 1e-5)")
+    return worst
+
+
+def capture_decode(torch, steps, caps):
+    """Wrap ``blocks._attn_decode``: at the decode positions in ``steps``,
+    launch the int8 decode kernel on the layer's served cache in place (just
+    written with the step's K/V) with the layer's rotated query, and keep
+    the query, a copy of the cache, the kernel's output and the model's own
+    plain decode attention output (what ``attention_reference`` returned).
+    The model goes on with its own output: no model of the reference calls
+    this kernel."""
+    from repro_torch.kernels.flash_attention import decode_ops
+    from repro_torch.models import blocks
+    from repro_torch.models import layers as L
+
+    real_attn, real_ref = blocks._attn_decode, L.attention_reference
+
+    def wrapped(params, x, cfg, spec, pos, cache):
+        if pos not in steps:
+            return real_attn(params, x, cfg, spec, pos, cache)
+        seen = {}
+
+        def spy(q, *a, **kw):
+            seen["q"], seen["y"] = q, real_ref(q, *a, **kw)
+            return seen["y"]
+
+        with mock.patch.object(L, "attention_reference", spy):
+            out, c = real_attn(params, x, cfg, spec, pos, cache)
+        views = [c[key].transpose(1, 2) for key in ("k", "v", "k_scale", "v_scale")]
+        q = seen["q"][:, 0]
+        caps.append({"pos": pos, "q": q, "y": seen["y"][:, 0],
+                     "kernel": decode_ops.flash_decode_int8(q, *views, kv_len=pos + 1),
+                     "cache": [t.clone() for t in views]})
+        return out, c
+
+    return mock.patch.object(blocks, "_attn_decode", wrapped)
+
+
+def check_served_decode(torch, decode_ops, decode_ref, caps):
+    """Each captured layer's kernel output against ``decode_ref`` on the same
+    cache within 1e-5 (elementwise), and against the model's own bf16 plain
+    decode attention within 2e-2 (relative norm) and within bf16's rounding
+    (elementwise, 2^-8 relative: the model's output is the same f32
+    attention rounded to bf16).  Decode attention is invariant to a
+    permutation of the cache's slots, so two controls misalign it by one
+    slot: K and its scales rolled against V, and V's scales rolled against
+    V.  Each must exceed 1e-5 and bf16's rounding in every layer.  Against
+    the 2e-2 relative norm they are printed, not asserted: at random init
+    the attention is near uniform and its output is mostly the part of V
+    common to every position, which a one-slot misalignment moves by about
+    as much as that limit.  Returns the largest error against
+    ``decode_ref``."""
+    bf16_round = dict(rtol=2.0 ** -8, atol=1e-6)
+    worst = rel_max = 0.0
+    controls = {
+        "K and its scales rolled one slot against V":
+            lambda k, v, ks, vs: (torch.roll(k, -1, dims=2), v, torch.roll(ks, -1, dims=2), vs),
+        "V's scales rolled one slot against V":
+            lambda k, v, ks, vs: (k, v, ks, torch.roll(vs, -1, dims=2)),
+    }
+    readings = {name: [math.inf, math.inf, 0.0] for name in controls}   # err, rel, sum sq
+    den = 0.0
+    for cap in caps:
+        q, cache, kv_len = cap["q"], cap["cache"], cap["pos"] + 1
+        y = cap["y"].float()
+        want = decode_ref.flash_decode_int8_ref(q, *cache, kv_len=kv_len)
+        torch.testing.assert_close(cap["kernel"], want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(cap["kernel"], y, **bf16_round)
+        worst = max(worst, float((cap["kernel"] - want).abs().max()))
+        rel_max = max(rel_max, rel_norm(cap["kernel"], y))
+        den += float(y.norm()) ** 2
+        for name, misalign in controls.items():
+            wrong = decode_ops.flash_decode_int8(q, *misalign(*cache), kv_len=kv_len)
+            assert not torch.allclose(wrong, y, **bf16_round), (name, cap["pos"])
+            r = readings[name]
+            r[0] = min(r[0], float((wrong - want).abs().max()))
+            r[1] = min(r[1], rel_norm(wrong, y))
+            r[2] += float((wrong - y).norm()) ** 2
+    say(f"  {len(caps)} served caches (positions {sorted({c['pos'] for c in caps})}): kernel "
+        f"against decode_ref max|err| {worst:.2e} (tol 1e-5); against the model's plain bf16 "
+        f"attention {rel_max:.3e} relative (largest; limit 2e-2) and within bf16 rounding "
+        f"(2^-8 relative) in every layer")
+    for name, (err, rel, sq) in readings.items():
+        say(f"  control, {name}: max|err| {err:.2e} (smallest layer; must exceed 1e-5), outside "
+            f"bf16 rounding in every layer; relative {rel:.3e} (smallest layer), "
+            f"{math.sqrt(sq / den):.3e} over all layers (printed)")
+        assert err > 1e-5, (name, err)
+    assert rel_max < 2e-2, rel_max
+    return worst
+
+
+def time_decode(torch, decode_ops, decode_ref, caps):
+    """The int8 decode kernel at qwen's last served decode step, each launch
+    on the next layer's cache (24 x 17.6 MB, far past the 50 MB L2, as a
+    decode step finds them), beside its plain version, the least time the
+    card could take, and SDPA over the same cache dequantized to bf16
+    beforehand (not the same function: no single PyTorch call dequantizes
+    int8 and attends)."""
+    last = max(c["pos"] for c in caps)
+    layers = [c for c in caps if c["pos"] == last]
+    kv_len = last + 1
+    (b, hq, d), hk = layers[0]["q"].shape, layers[0]["cache"][0].shape[1]
+    turn = itertools.cycle(layers)
+
+    def kernel():
+        c = next(turn)
+        decode_ops.flash_decode_int8(c["q"], *c["cache"], kv_len=kv_len)
+
+    def plain():
+        c = next(turn)
+        decode_ref.flash_decode_int8_ref(c["q"], *c["cache"], kv_len=kv_len)
+
+    deq = itertools.cycle([
+        (c["q"][:, :, None, :],
+         *((t[:, :, :kv_len].float() * s[:, :, :kv_len, None].float()).bfloat16()
+           for t, s in ((c["cache"][0], c["cache"][2]), (c["cache"][1], c["cache"][3]))))
+        for c in layers])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(len(layers)):
+        kernel()
+    host_ms = (time.perf_counter() - t0) / len(layers) * 1e3
+    row = {"ms": median_ms(torch, kernel, reps=240, warm=24), "host_ms": host_ms,
+           "plain_ms": median_ms(torch, plain, reps=24, warm=2),
+           "sdpa_dequantized_ms": median_ms(
+               torch, lambda: sdpa(*next(deq), enable_gqa=hq != hk), reps=240,
+               warm=24),
+           "library_ms": None}
+    io_bytes = 2 * b * hk * kv_len * d + 2 * 2 * b * hk * kv_len + 2 * b * hq * d + 4 * b * hq * d
+    flops = 4 * b * hq * kv_len * d + 2 * b * hk * kv_len * d    # q.k and p.v, dequantizing K and V
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    say(f"  flash_decode_int8 B={b} Hq={hq} Hk={hk} S={layers[0]['cache'][0].shape[2]} "
+        f"kv_len={kv_len} D={d} (q {str(layers[0]['q'].dtype)[6:]}, bf16 scales): {row['ms']:.4f} ms; "
+        f"plain {row['plain_ms']:.4f} ms; library null (no single PyTorch call); SDPA over the cache "
+        f"dequantized to bf16 beforehand {row['sdpa_dequantized_ms']:.4f} ms; the wrapper's host "
+        f"time a call {row['host_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {io_bytes / 1e6:.2f} MB at 3.35 TB/s, "
+        f"{flops / 1e6:.1f} MFLOP at the f32 rate); kernel / bound {row['ms'] / row['bound_ms']:.1f}")
+    return row
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -941,6 +1378,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import decode_ops, decode_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.grouped_matmul import ops, ref
@@ -961,7 +1399,7 @@ def main() -> int:
     say(f"  card: {smi}")
     t0 = time.perf_counter()
     libraries = {"grouped_matmul": ops, "flash_attention": fa_ops, "ssd_scan": ssd_ops,
-                 "rglru_scan": lru_ops}
+                 "rglru_scan": lru_ops, "flash_decode_int8": decode_ops}
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc per library, side by side
         for fut in [pool.submit(m.library) for m in libraries.values()]:
             fut.result()
@@ -976,7 +1414,11 @@ def main() -> int:
     say("  ssd_scan dynamic shared memory a block: " + ", ".join(
         f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(p, n)} B"
         for p, n in ((16, 32), (16, 128), (64, 32), (64, 128))))
-    counters = (ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES, lru_ops.LAUNCHES)
+    say("  flash_decode_int8 dynamic shared memory a block: " + ", ".join(
+        f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B"
+        for g, d in ((1, 64), (1, 128), (16, 256))))
+    counters = (ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES, lru_ops.LAUNCHES,
+                decode_ops.LAUNCHES)
     no_launches = {k: 0 for counts in counters for k in counts}
 
     say("PHASE 2 kernels against their plain versions")
@@ -1021,7 +1463,7 @@ def main() -> int:
 
     say("PHASE 9 flash attention timings at the serve shapes")
     flash_rows = {shape: time_flash(torch, fa_ops, fa_ref, shape)
-                  for shape in (SERVE_SHAPE, RG_ATTN_SHAPE)}
+                  for shape in (SERVE_SHAPE, RG_ATTN_SHAPE, OLMOE_ATTN_SHAPE)}
     say(f"  so far {time.perf_counter() - t_all:.1f} s")
 
     say("PHASE 10 ssd_scan against its plain version")
@@ -1079,10 +1521,71 @@ def main() -> int:
 
     say("PHASE 16 scan timings at the serve shapes")
     scan_rows = time_scans(torch, ssd_ops, ssd_ref, lru_ops, lru_ref)
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    torch.cuda.empty_cache()     # recurrentgemma's tensors are gone; olmoe's f32 weights are 27 GB
+
+    cfg = get_config(OLMOE_ARCH)
+    say(f"PHASE 17 gmm at {OLMOE_ARCH}'s expert shapes against its plain version")
+    splits = moe_splits(torch, cfg)
+    worst["gmm"] = max(worst["gmm"], check_moe_gmm(torch, ops, ref, cfg, splits))
+    moe_rows = time_moe_gmm(torch, ops, ref, cfg, splits)
+
+    n_moe = sum(g.repeat for g in cfg.groups for spec in g.pattern if spec.ffn == "moe")
+    say(f"PHASE 18 serve path: {OLMOE_ARCH} at its published width ({cfg.total_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, {cfg.n_experts} "
+        f"experts of d_ff {cfg.d_ff_expert}, top-{cfg.top_k}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype} weights), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} "
+        f"greedy decode steps")
+    res, olmoe_launches = run_serve(torch, cfg, counters, {
+        **no_launches, "flash_attention": cfg.total_layers, "gmm": 3 * n_moe * (1 + SERVE_STEPS)})
+    profile_serve(torch, cfg, res, ("gmm_kernel", "flash_fwd_kernel"))
+
+    say("PHASE 19 serve twin: the same prefill and decode with every expert product through the "
+        "plain loop")
+    moe_twin(torch, cfg, res)
+    moe_layer_twin(torch, cfg, res)
+    del res
+    torch.cuda.empty_cache()
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+
+    say("PHASE 20 flash_decode_int8 against its plain version")
+    worst["flash_decode_int8"] = check_decode(torch, decode_ops, decode_ref)
+
+    cfg = get_config(SERVE_ARCH).replace(kv_cache_quant=True)
+    steps = (SERVE_PROMPT, SERVE_PROMPT + SERVE_STEPS - 1)
+    say(f"PHASE 21 serve path: {SERVE_ARCH} with an int8 KV cache at its published width, batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy decode steps; at positions "
+        f"{steps} every layer's served cache also goes through flash_decode_int8")
+    say("  the served walls, with nothing wrapped:")
+    res, _ = run_serve(torch, cfg, counters, {**no_launches, "flash_attention": cfg.total_layers})
+    del res
+    say("  the checked run, with the decode kernel beside the model's attention at two steps:")
+    caps = []
+    with capture_decode(torch, steps, caps):
+        res, int8_launches = run_serve(torch, cfg, counters, {
+            **no_launches, "flash_attention": cfg.total_layers,
+            "flash_decode_int8": len(steps) * cfg.total_layers})
+    caps = caps[-len(steps) * cfg.total_layers:]     # the counted run's (the warm-up's come first)
+    assert [c["pos"] for c in caps] == [p for p in steps for _ in range(cfg.total_layers)]
+    profile_serve(torch, cfg, res, ("flash_fwd_kernel",))
+    worst["flash_decode_int8"] = max(worst["flash_decode_int8"],
+                                     check_served_decode(torch, decode_ops, decode_ref, caps))
+    fp, _ = teacher_forced_logits(torch, cfg.replace(kv_cache_quant=False, **KERNEL_ROUTES),
+                                  res["params"], res["prompts"], res["tokens"])
+    gap = [float((a.float() - b.float()).abs().max() / a.float().abs().max())
+           for a, b in zip(fp, res["logits"])]
+    say(f"  int8 cache against a bf16 cache, teacher-forced logits max|Δ| / max|bf16|: prefill "
+        f"{gap[0]:.3e}, decode steps {min(gap[1:]):.3e} .. {max(gap[1:]):.3e} (the reference's "
+        f"tests/test_elastic_kvquant.py holds 0.02 at reduced size in f32; not asserted here)")
+    del res
+
+    say("PHASE 22 flash_decode_int8 timings at the served decode shape")
+    decode_row = time_decode(torch, decode_ops, decode_ref, caps)
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
                 "tgmm": "src/repro/kernels/grouped_matmul/ops.py:45"}
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in ("gmm", "tgmm"):
         r = next(r for r in rows if r["name"] == name and r["layer"] == "784->128")
@@ -1093,18 +1596,26 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    flash_row, rg_row = flash_rows[SERVE_SHAPE], flash_rows[RG_ATTN_SHAPE]
+    kernels[0].update({
+        "launches": launches["gmm"] + olmoe_launches["gmm"],
+        "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
+                             OLMOE_ARCH: olmoe_launches["gmm"]},
+        OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in timing_keys}
+                     for (name, prod), r in moe_rows.items()},
+    })
+    flash_row = flash_rows[SERVE_SHAPE]
+    flash_paths = {SERVE_ARCH: qwen_launches, RGEMMA_ARCH: rgemma_launches,
+                   OLMOE_ARCH: olmoe_launches, f"{SERVE_ARCH} (int8 KV cache)": int8_launches}
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-        "launches": qwen_launches["flash_attention"] + rgemma_launches["flash_attention"],
-        "launches_by_path": {SERVE_ARCH: qwen_launches["flash_attention"],
-                             RGEMMA_ARCH: rgemma_launches["flash_attention"]},
+        "launches": sum(p["flash_attention"] for p in flash_paths.values()),
+        "launches_by_path": {k: p["flash_attention"] for k, p in flash_paths.items()},
         "max_abs_err": worst["flash_attention"], "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"], "library_ms": flash_row["library_ms"],
-        RGEMMA_ARCH: {k: rg_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms")},
+        RGEMMA_ARCH: {k: flash_rows[RG_ATTN_SHAPE][k] for k in timing_keys},
+        OLMOE_ARCH: {k: flash_rows[OLMOE_ATTN_SHAPE][k] for k in timing_keys},
     })
     for name, source, replaces_at, path_launches in (
             ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:63", mamba_launches),
@@ -1117,6 +1628,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    kernels.append({
+        "name": "flash_decode_int8", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": "src/repro/kernels/flash_attention/decode_kernel.py:70",
+        "launches": int8_launches["flash_decode_int8"],
+        "launches_note": "phase 21: on every layer's served int8 cache at the first and last "
+                         "decode steps; the served decode attends through the plain attention, "
+                         "as the reference's does",
+        "max_abs_err": worst["flash_decode_int8"],
+        **{k: decode_row[k] for k in timing_keys},
+        "sdpa_dequantized_ms": decode_row["sdpa_dequantized_ms"],
+    })
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

@@ -5,6 +5,7 @@ port of ``repro.launch.serve``, with the same flags and printed lines.
         --batch 4 --prompt-len 64 --decode-steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced
 
 It runs on the CUDA card (and raises without one); ``serve(...,
 device="cpu")`` runs it on the CPU.
@@ -36,12 +37,14 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
 
     Where it differs from the reference's entry point:
 
-    * the model runs with ``attn_impl``, ``ssm_impl`` and ``rglru_impl`` set
-      to ``"pallas"`` whatever ``cfg`` says, so on the card every prefill
-      attention, SSD scan and RG-LRU scan goes through its hand-written
-      kernel (flash attention, ``ssd_scan``, ``rglru_scan``); decode attends
-      through the plain attention and steps the recurrences in plain torch,
-      as the reference's decode does;
+    * the model runs with ``attn_impl``, ``ssm_impl``, ``rglru_impl`` and
+      ``moe_gmm_impl`` set to ``"pallas"`` whatever ``cfg`` says, so on the
+      card every prefill attention, SSD scan and RG-LRU scan, and every
+      expert product of prefill and decode, goes through its hand-written
+      kernel (flash attention, ``ssd_scan``, ``rglru_scan``, ``gmm``);
+      decode attends through the plain attention (an int8 cache is
+      dequantized first) and steps the recurrences in plain torch, as the
+      reference's decode does;
     * weights come from a ``torch.Generator`` seeded with ``seed``, prompts
       and sampling from one seeded with ``seed + 1`` (the reference's
       ``PRNGKey(0)`` and ``PRNGKey(1)``; the draws differ);
@@ -51,7 +54,8 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
     decode_steps)``, the logits of every step, and the wall seconds of
     prefill and decode."""
     dev = resolve_device(device)
-    cfg = cfg.replace(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas")
+    cfg = cfg.replace(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas",
+                      moe_gmm_impl="pallas")
     fns = model_fns(cfg)
     params, _ = fns.init(torch.Generator(device=dev).manual_seed(seed), dev)
     serve_step = make_serve_step(cfg)

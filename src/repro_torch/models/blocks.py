@@ -1,9 +1,11 @@
-"""Residual block: {attn | mamba2 | rglru} mixer + {dense | none} FFN.  The
-port of ``repro.models.blocks`` for the dense, ssm and hybrid families.
+"""Residual block: {attn | mamba2 | rglru} mixer + {dense | moe | none} FFN.
+The port of ``repro.models.blocks`` for the dense, moe, ssm and hybrid
+families.
 
 The ``LayerSpec`` selects the mixer/FFN per layer; ``LayerGroup`` patterns
-hold stacked parameters (see ``repro_torch.models.lm``).  MoE FFNs and
-cross-attention blocks are not ported yet and raise.
+hold stacked parameters (see ``repro_torch.models.lm``).  Cross-attention
+blocks are not ported yet and raise.  An MoE FFN runs the local (one
+device) path of ``repro_torch.models.moe`` and returns its aux loss.
 
 Modes:
   * ``prefill`` — whole-sequence forward that also emits a decode cache
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import (
     FFN_DENSE,
+    FFN_MOE,
     FFN_NONE,
     MIXER_ATTN,
     MIXER_MAMBA2,
@@ -33,6 +36,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.tree import tree_map
 
@@ -45,8 +49,8 @@ def _check_ported(spec: LayerSpec) -> None:
     if spec.cross_attn:
         raise NotImplementedError(
             "cross-attention blocks are not ported yet (ROADMAP: models/encdec.py)")
-    if spec.ffn not in (FFN_DENSE, FFN_NONE):
-        raise NotImplementedError(f"ffn {spec.ffn!r} is not ported yet (ROADMAP: models/moe.py)")
+    if spec.ffn not in (FFN_DENSE, FFN_MOE, FFN_NONE):
+        raise ValueError(spec.ffn)
 
 
 # --------------------------------------------------------------------------
@@ -64,9 +68,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> Tuple
         p["mixer"], a["mixer"] = M2.init_mamba2(gen, cfg)
     else:
         p["mixer"], a["mixer"] = RG.init_rglru(gen, cfg)
-    if spec.ffn == FFN_DENSE:
+    if spec.ffn != FFN_NONE:
         p["norm2"], a["norm2"] = L.init_rmsnorm(cfg.d_model, cfg, gen.device)
-        p["ffn"], a["ffn"] = L.init_mlp(gen, cfg)
+        init_ffn = L.init_mlp if spec.ffn == FFN_DENSE else MOE.init_moe
+        p["ffn"], a["ffn"] = init_ffn(gen, cfg)
     return p, a
 
 
@@ -178,7 +183,11 @@ def block_apply(
         else:
             out, st = forward(params["mixer"], h, cfg, return_cache=True)
     x = x + out.to(x.dtype)
-    if spec.ffn == FFN_DENSE:
+    if spec.ffn != FFN_NONE:
         h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp(params["ffn"], h, cfg).to(x.dtype)
+        if spec.ffn == FFN_DENSE:
+            out = L.mlp(params["ffn"], h, cfg)
+        else:
+            out, aux = MOE.moe_ffn(params["ffn"], h, cfg, gmm_impl=cfg.moe_gmm_impl)
+        x = x + out.to(x.dtype)
     return x, {key: st}, aux

@@ -1,6 +1,6 @@
 """Decoder-only language model over layer groups.  The port of
-``repro.models.lm`` for serving (prefill and decode) of the dense, ssm
-(mamba2) and hybrid (recurrentgemma) families.
+``repro.models.lm`` for serving (prefill and decode) of the dense, moe
+(olmoe), ssm (mamba2) and hybrid (recurrentgemma) families.
 
 Layer groups (``cfg.groups``) hold stacked parameters on a leading layer
 axis, as the reference's scanned groups do; the port loops over that axis
@@ -10,10 +10,10 @@ Caches keep the reference's structure: a dict of groups, a tuple per
 pattern position, a leading layer axis; an attention block holds ``{"kv":
 {"k", "v"}}``, a Mamba-2 block ``{"ssm": {"conv", "ssm"}}`` and an RG-LRU
 block ``{"lru": {"conv", "h"}}``, with the reference's shapes and dtypes.
+The prefill sums the MoE layers' aux losses, as the reference does.
 
 Not ported yet: the ``full`` training forward, ``chunked_ce`` and
-``lm_loss`` (LM training, ROADMAP item 15), MoE FFNs (item 13) and the VLM
-prefix.
+``lm_loss`` (LM training, ROADMAP item 15) and the VLM prefix.
 """
 from __future__ import annotations
 
@@ -49,7 +49,9 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig,
     """(params, axes): the reference's tree (``tok``, ``groups/g{i}/p{j}/…``
     stacked on a leading layer axis, ``final_norm``) with its shapes, dtypes
     and init laws.  Draws come from ``gen`` on its own device (a CUDA
-    generator draws on the card), then move to ``device``."""
+    generator draws on the card), then move to ``device``.  Each layer is
+    copied into its group's stack as soon as it is drawn, so the peak is
+    the weights and one layer (olmoe's f32 experts are 25.8 GB)."""
     dev = resolve_device(device)
     if cfg.n_vision_tokens:
         raise NotImplementedError(_NO_VLM)
@@ -58,13 +60,15 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig,
     params["tok"], axes["tok"] = L.init_embedding(gen, cfg)
     groups_p, groups_a = {}, {}
     for gi, group in enumerate(cfg.groups):
-        layers = []
-        for _ in range(group.repeat):
+        stack = None
+        for r in range(group.repeat):
             p, a = {}, {}
             for j, spec in enumerate(group.pattern):
                 p[f"p{j}"], a[f"p{j}"] = init_block(gen, cfg, spec)
-            layers.append(p)
-        groups_p[f"g{gi}"] = tree_map(lambda *ts: torch.stack(ts), *layers)
+            if stack is None:
+                stack = tree_map(lambda t: t.new_empty((group.repeat, *t.shape)), p)
+            tree_map(lambda dst, src: dst[r].copy_(src), stack, p)
+        groups_p[f"g{gi}"] = stack
         groups_a[f"g{gi}"] = _layer_axes(a)
     params["groups"] = groups_p
     axes["groups"] = groups_a

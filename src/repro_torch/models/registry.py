@@ -1,10 +1,10 @@
 """Model registry: family-dispatched init/prefill/decode.  The port of
 ``repro.models.registry`` for the decoder-only families it serves: dense,
-ssm (mamba2) and hybrid (recurrentgemma).
+moe (olmoe, on one device), ssm (mamba2) and hybrid (recurrentgemma).
 
-Not ported yet: the encoder-decoder family (whisper, ROADMAP item 14), MoE
-FFNs (item 13), the loss and ``make_train_step`` (LM training, item 15),
-and ``input_specs`` (the dry-run planner, item 18); each raises.
+Not ported yet: the encoder-decoder family (whisper, ROADMAP item 14), the
+loss and ``make_train_step`` (LM training, item 15), and ``input_specs``
+(the dry-run planner, item 18); each raises.
 """
 from __future__ import annotations
 

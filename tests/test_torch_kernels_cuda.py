@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-``gmm``/``tgmm``, ``flash_attention``, ``ssd_scan`` and ``rglru_scan``.
+``gmm``/``tgmm``, ``flash_attention``, ``flash_decode_int8``, ``ssd_scan``
+and ``rglru_scan``.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import neither JAX nor the reference package, so they
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import decode_ops, decode_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.grouped_matmul import ops, ref
@@ -18,6 +20,7 @@ from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.kernels.rglru_scan import ref as lru_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models.layers import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -311,3 +314,83 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(card):
         lru_ops.rglru_scan(log_a[..., ::2], x[..., ::2], impl="pallas")   # W not unit-stride
     with pytest.raises(NotImplementedError):
         lru_ops.rglru_scan(log_a, x.requires_grad_(), impl="pallas")    # no backward yet
+
+
+# gmm in bf16 at MoE-like splits (M, K, N, group sizes): a prefill split
+# with empty experts and a 32-row decode split over 64 experts, most empty
+MOE_SPLITS = [
+    (512, 256, 128, [0, 90, 0, 0, 141, 37, 0, 200, 44, 0]),
+    (32, 256, 128, [0] * 20 + [3, 0, 5, 1] + [0] * 30 + [2, 9, 0, 4, 0, 8, 0, 0, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("m,k,n,sizes", MOE_SPLITS, ids=["prefill-empty-experts", "decode-32-rows"])
+def test_gmm_bf16_matches_plain_version_at_moe_splits(card, m, k, n, sizes):
+    assert sum(sizes) == m
+    x, w, _, gs = _inputs((m, k, n, len(sizes)), sizes, seed=7)
+    xc, wc = (torch.from_numpy(a).to(card, torch.bfloat16) for a in (x, w))
+    gc = torch.from_numpy(gs).to(card)
+    y = ops.gmm(xc, wc, gc)
+    torch.testing.assert_close(y.float(), ref.grouped_matmul_ref(xc, wc, gc).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+# flash_decode_int8: (b, hq, hk, s, d, kv_len) — the reference's cases
+# (tests/test_kernels.py:166-168), a ragged S with GQA, MQA at D = 256, a
+# head size off the 16-byte vectors, and a one-position context
+DECODE_CASES = [
+    (1, 4, 4, 128, 32, 100),
+    (2, 8, 2, 256, 64, 200),
+    (1, 4, 1, 512, 64, 511),
+    (2, 8, 2, 261, 64, 261),
+    (1, 16, 1, 300, 256, 290),
+    (2, 4, 2, 70, 48, 33),
+    (1, 2, 2, 40, 128, 1),
+]
+
+
+def _decode_inputs(case, card, qdtype, seed=0):
+    """q (B, Hq, D) and the model's int8 cache, (B, S, Hk, D) values and
+    (B, S, Hk) bf16 scales, viewed as (B, Hk, S, D) and (B, Hk, S)."""
+    b, hq, hk, s, d, _ = case
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=gen, device=card).to(qdtype)
+    kq, ks = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device=card))
+    vq, vs = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device=card))
+    return q, kq.transpose(1, 2), vq.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_int8_matches_plain_version(card, case, qdtype):
+    args = _decode_inputs(case, card, getattr(torch, qdtype))
+    before = decode_ops.LAUNCHES["flash_decode_int8"]
+    got = decode_ops.flash_decode_int8(*args, kv_len=case[-1])
+    want = decode_ref.flash_decode_int8_ref(*args, kv_len=case[-1])
+    torch.cuda.synchronize()
+    assert decode_ops.LAUNCHES["flash_decode_int8"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_decode_int8_takes_f32_scales_and_contiguous_layouts(card):
+    case = (2, 8, 2, 200, 64, 150)
+    q, kq, vq, ks, vs = _decode_inputs(case, card, torch.float32, seed=1)
+    args = (q, kq.contiguous(), vq.contiguous(), ks.float().contiguous(), vs.float().contiguous())
+    got = decode_ops.flash_decode_int8(*args, kv_len=150)
+    torch.testing.assert_close(got, decode_ref.flash_decode_int8_ref(*args, kv_len=150),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q, kq, vq, ks, vs = _decode_inputs((1, 4, 2, 64, 32, 64), card, torch.float32)
+    with pytest.raises(ValueError):
+        decode_ops.flash_decode_int8(q, kq, vq, ks, vs, kv_len=65)             # past the cache
+    with pytest.raises(TypeError):
+        decode_ops.flash_decode_int8(q.half(), kq, vq, ks, vs, kv_len=8)
+    with pytest.raises(TypeError):
+        decode_ops.flash_decode_int8(q, kq.float(), vq, ks, vs, kv_len=8)     # not int8
+    with pytest.raises(ValueError):
+        decode_ops.flash_decode_int8(q[:, :3], kq, vq, ks, vs, kv_len=8)      # 3 heads over 2
+    with pytest.raises(ValueError):
+        decode_ops.flash_decode_int8(q, kq, vq, ks.cpu(), vs, kv_len=8)       # mixed devices

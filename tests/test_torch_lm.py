@@ -6,8 +6,8 @@ to ``"pallas"`` (the reference's Pallas kernels interpreted on the CPU, the
 port's plain versions) on last-token logits and every cache leaf; greedy
 decode steps on tokens and logits; the checkpoint keys of params and
 caches; the layers the path runs; and the serve entry point end to end.
-The dense family (qwen, gemma3), the ssm family (mamba2) and the hybrid
-family (recurrentgemma).  Tolerances are the reference's: f32 2e-5, bf16
+The dense family (qwen, gemma3), the moe family (olmoe), the ssm family
+(mamba2) and the hybrid family (recurrentgemma).  Tolerances are the reference's: f32 2e-5, bf16
 compute 2e-2."""
 import dataclasses
 
@@ -25,6 +25,7 @@ from repro.models.registry import make_serve_step as ref_make_serve_step
 from repro_torch.bridge import flatten, params_from_numpy
 from repro_torch.configs import registry
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.grouped_matmul import ops as gmm_ops
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.serve import serve
@@ -39,7 +40,9 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 # int8 KV cache; gemma3 with a window of 8, GQA 4:2, ring caches and groups
 # of two specs; mamba2 (SSD chunk 16 against a prompt of 24: a ragged tail)
 # in f32 and bf16 compute; recurrentgemma (RG-LRU, RG-LRU, MQA local
-# attention with a window of 8 and a ring cache)
+# attention with a window of 8 and a ring cache); olmoe (8 experts, top 2,
+# every expert product through the grouped matmul's "pallas" route) in f32
+# and bf16 compute
 CASES = {
     "qwen-f32": ("qwen1.5-0.5b", {}, F32),
     "qwen-bf16": ("qwen1.5-0.5b", {"compute_dtype": "bfloat16"}, BF16),
@@ -48,8 +51,11 @@ CASES = {
     "mamba2": ("mamba2-1.3b", {}, F32),
     "mamba2-bf16": ("mamba2-1.3b", {"compute_dtype": "bfloat16"}, BF16),
     "recurrentgemma": ("recurrentgemma-9b", {}, F32),
+    "olmoe": ("olmoe-1b-7b", {}, F32),
+    "olmoe-bf16": ("olmoe-1b-7b", {"compute_dtype": "bfloat16"}, BF16),
 }
-KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas")
+KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas",
+                     moe_gmm_impl="pallas")
 PROMPT, STEPS = 24, 8
 
 
@@ -95,7 +101,7 @@ def test_configs_equal_the_reference_field_for_field(reduced):
 # ---------------------------------------------------------------- init
 
 
-@pytest.mark.parametrize("case", ["qwen-f32", "gemma3", "mamba2", "recurrentgemma"])
+@pytest.mark.parametrize("case", ["qwen-f32", "gemma3", "mamba2", "recurrentgemma", "olmoe"])
 def test_init_keeps_the_reference_tree_shapes_dtypes_and_axes(case):
     arch, over, _ = CASES[case]
     ref_cfg, cfg = _cfgs(arch, over)
@@ -195,19 +201,12 @@ def test_flatten_keys_equal_the_checkpoint_keys_for_params_and_caches():
         np.testing.assert_array_equal(bridged[key], want)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
-def test_bridge_carries_the_recurrent_leaves_under_checkpoint_keys(arch):
-    """The recurrent mixers' own leaves (``a_log``, ``dt_bias``, ``d_skip``,
-    ``conv_*``; ``lam``, ``ba``, ``bi``, ``conv``) and caches (``conv``,
-    ``ssm``; ``conv``, ``h``) keep the checkpoint's keys, shapes and dtypes,
-    and the bridge carries the reference's weights exactly."""
+def _check_bridged_leaves(arch, leaves):
     ref_cfg, cfg = _cfgs(arch, {})
     ref_params, _ = ref_lm.init_lm(jax.random.PRNGKey(0), ref_cfg)
     ref_cache, _ = ref_lm.make_lm_cache(ref_cfg, 2, 20)
     params, _ = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     cache, _ = model_fns(cfg).make_cache(2, 20, device="cpu")
-    leaves = ({"a_log", "dt_bias", "d_skip", "conv_x", "conv_b", "conv_c"}
-              if arch.startswith("mamba2") else {"lam", "ba", "bi", "conv"})
     assert leaves <= {key.split("/")[-1] for key in _flatten(ref_params)}
     for want, got in ((_flatten(ref_params), flatten(params)),
                       (_flatten(ref_cache), flatten(cache))):
@@ -217,6 +216,49 @@ def test_bridge_carries_the_recurrent_leaves_under_checkpoint_keys(arch):
     bridged = flatten(params_from_numpy(jax.device_get(ref_params), "cpu"))
     for key, want in _flatten(ref_params).items():
         np.testing.assert_array_equal(bridged[key], want)
+    return _flatten(ref_params)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_bridge_carries_the_recurrent_leaves_under_checkpoint_keys(arch):
+    """The recurrent mixers' own leaves (``a_log``, ``dt_bias``, ``d_skip``,
+    ``conv_*``; ``lam``, ``ba``, ``bi``, ``conv``) and caches (``conv``,
+    ``ssm``; ``conv``, ``h``) keep the checkpoint's keys, shapes and dtypes,
+    and the bridge carries the reference's weights exactly."""
+    _check_bridged_leaves(arch, {"a_log", "dt_bias", "d_skip", "conv_x", "conv_b", "conv_c"}
+                          if arch.startswith("mamba2") else {"lam", "ba", "bi", "conv"})
+
+
+def test_bridge_carries_the_moe_leaves_under_checkpoint_keys():
+    """The MoE FFN's leaves (``router`` in f32; ``wg``, ``wu`` (L, E, d, f) and
+    ``wd`` (L, E, f, d) in the param dtype) keep the checkpoint's keys, shapes
+    and dtypes, and the bridge carries the reference's weights exactly."""
+    flat = _check_bridged_leaves("olmoe-1b-7b", {"router", "wg", "wu", "wd"})
+    cfg = registry.get_config("olmoe-1b-7b", reduced=True)
+    layers, e, d, f = cfg.total_layers, cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    ffn = "groups/g0/p0/ffn/"
+    assert flat[ffn + "router"].shape == (layers, d, e) and flat[ffn + "router"].dtype == np.float32
+    assert flat[ffn + "wg"].shape == flat[ffn + "wu"].shape == (layers, e, d, f)
+    assert flat[ffn + "wd"].shape == (layers, e, f, d)
+
+
+def test_serve_sends_every_moe_product_down_the_gmm_route(monkeypatch):
+    """``serve`` runs each MoE layer's three expert products through the
+    grouped matmul's kernel route (``moe_gmm_impl="pallas"``) whatever the
+    config says, in the prefill and in every decode step."""
+    calls = []
+    real = gmm_ops.grouped_matmul
+
+    def spy(x, w, gs):
+        calls.append(int(gs.sum()))
+        return real(x, w, gs)
+
+    monkeypatch.setattr(gmm_ops, "grouped_matmul", spy)
+    cfg = registry.get_config("olmoe-1b-7b", reduced=True).replace(moe_gmm_impl="dense")
+    out = serve(cfg, batch=2, prompt_len=12, decode_steps=3, device="cpu", log=lambda *a: None)
+    assert out["tokens"].shape == (2, 4)
+    layers, k = cfg.total_layers, cfg.top_k
+    assert calls == [2 * 12 * k] * 3 * layers + [2 * k] * 3 * layers * 3
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
