@@ -13,7 +13,11 @@ Phases (any failure exits non-zero before the last line is printed):
 2. kernels — ``gmm`` and ``tgmm`` and the autograd Function's dx/dw against
              their plain PyTorch versions on the card: the three layer
              shapes of the FEMNIST MLP client and the ragged edge cases,
-             f32 within 2e-5, bf16 within 2e-2, gradients within 1e-4;
+             f32 within 2e-5, bf16 within 2e-2, gradients within 1e-4; then
+             ``gmm`` on every path (stream, ffma, ffma_wide, wgmma), forward
+             and transposed w, at groups ending at and one row past the tile
+             edges, one expert taking every row, a 32-row split over 384
+             experts and all groups empty with rows past them (exact zeros);
 3. main    — three federated rounds of 128 FEMNIST-MLP clients (784→128→
              128→62, the repo's default width), 32 participants per round
              with per-step batch sizes 16/32/48/64, so COLLECT trains every
@@ -26,8 +30,9 @@ Phases (any failure exits non-zero before the last line is printed):
              wave through a kernel that reads every group boundary one row
              late must fail that limit;
 5. timings — each grouped-matmul kernel at the main path's shapes (median of
-             50 launches) beside its plain version, one PyTorch library call
-             and the least time the card could take; one profiled wave (card
+             50 launches), in f32 and bf16, beside its plain version,
+             ``torch._grouped_mm`` on the same dtype and the least time the
+             card could take; one profiled wave (card
              busy time against wall time); the wall seconds of each phase of
              a round;
 6. flash   — the flash-attention kernel against its plain version on the
@@ -89,8 +94,12 @@ Phases (any failure exits non-zero before the last line is printed):
 17. gmm    — ``gmm`` at olmoe-1b-7b's expert shapes (64 experts, 2048 -> 1024
              and 1024 -> 2048) on the router's splits (a 4 x 2048-token
              prefill, the same with 16 experts empty, a 4-token decode step)
-             against the plain loop, f32 within 2e-5, bf16 within 2e-2, and
-             timed beside the plain loop, torch._grouped_mm and the bound;
+             against the plain loop, f32 within 2e-5, bf16 within 2e-2; the
+             backward's transposed w in bf16 at the prefill split on the
+             wgmma and stream paths; one call on each path under
+             ``torch.cuda.set_sync_debug_mode("error")`` (no group size read
+             on the host); timed beside the plain loop, torch._grouped_mm and
+             the bound, with the decode split's achieved bandwidth;
 18. serve  — the fifth path: ``serve`` on olmoe-1b-7b at its published width
              (16 layers, d_model 2048, 16 heads of 128, 64 experts of 1024,
              top-8, vocab 50,304, f32 weights): 16 flash launches a prefill
@@ -241,6 +250,58 @@ def edge_cases():
         ("zero-row first and last", 128, 62, [0, 40, 33, 0], 0),
         ("M off the tile, rows past the groups", 784, 128, [17, 0, 45, 61, 3], 5),
     ]
+
+
+def path_cases():
+    """(name, K, N, group sizes, rows past the groups) that every gmm path
+    takes: groups ending at and one row past the tile edges (8 rows a
+    stream pass, 32 and 64 ffma rows, 128 wgmma rows; N = 320 past a
+    256-column tile), one expert taking every row, a 32-row decode split
+    over 384 experts, and rows past a split whose groups are all empty."""
+    decode = [0] * 384
+    for i in range(24):
+        decode[(37 * i) % 384] += 1 + (i % 3 == 0)
+    one = [0] * 16
+    one[11] = 700
+    return [
+        ("groups at / one past tile edges", 64, 320, [128, 129, 127, 32, 33, 8, 9, 64, 65, 0, 1], 3),
+        ("one expert takes every row", 128, 128, one, 0),
+        ("G=384 decode split", 64, 64, decode, 0),
+        ("every group empty, rows past them", 64, 96, [0] * 8, 300),
+    ]
+
+
+def check_paths(torch, ops, ref, cases, seed=3):
+    """``gmm`` on every path that takes the dtype (``ops.PATHS``), the
+    forward's w and the backward's transposed view, against the plain
+    version: f32 within 2e-5, bf16 within 2e-2; rows outside every group
+    exact zeros.  Returns the largest f32 error."""
+    gen = torch.Generator().manual_seed(seed)
+    worst = 0.0
+    for name, k, n, sizes, extra in cases:
+        g, m = len(sizes), sum(sizes) + extra
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        x0, dy0 = torch.randn(m, k, generator=gen), torch.randn(m, n, generator=gen)
+        w0 = (torch.rand(g, k, n, generator=gen) * 2 - 1) / math.sqrt(k)
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            x, dy, w = (t.to("cuda", dtype) for t in (x0, dy0, w0))
+            errs = []
+            for path in ops.PATHS:
+                if path == "wgmma" and dtype != torch.bfloat16:
+                    continue
+                for lhs, rhs in ((x, w), (dy, w.transpose(1, 2))):
+                    got, want = ops.gmm(lhs, rhs, gs, path=path), ref.grouped_matmul_ref(lhs, rhs, gs)
+                    torch.cuda.synchronize()
+                    assert got.shape == want.shape and got.dtype == dtype, (name, path)
+                    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                               msg=lambda m_, p_=path: f"{name} {p_} {dtype}: {m_}")
+                    assert not got[sum(sizes):].any(), (name, path)   # past the groups: zeros
+                    errs.append(float((got.float() - want.float()).abs().max()))
+            if dtype == torch.float32:
+                worst = max(worst, max(errs))
+            say(f"  {str(dtype)[6:]:>8} {name:<36} M={m} K={k} N={n} G={g}: {len(errs)} path x "
+                f"layout runs, max|err| {max(errs):.2e} (tol {tol:g})")
+    return worst
 
 
 def check_kernels(torch, ops, ref, sizes, extra_cases=(), seed=0):
@@ -426,7 +487,7 @@ def profile_wave(torch, mcfg, opt, wave_cids, params):
     wave = [by_id[c] for c in wave_cids]
     ex = BatchedExecutor(mcfg, opt, device="cuda")
     profile_call(torch, f"one warm wave ({len(wave)} clients x 10 steps)",
-                 lambda: ex.run_wave(params, wave, 10), share_of=("gmm_kernel",))
+                 lambda: ex.run_wave(params, wave, 10), share_of=("gmm_ffma_kernel", "tgmm_kernel"))
 
 
 def median_ms(torch, fn, reps=50, warm=5):
@@ -449,9 +510,24 @@ def median_ms(torch, fn, reps=50, warm=5):
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def grouped_mm_ms(torch, x, w, ends, note=""):
+    """``torch._grouped_mm`` on the same operands, or None with the reason
+    where this PyTorch lacks it or refuses them (the yardstick, never the
+    port's path)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm missing"
+    try:
+        return median_ms(torch, lambda: torch._grouped_mm(x, w, offs=ends)), note
+    except RuntimeError as e:
+        return None, f"torch._grouped_mm refused {str(x.dtype)[6:]}: {str(e)[:160]}"
+
+
 def time_kernels(torch, ops, ref, sizes):
     """Times at the main path's shapes: the first round's wave of ``sizes``
-    rows per client.  Returns rows for each kernel and layer."""
+    rows per client, f32 (the path's dtype) and bf16, each beside
+    ``torch._grouped_mm`` on the same dtype and its own bound.  ``gmm`` is
+    timed on a schedule made beforehand (``ops.launch_gmm``), the wrapper
+    whole beside it.  Returns rows for each kernel and layer."""
     dev = "cuda"
     lib = ops.library()
     gen = torch.Generator().manual_seed(1)
@@ -461,60 +537,63 @@ def time_kernels(torch, ops, ref, sizes):
                       torch.cumsum(gs, 0, dtype=torch.int32)])
     ends = offs[1:].contiguous()
     stream = torch.cuda.current_stream().cuda_stream
-    has_lib = hasattr(torch, "_grouped_mm")
     rows = []
     for layer, k, n in LAYERS:
         x = torch.randn(m, k, generator=gen).to(dev)
         w = ((torch.rand(g, k, n, generator=gen) * 2 - 1) / math.sqrt(k)).to(dev)
         dy = torch.randn(m, n, generator=gen).to(dev)
-        y = torch.empty(m, n, device=dev)
-        dw = torch.empty(g, k, n, device=dev)
-        xb, wb, dyb = x.bfloat16(), w.bfloat16(), dy.bfloat16()
-        yb, dwb = y.bfloat16(), dw.bfloat16()
+        by_dtype = {}
+        for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
+            xd, wd, dyd = x.to(dtype), w.to(dtype), dy.to(dtype)
+            y = torch.empty(m, n, device=dev, dtype=dtype)
+            dw = torch.empty(g, k, n, device=dev, dtype=dtype)
+            path = ops.choose_path(m, k, n, g, dtype)
+            bounds = ops.row_bounds(gs, m)
+            prefix = None if path == "stream" else ops.tile_prefix(bounds, ops.PATHS[path][1])
+            code = 0 if dtype == torch.float32 else 1
 
-        def gmm(x_=x, w_=w, y_=y, code=0):
-            assert lib.repro_gmm(code, x_.data_ptr(), w_.data_ptr(), offs.data_ptr(), y_.data_ptr(),
-                                 m, k, n, g, *w_.stride(), stream) == 0
+            def tgmm(x_=xd, dy_=dyd, dw_=dw, code=code):
+                assert lib.repro_tgmm(code, x_.data_ptr(), dy_.data_ptr(), offs.data_ptr(),
+                                      dw_.data_ptr(), m, k, n, g, stream) == 0
 
-        def tgmm(x_=x, dy_=dy, dw_=dw, code=0):
-            assert lib.repro_tgmm(code, x_.data_ptr(), dy_.data_ptr(), offs.data_ptr(),
-                                  dw_.data_ptr(), m, k, n, g, stream) == 0
-
-        # the library call wants K and N multiples of 16: N = 62 is timed on
-        # operands zero-padded to 64 (the padding is the library's cost, not ours)
-        lib_gmm = lib_tgmm = None
-        n_pad = -(-n // 16) * 16
-        lib_note = f"operands zero-padded to N={n_pad}" if n_pad != n else ""
-        if has_lib and k % 16 == 0:
-            wb_p = torch.nn.functional.pad(wb, (0, n_pad - n))
-            dyb_p = torch.nn.functional.pad(dyb, (0, n_pad - n))
-            try:
-                lib_gmm = median_ms(torch, lambda: torch._grouped_mm(xb, wb_p, offs=ends))
-                lib_tgmm = median_ms(torch, lambda: torch._grouped_mm(xb.t(), dyb_p, offs=ends))
-            except RuntimeError as e:   # the yardstick refused: say why, time nothing
-                lib_gmm = lib_tgmm = None
-                lib_note = f"library call refused ({lib_note or 'unpadded'}): {str(e)[:200]}"
-        io_bytes = 4 * (m * k + g * k * n + m * n) + 4 * (g + 1)
-        flops = 2 * m * k * n
-        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-        for name, fn, fn_bf16, plain, lib_ms in (
-                ("gmm", gmm, lambda: gmm(xb, wb, yb, 1),
-                 lambda: ref.grouped_matmul_ref(x, w, gs), lib_gmm),
-                ("tgmm", tgmm, lambda: tgmm(xb, dyb, dwb, 1),
-                 lambda: ref.tgmm_ref(x, dy, gs, g), lib_tgmm)):
-            rows.append({
-                "name": name, "layer": layer, "M": m, "K": k, "N": n, "G": g,
-                "ms": median_ms(torch, fn), "bf16_ms": median_ms(torch, fn_bf16),
-                "plain_ms": median_ms(torch, plain), "library_ms": lib_ms,
-                "bound_ms": bound[0], "bound_by": bound[1], "bytes": io_bytes, "flops": flops,
-            })
-            r = rows[-1]
-            say(f"  {name:<4} {layer:<8} M={m} G={g}: {r['ms']:.4f} ms f32, {r['bf16_ms']:.4f} ms bf16;"
-                f" plain {r['plain_ms']:.4f} ms; library(bf16) "
-                f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                f"{f' ({lib_note})' if lib_note else ''}; bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}, {io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            # the library call wants K and N multiples of 16: N = 62 is timed on
+            # operands zero-padded to 64 (the padding is the library's cost, not ours)
+            n_pad = -(-n // 16) * 16
+            note = f"operands zero-padded to N={n_pad}" if n_pad != n else ""
+            lib_gmm = lib_tgmm = (None, "K is no multiple of 16")
+            if k % 16 == 0:
+                w_p = torch.nn.functional.pad(wd, (0, n_pad - n))
+                dy_p = torch.nn.functional.pad(dyd, (0, n_pad - n))
+                lib_gmm = grouped_mm_ms(torch, xd, w_p, ends, note)
+                lib_tgmm = grouped_mm_ms(torch, xd.t(), dy_p, ends, note)
+            esize = xd.element_size()
+            io_bytes = esize * (m * k + g * k * n + m * n) + 4 * (g + 1)
+            flops = 2 * m * k * n
+            t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+            bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+            for name, fn, wrapped, plain, (lib_ms, lib_note) in (
+                    ("gmm", lambda: ops.launch_gmm(path, xd, wd, bounds, prefix, y),
+                     lambda: ops.gmm(xd, wd, gs), lambda: ref.grouped_matmul_ref(xd, wd, gs),
+                     lib_gmm),
+                    ("tgmm", tgmm, None, lambda: ref.tgmm_ref(xd, dyd, gs, g), lib_tgmm)):
+                r = {"name": name, "layer": layer, "dtype": str(dtype)[6:], "M": m, "K": k, "N": n,
+                     "G": g, "path": path if name == "gmm" else "tgmm",
+                     "ms": median_ms(torch, fn),
+                     "wrapper_ms": median_ms(torch, wrapped) if wrapped else None,
+                     "plain_ms": median_ms(torch, plain), "library_ms": lib_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1], "bytes": io_bytes, "flops": flops}
+                by_dtype.setdefault(name, {})[r["dtype"]] = r
+                say(f"  {name:<4} {layer:<8} {r['dtype']:>8} M={m} G={g} ({r['path']}): {r['ms']:.4f} ms"
+                    + (f" (wrapper with its schedule {r['wrapper_ms']:.4f} ms)" if wrapped else "")
+                    + f"; plain {r['plain_ms']:.4f} ms; library "
+                    f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                    f"{f' ({lib_note})' if lib_note else ''}; bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}, {io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+                    + (f"; kernel / library {r['ms'] / lib_ms:.2f}" if lib_ms else ""))
+        for name, per in by_dtype.items():
+            rows.append({**per["float32"], "bfloat16": {
+                key: per["bfloat16"][key]
+                for key in ("ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "path")}})
     return rows
 
 
@@ -637,7 +716,8 @@ def profile_serve(torch, cfg, res, kernels):
                      lambda: fns.prefill(res["params"], batch), share_of=kernels)
         _, cache = fns.prefill(res["params"], batch)
         step = {"token": res["tokens"][:, 0], "pos": SERVE_PROMPT}
-        profile_call(torch, "one decode step (batch 4)", lambda: fns.decode(res["params"], cache, step))
+        profile_call(torch, "one decode step (batch 4)", lambda: fns.decode(res["params"], cache, step),
+                     share_of=kernels)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1026,39 +1106,77 @@ def check_moe_gmm(torch, ops, ref, cfg, splits):
                 if dtype == torch.float32:
                     worst = max(worst, err)
                 say(f"  {str(dtype)[6:]:>8} {name:<26} {prod:<5} M={m} K={k} N={n}, {live} of "
-                    f"{cfg.n_experts} experts live: max|err| {err:.2e} (tol {tol:g})")
+                    f"{cfg.n_experts} experts live ({ops.choose_path(m, k, n, cfg.n_experts, dtype)}): "
+                    f"max|err| {err:.2e} (tol {tol:g})")
+    # the backward's dx = dy @ wᵀ, bf16, wᵀ a view read in place (unit stride along K),
+    # on both paths at the routed prefill split
+    name, sizes = splits[0]
+    m = int(sizes.sum())
+    for prod, k, n in moe_products(cfg):
+        dy = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((cfg.n_experts, k, n), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+        want = ref.grouped_matmul_ref(dy, w.transpose(1, 2), sizes)
+        for path in ("wgmma", "stream"):
+            got = ops.gmm(dy, w.transpose(1, 2), sizes, path=path)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
+                                       msg=lambda m_: f"gmm dx {name} {prod} {path}: {m_}")
+            say(f"  bfloat16 {name:<26} {prod:<5} dx = dy @ wᵀ (M={m} K={n} N={k}) on {path}: "
+                f"max|err| {float((got.float() - want.float()).abs().max()):.2e} (tol 0.02)")
     return worst
+
+
+def check_no_host_sync(torch, ops, cfg, splits):
+    """One ``gmm`` call on each path under ``torch.cuda.set_sync_debug_mode
+    ("error")``: a group size read on the host would synchronize and raise."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    (_, prefill), (_, decode) = splits[0], splits[2]
+    for path, sizes, dtype in (("wgmma", prefill, torch.bfloat16), ("ffma_wide", prefill, torch.float32),
+                               ("ffma", decode, torch.float32), ("stream", decode, torch.bfloat16)):
+        m, k, n = int(sizes.sum()), cfg.d_model, cfg.d_ff_expert
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        w = torch.randn((cfg.n_experts, k, n), generator=gen, device="cuda").to(dtype)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.gmm(x, w, sizes, path=path)
+            ops.gmm(x, w, sizes)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say(f"  {path:<9} M={m}: no host synchronization under set_sync_debug_mode('error'), "
+            f"nor on the path the wrapper picks ({ops.choose_path(m, k, n, cfg.n_experts, dtype)})")
 
 
 def time_moe_gmm(torch, ops, ref, cfg, splits):
     """``gmm`` at olmoe's routed prefill and decode splits (median of CUDA
-    events) beside the plain loop, ``torch._grouped_mm`` and the least time
-    the card could take: the weights of the live experts only, since an
+    events, on a schedule made beforehand; the wrapper with its schedule
+    beside it) against the plain loop, ``torch._grouped_mm`` and the least
+    time the card could take: the weights of the live experts only, since an
     empty expert's weights need not be read."""
-    lib = ops.library()
-    stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {}
     for name, sizes in (splits[0], splits[2]):
         m, live, g = int(sizes.sum()), int((sizes > 0).sum()), cfg.n_experts
-        offs = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
-                          torch.cumsum(sizes, 0, dtype=torch.int32)])
-        ends = offs[1:].contiguous()
+        ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+        bounds = ops.row_bounds(sizes, m)
         reps = 10 if m > 1024 else 50
         for prod, k, n in moe_products(cfg):
             x = torch.randn((m, k), generator=gen, device="cuda")
             w = torch.randn((g, k, n), generator=gen, device="cuda") / math.sqrt(k)
             xb, wb = x.bfloat16(), w.bfloat16()
             y, yb = torch.empty((m, n), device="cuda"), torch.empty((m, n), device="cuda").bfloat16()
-
-            def launch(x_, w_, y_, code):
-                assert lib.repro_gmm(code, x_.data_ptr(), w_.data_ptr(), offs.data_ptr(),
-                                     y_.data_ptr(), m, k, n, g, *w_.stride(), stream) == 0
-
+            paths = {d: ops.choose_path(m, k, n, g, d) for d in (torch.bfloat16, torch.float32)}
+            prefix = {d: None if p == "stream" else ops.tile_prefix(bounds, ops.PATHS[p][1])
+                      for d, p in paths.items()}
             row = {
                 "M": m, "K": k, "N": n, "G": g, "live_experts": live,
-                "ms": median_ms(torch, lambda: launch(xb, wb, yb, 1), reps=reps, warm=2),
-                "f32_ms": median_ms(torch, lambda: launch(x, w, y, 0), reps=reps, warm=2),
+                "path": paths[torch.bfloat16], "f32_path": paths[torch.float32],
+                "ms": median_ms(torch, lambda: ops.launch_gmm(
+                    paths[torch.bfloat16], xb, wb, bounds, prefix[torch.bfloat16], yb), reps=reps, warm=2),
+                "wrapper_ms": median_ms(torch, lambda: ops.gmm(xb, wb, sizes), reps=reps, warm=2),
+                "f32_ms": median_ms(torch, lambda: ops.launch_gmm(
+                    paths[torch.float32], x, w, bounds, prefix[torch.float32], y), reps=reps, warm=2),
                 "plain_ms": median_ms(torch, lambda: ref.grouped_matmul_ref(xb, wb, sizes),
                                       reps=reps, warm=2),
                 "library_ms": (median_ms(torch, lambda: torch._grouped_mm(xb, wb, offs=ends),
@@ -1070,17 +1188,20 @@ def time_moe_gmm(torch, ops, ref, cfg, splits):
             t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
             row.update(bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       ffma_ms=flops / F32_FLOPS * 1e3)
+                       ffma_ms=flops / F32_FLOPS * 1e3,
+                       gb_per_s=io_bytes / row["ms"] / 1e6, tflop_per_s=flops / row["ms"] / 1e9)
             rows[(name, prod)] = row
             lib_ms = row["library_ms"]
             say(f"  gmm {name:<20} {prod:<5} M={m} K={k} N={n} ({live} experts live): "
-                f"{row['ms']:.4f} ms bf16, {row['f32_ms']:.4f} ms f32; plain {row['plain_ms']:.4f} ms; "
-                f"library (torch._grouped_mm, bf16) "
+                f"{row['ms']:.4f} ms bf16 ({row['path']}; wrapper with its schedule "
+                f"{row['wrapper_ms']:.4f} ms), {row['f32_ms']:.4f} ms f32 ({row['f32_path']}); plain "
+                f"{row['plain_ms']:.4f} ms; library (torch._grouped_mm, bf16) "
                 f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s, {io_bytes / 1e6:.1f} MB "
-                f"at 3.35 TB/s); at the f32 FFMA rate {row['ffma_ms']:.4f} ms; kernel / bound "
-                f"{row['ms'] / row['bound_ms']:.1f}"
-                + (f", kernel / library {row['ms'] / lib_ms:.1f}" if lib_ms else ""))
+                f"at 3.35 TB/s); at the f32 FFMA rate {row['ffma_ms']:.4f} ms; achieved "
+                f"{row['gb_per_s']:.1f} GB/s, {row['tflop_per_s']:.1f} TFLOP/s; kernel / bound "
+                f"{row['ms'] / row['bound_ms']:.2f}"
+                + (f", kernel / library {row['ms'] / lib_ms:.2f}" if lib_ms else ""))
     return rows
 
 
@@ -1423,6 +1544,8 @@ def main() -> int:
 
     say("PHASE 2 kernels against their plain versions")
     worst = check_kernels(torch, ops, ref, list(CLIENT_BATCH_SIZES) * 8, edge_cases())
+    say("  gmm on every path at the split edge cases:")
+    worst["gmm"] = max(worst["gmm"], check_paths(torch, ops, ref, path_cases()))
 
     say("PHASE 3 main path: 3 rounds, 128 FEMNIST-MLP clients, ragged waves")
     mcfg = SmallModelConfig(kind="mlp", n_classes=62, hidden=128, n_layers=2,
@@ -1528,6 +1651,7 @@ def main() -> int:
     say(f"PHASE 17 gmm at {OLMOE_ARCH}'s expert shapes against its plain version")
     splits = moe_splits(torch, cfg)
     worst["gmm"] = max(worst["gmm"], check_moe_gmm(torch, ops, ref, cfg, splits))
+    check_no_host_sync(torch, ops, cfg, splits)
     moe_rows = time_moe_gmm(torch, ops, ref, cfg, splits)
 
     n_moe = sum(g.repeat for g in cfg.groups for spec in g.pattern if spec.ffn == "moe")
@@ -1538,7 +1662,7 @@ def main() -> int:
         f"greedy decode steps")
     res, olmoe_launches = run_serve(torch, cfg, counters, {
         **no_launches, "flash_attention": cfg.total_layers, "gmm": 3 * n_moe * (1 + SERVE_STEPS)})
-    profile_serve(torch, cfg, res, ("gmm_kernel", "flash_fwd_kernel"))
+    profile_serve(torch, cfg, res, ("gmm_wgmma_kernel", "gmm_stream_kernel", "flash_fwd_kernel"))
 
     say("PHASE 19 serve twin: the same prefill and decode with every expert product through the "
         "plain loop")
@@ -1594,13 +1718,14 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "dtype": "float32", "bfloat16": r["bfloat16"],
         })
     kernels[0].update({
         "launches": launches["gmm"] + olmoe_launches["gmm"],
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
                              OLMOE_ARCH: olmoe_launches["gmm"]},
-        OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in timing_keys}
+        "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
+        OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
                      for (name, prod), r in moe_rows.items()},
     })
     flash_row = flash_rows[SERVE_SHAPE]

@@ -7,112 +7,529 @@
 //   gmm : y[m, :]  = x[m, :] @ w[g(m)]       rows sorted by group g
 //   tgmm: dw[g]    = x[rows of g]^T @ dy[rows of g]
 //
-// offsets = [0, cumsum(group_sizes)] is read from device memory, so group
-// sizes stay runtime data (one build serves every row split) and the host
-// never waits for the card.  Empty groups are legal: their rows do not exist
-// (gmm) or their dw[g] is written as exact zeros (tgmm).
+// Group sizes are runtime data on the card: the wrapper turns them into
+// `bounds` (G + 2 row bounds, [0, end of group 0, ..., end of group G-1, M];
+// part G is the rows past the groups, written as zeros) and, for the tiled
+// paths, `prefix` (G + 2 running counts of the parts' row tiles), with torch
+// ops on the card.  The host never reads them, so one build serves every row
+// split.  Empty groups are legal: they own no tile (gmm) or their dw[g] is
+// written as exact zeros (tgmm).
 //
-// What bounds it on the card: memory.  At the FEMNIST client sizes of a
-// ragged wave (32 clients, ~1,280 rows, K = 784, N = 128) the stacked
-// per-client weights are ~12.8 MB against ~4 MB of activations and ~0.26
-// GFLOP, i.e. ~5 us of HBM traffic at 3.35 TB/s against ~4 us of f32 FFMA at
-// 67 TFLOP/s.  The design therefore reads each input tile once per block and
-// writes each output element exactly once:
-//   * The TPU kernel zeroes `out` at g == 0 and accumulates `+=` over a
-//     sequential group axis of its grid.  Blocks on Hopper run in parallel and
-//     in no order, so here a block owns one (TM, TN) output tile, finds the
-//     groups that intersect its rows by binary search over `offsets`, and
-//     loops over them with the other rows masked to zero: no atomics, no
-//     second pass, no zero-fill launch.
-//   * The ragged edges (K = 784, N = 62 are multiples of no tile) are masked
-//     inside the kernel instead of padding copies as the TPU wrapper does.
-//   * f32 inputs accumulate with f32 FFMA (the parity tolerance is 2e-5,
-//     which a single TF32 pass would miss); bf16 inputs are widened on load
-//     and accumulate in f32 too.  Outputs are written in the input dtype.
-// A shared-memory tiled FFMA kernel; wgmma/TMA are later work.
+// The TPU kernel walks a dense grid of aligned row tiles in order and masks
+// the rows of each group it meets.  On 132 SMs that leaves most SMs idle at
+// small M and makes a tile that straddles g groups go over K g times.  Here
+// every block owns one (part, row tile within the part, column tile): the
+// grid is the host's upper bound (ceil(M / TM) + G) x ceil(N / TN), a block
+// finds its part by binary search over `prefix` and exits past the last
+// tile.  Each block reads one expert's weights and one group's rows, and each
+// output element is written once (the tail part's blocks write the zeros).
+// What bounds each regime, and the path the wrapper picks for it from M, K,
+// N, G and the dtype:
+//   * few rows a group (an MoE decode step: 32 rows over ~30 live experts,
+//     M <= 4 G): bytes, the live experts' weights (126 MB at olmoe's width).
+//     gmm_stream_kernel: one block per (group, 64-column slab) streams its
+//     K x 64 slab once through a 4-stage cp.async ring of 16-byte copies,
+//     with the group's few rows staged beside it; empty groups exit at once.
+//   * many rows a group in bf16 (an MoE prefill): operations (275 GFLOP a
+//     product at olmoe's prefill).  gmm_wgmma_kernel: 128 x 256 tiles on the
+//     tensor cores, two warpgroups each issuing wgmma m64n256k16 from shared
+//     memory (the forward's N-major weights through the transposed-B mode),
+//     f32 accumulators in registers, a 4-stage cp.async ring of 64-deep K
+//     slices in 128-byte-swizzled shared memory (192 KB, dynamic) that keeps
+//     two slices loading while one wgmma group runs.  The wide tile cuts
+//     what every block reads from L2 for its operations by a quarter
+//     against a 128 x 128 tile.
+//   * f32 (the FL waves and their backward; the parity tolerance is 2e-5,
+//     which TF32 would miss), and bf16 shapes whose rows are not 16-byte
+//     multiples: gmm_ffma_kernel, FFMA from a double-buffered shared-memory
+//     ring (4-byte cp.async for f32), 32 x 32 tiles, so a FEMNIST wave's
+//     784 -> 128 layer puts ~190 blocks in flight (bytes bound it there),
+//     or, where the grid has blocks to spare (operations bound it), 128 x
+//     128 tiles of 8 x 8 outputs a thread read from shared memory as float4.
+// w[g, k, n] is read at w + g*w_sg + k*w_sk + n*w_sn: the forward's (G, K,
+// N) with w_sn == 1 and the backward's transposed view with w_sk == 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kTile = 64;      // output tile edge (TM = TN for gmm, TK = TN for tgmm)
-constexpr int kDepth = 16;     // reduction depth staged per shared-memory tile
-constexpr int kPad = 4;        // shared-memory row padding
-
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// two neighbouring elements as f32 (8-byte or 4-byte aligned)
+__device__ __forceinline__ float2 load2_f(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2_f(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
-// y (M, N) = x (M, K) @ w[g(m)]; w[g, k, n] at w + g*w_sg + k*w_sk + n*w_sn, so a
-// transposed view (dx = dy @ w^T) is read in place.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gmm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ offsets,
-    T* __restrict__ y, int M, int K, int N, int G, long long w_sg, long long w_sk,
-    long long w_sn) {
-  __shared__ float xs[kDepth][kTile + kPad];  // xs[k][m]
-  __shared__ float ws[kDepth][kTile + kPad];  // ws[k][n]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes global -> shared, asynchronously; zero-filled when !ok
+// (src must still be a valid address then: nothing is read from it)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-  // first group whose rows end after m0 (offsets is nondecreasing)
-  int lo = 0, hi = G;
+// The part p of grid row `slot` (prefix[p] <= slot < prefix[p + 1]: a group,
+// or p == G, the rows past the groups); false past the last tile.
+__device__ __forceinline__ bool find_part(const int* __restrict__ prefix, int G, int slot, int& p) {
+  if (slot >= prefix[G + 1]) return false;
+  int lo = 0, hi = G;  // the largest p with prefix[p] <= slot skips empty parts
   while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (offsets[mid + 1] <= m0) lo = mid + 1; else hi = mid;
+    const int mid = (lo + hi + 1) / 2;
+    if (prefix[mid] <= slot) lo = mid; else hi = mid - 1;
   }
-  for (int g = lo; g < G; ++g) {
-    const int start = max(offsets[g], 0);
-    const int end = min(offsets[g + 1], M);
-    if (start >= m0 + kTile) break;
-    if (end <= start) continue;  // empty group: no rows to compute
-    const T* wg = w + g * w_sg;
-    for (int k0 = 0; k0 < K; k0 += kDepth) {
-      for (int e = tid; e < kTile * kDepth; e += kThreads) {
-        const int r = e / kDepth, c = e % kDepth;
-        const int row = m0 + r, col = k0 + c;
-        xs[c][r] = (row >= start && row < end && col < K)
-                       ? load_f(x + (long long)row * K + col) : 0.f;
-      }
-      for (int e = tid; e < kTile * kDepth; e += kThreads) {
-        int kk, nn;  // neighbouring threads on neighbouring addresses
-        if (w_sn == 1) { kk = e / kTile; nn = e % kTile; } else { nn = e / kDepth; kk = e % kDepth; }
-        const int kr = k0 + kk, nc = n0 + nn;
-        ws[kk][nn] = (kr < K && nc < N) ? load_f(wg + kr * w_sk + nc * w_sn) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  p = lo;
+  return true;
+}
+
+template <typename T>
+__device__ void zero_fill(T* __restrict__ y, int r0, int r1, int N, int c0, int c1) {
+  const int cols = c1 - c0;
+  for (int e = threadIdx.x; e < (r1 - r0) * cols; e += blockDim.x)
+    store_f(y + (long long)(r0 + e / cols) * N + c0 + e % cols, 0.f);
+}
+
+// ------------------------------------------------------------------ FFMA tiles
+
+constexpr int kDepth = 16;  // reduction depth of one shared-memory stage
+constexpr int kPad = 4;     // shared-memory row padding
+
+// one element into shared memory as f32: f32 asynchronously, bf16 widened on load
+__device__ __forceinline__ void stage_elem(float* dst, const float* src, bool ok) {
+  cp_async4(dst, src, ok);
+}
+__device__ __forceinline__ void stage_elem(float* dst, const __nv_bfloat16* src, bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.f;
+}
+
+// Block (column tile, grid row) owns a TM x TN tile of one part; each thread
+// RM x RN outputs, strided so that shared-memory reads broadcast: where RM
+// and RN are multiples of 4, in runs of 4 neighbours read as one float4.
+template <typename T, int TM, int TN, int RM, int RN>
+__global__ void __launch_bounds__((TM / RM) * (TN / RN)) gmm_ffma_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ bounds,
+    const int* __restrict__ prefix, T* __restrict__ y, int M, int K, int N, int G,
+    long long w_sg, long long w_sk, long long w_sn) {
+  constexpr int kThreads = (TM / RM) * (TN / RN);
+  constexpr int kTX = TN / RN, kTY = TM / RM;
+  constexpr bool kQuads = RM % 4 == 0 && RN % 4 == 0;
+  __shared__ __align__(16) float xs[2][kDepth][TM + kPad];  // xs[buf][k][m]
+  __shared__ __align__(16) float ws[2][kDepth][TN + kPad];  // ws[buf][k][n]
+  // the tile row of the thread's i-th output row, the tile column of its j-th
+  auto row_of = [](int ty, int i) { return kQuads ? (i / 4) * kTY * 4 + ty * 4 + i % 4 : ty + kTY * i; };
+  auto col_of = [](int tx, int j) { return kQuads ? (j / 4) * kTX * 4 + tx * 4 + j % 4 : tx + kTX * j; };
+  int p;
+  if (!find_part(prefix, G, blockIdx.y, p)) return;
+  const int row0 = bounds[p] + (blockIdx.y - prefix[p]) * TM;
+  const int row1 = min(row0 + TM, bounds[p + 1]);
+  const int n0 = blockIdx.x * TN;
+  if (p == G) {
+    zero_fill(y, row0, row1, N, n0, min(n0 + TN, N));
+    return;
+  }
+  const T* wg = w + p * w_sg;
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+
+  auto load = [&](int buf, int k0) {
+    for (int e = tid; e < TM * kDepth; e += kThreads) {
+      const int r = e / kDepth, c = e % kDepth;  // neighbouring threads along k
+      const int row = row0 + r, col = k0 + c;
+      const bool ok = row < row1 && col < K;
+      stage_elem(&xs[buf][c][r], ok ? x + (long long)row * K + col : x, ok);
     }
+    for (int e = tid; e < TN * kDepth; e += kThreads) {
+      int kk, nn;  // neighbouring threads on neighbouring addresses
+      if (w_sn == 1) { kk = e / TN; nn = e % TN; } else { nn = e / kDepth; kk = e % kDepth; }
+      const int kr = k0 + kk, nc = n0 + nn;
+      const bool ok = kr < K && nc < N;
+      stage_elem(&ws[buf][kk][nn], ok ? wg + kr * w_sk + nc * w_sn : wg, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[RM][RN] = {};
+  const int nk = (K + kDepth - 1) / kDepth;
+  if (nk > 0) load(0, 0);
+  for (int s = 0; s < nk; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < nk) {
+      load(buf ^ 1, (s + 1) * kDepth);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float a[RM], b[RN];
+      if constexpr (kQuads) {
+#pragma unroll
+        for (int i = 0; i < RM; i += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(&xs[buf][kk][row_of(ty, i)]);
+          a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < RN; j += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(&ws[buf][kk][col_of(tx, j)]);
+          b[j] = v.x, b[j + 1] = v.y, b[j + 2] = v.z, b[j + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < RM; ++i) a[i] = xs[buf][kk][row_of(ty, i)];
+#pragma unroll
+        for (int j = 0; j < RN; ++j) b[j] = ws[buf][kk][col_of(tx, j)];
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
   }
-  // every in-range element exactly once; rows outside all groups stay 0
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
+  for (int i = 0; i < RM; ++i) {
+    const int row = row0 + row_of(ty, i);
+    if (row >= row1) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
+    for (int j = 0; j < RN; ++j) {
+      const int col = n0 + col_of(tx, j);
       if (col < N) store_f(y + (long long)row * N + col, acc[i][j]);
     }
   }
 }
+
+// ------------------------------------------------------ bf16 warpgroup MMA
+
+constexpr int kWgM = 128, kWgN = 256, kWgK = 64;  // block tile, K slice of a stage
+constexpr int kWgStages = 4;
+constexpr int kWgThreads = 256;                   // 2 warpgroups, 64 rows each
+constexpr int kWgABytes = kWgM * kWgK * 2, kWgBBytes = kWgN * kWgK * 2;
+constexpr int kWgStageBytes = kWgABytes + kWgBBytes;       // 48 KB
+constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;  // + room to align to 1 KB
+
+// d (64 x 256, f32, in the registers of a warpgroup) += A (64 x 16) B (16 x 256),
+// both read from shared memory through their descriptors; TnspB: B is N-major
+template <int TnspB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TnspB));
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Shared memory of a stage, every 8-row atom of 1 KB swizzled by row % 8:
+// A (x) as 128 rows of 64 k (128 bytes a row, K-major); B (w) in the
+// forward's N-major layout as four 64-column panels of 64 k-rows (the
+// descriptor's leading offset steps panels, its stride offset 8 k-rows),
+// in the backward's K-major view as 256 n-rows of 64 k (like A).
+template <bool KMajorB>
+__global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const int* __restrict__ bounds, const int* __restrict__ prefix,
+    __nv_bfloat16* __restrict__ y, int M, int K, int N, int G, long long w_sg,
+    long long w_sk, long long w_sn) {
+  extern __shared__ uint8_t smem_raw[];
+  int p;
+  if (!find_part(prefix, G, blockIdx.y, p)) return;
+  const int row0 = bounds[p] + (blockIdx.y - prefix[p]) * kWgM;
+  const int row1 = min(row0 + kWgM, bounds[p + 1]);
+  const int n0 = blockIdx.x * kWgN;
+  if (p == G) {
+    zero_fill(y, row0, row1, N, n0, min(n0 + kWgN, N));
+    return;
+  }
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const __nv_bfloat16* wg = w + p * w_sg;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wgi = warp >> 2;
+
+  auto load = [&](int stage, int k0) {
+    uint8_t* a_s = smem + stage * kWgStageBytes;
+    uint8_t* b_s = a_s + kWgABytes;
+#pragma unroll
+    for (int i = 0; i < kWgABytes / 16 / kWgThreads; ++i) {
+      const int c = tid + i * kWgThreads, r = c >> 3, ch = c & 7;
+      const int row = row0 + r, col = k0 + ch * 8;
+      const bool ok = row < row1 && col < K;
+      cp_async16(a_s + r * 128 + ((ch ^ (r & 7)) << 4), ok ? x + (long long)row * K + col : x, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kWgBBytes / 16 / kWgThreads; ++i) {
+      const int c = tid + i * kWgThreads;
+      if (KMajorB) {
+        const int r = c >> 3, ch = c & 7;  // r: column n of the tile
+        const int nn = n0 + r, kk = k0 + ch * 8;
+        const bool ok = nn < N && kk < K;
+        cp_async16(b_s + r * 128 + ((ch ^ (r & 7)) << 4), ok ? wg + nn * w_sn + kk : wg, ok);
+      } else {
+        const int r = c >> 5, ch = c & 31;  // r: depth k of the stage; ch: 8 columns
+        const int kk = k0 + r, nn = n0 + ch * 8;
+        const bool ok = kk < K && nn < N;
+        cp_async16(b_s + (ch >> 3) * (kWgK * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4),
+                   ok ? wg + kk * w_sk + nn : wg, ok);
+      }
+    }
+  };
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  const int nk = (K + kWgK - 1) / kWgK;
+#pragma unroll
+  for (int s = 0; s < kWgStages - 2; ++s) {
+    if (s < nk) load(s, s * kWgK);
+    cp_async_commit();
+  }
+  const uint32_t base = smem_addr(smem);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kWgStages - 3>();  // slice kt has landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... visible to wgmma
+    __syncthreads();                 // every thread's; and wgmma of slice kt - 2 is done
+    const int next = kt + kWgStages - 2;
+    if (next < nk) load(next % kWgStages, next * kWgK);
+    cp_async_commit();
+    const uint32_t a_s = base + (kt % kWgStages) * kWgStageBytes + wgi * 64 * 128;
+    const uint32_t b_s = base + (kt % kWgStages) * kWgStageBytes + kWgABytes;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kWgK / 16; ++kk) {
+      const uint64_t da = smem_desc(a_s + kk * 32, 16, 1024);
+      if (KMajorB)
+        wgmma_m64n256k16<0>(acc, da, smem_desc(b_s + kk * 32, 16, 1024));
+      else
+        wgmma_m64n256k16<1>(acc, da, smem_desc(b_s + kk * 16 * 128, kWgK * 128, 1024));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // slice kt - 1 is done
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  cp_async_wait<0>();
+  // accumulator layout: warp (warp & 3) of the warpgroup holds rows 16 (warp & 3) ..
+  // + 15; register 4j + 2h + e is (row lane / 4 + 8h, column 8j + 2 (lane % 4) + e)
+  const int r_base = row0 + wgi * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kWgN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * (lane & 3);  // N % 8 == 0: the pair is in or out
+    if (col >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_base + 8 * h;
+      if (row < row1)
+        *reinterpret_cast<__nv_bfloat162*>(y + (long long)row * N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ weight streaming
+
+constexpr int kStRows = 8;      // a group's rows a pass (a decode group has 1-4)
+constexpr int kStN = 64;        // columns a block
+constexpr int kStStages = 4;
+constexpr int kStThreads = 256; // 8 warps
+constexpr int kStStageBytes = kStN * 128 + kStRows * 128;  // w slice + x slice: 9 KB
+
+// Block (slab, p) computes y[rows of group p, slab] = x[rows] @ w[p][:, slab],
+// kStRows rows a pass, streaming the K x 64 slab in slices of SK = 128 bytes
+// of k a row (64 bf16, 32 f32).  N-major w: warp q takes k in its eighth of
+// the slice and lane l columns 2l, 2l+1; the 8 warps' sums meet in shared
+// memory.  K-major w: warp q takes columns 8q..8q+7 and lane l its k of the
+// slice; the sums meet by warp shuffles.  Block (slab, G) writes the zeros.
+template <typename T, bool KMajorB>
+__global__ void __launch_bounds__(kStThreads) gmm_stream_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ bounds,
+    T* __restrict__ y, int M, int K, int N, int G, long long w_sg, long long w_sk,
+    long long w_sn) {
+  constexpr int E = 16 / sizeof(T);   // elements in a 16-byte chunk
+  constexpr int SK = 128 / sizeof(T); // k of a slice
+  __shared__ __align__(16) uint8_t ring[kStStages * kStStageBytes];
+  const int p = blockIdx.y, n0 = blockIdx.x * kStN;
+  const int start = bounds[p], end = bounds[p + 1];
+  if (end <= start) return;  // an empty group
+  if (p == G) {
+    zero_fill(y, start, end, N, n0, min(n0 + kStN, N));
+    return;
+  }
+  const T* wg = w + p * w_sg;
+  const int tid = threadIdx.x, lane = tid & 31, q = tid >> 5;
+  const int nk = (K + SK - 1) / SK;
+
+  for (int r0 = start; r0 < end; r0 += kStRows) {
+    const int rows = min(kStRows, end - r0);
+    auto load = [&](int stage, int k0) {
+      T* w_s = reinterpret_cast<T*>(ring + stage * kStStageBytes);
+      T* x_s = w_s + kStN * SK;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // 512 chunks of w
+        const int c = tid + i * kStThreads;
+        if (KMajorB) {
+          const int r = c >> 3, ch = c & 7;  // r: column of the slab
+          const int nn = n0 + r, kk = k0 + ch * E;
+          const bool ok = nn < N && kk < K;
+          cp_async16(w_s + r * SK + ch * E, ok ? wg + nn * w_sn + kk : wg, ok);
+        } else {
+          constexpr int kChunks = kStN / E;  // chunks of a k-row
+          const int r = c / kChunks, ch = c % kChunks;
+          const int kk = k0 + r, nn = n0 + ch * E;
+          const bool ok = kk < K && nn < N;
+          cp_async16(w_s + r * kStN + ch * E, ok ? wg + kk * w_sk + nn : wg, ok);
+        }
+      }
+      if (tid < kStRows * 8) {  // 64 chunks of x
+        const int r = tid >> 3, ch = tid & 7;
+        const int kk = k0 + ch * E;
+        const bool ok = r < rows && kk < K;
+        cp_async16(x_s + r * SK + ch * E, ok ? x + (long long)(r0 + r) * K + kk : x, ok);
+      }
+    };
+
+    float acc[kStRows][KMajorB ? 8 : 2] = {};
+#pragma unroll
+    for (int s = 0; s < kStStages - 1; ++s) {
+      if (s < nk) load(s, s * SK);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kStStages - 2>();
+      __syncthreads();
+      const int next = kt + kStStages - 1;
+      if (next < nk) load(next % kStStages, next * SK);
+      cp_async_commit();
+      const T* w_s = reinterpret_cast<const T*>(ring + (kt % kStStages) * kStStageBytes);
+      const T* x_s = w_s + kStN * SK;
+      if (KMajorB) {
+        constexpr int KL = SK / 32;  // k a lane: 2 (bf16) or 1 (f32)
+        float xv[kStRows][KL];
+#pragma unroll
+        for (int r = 0; r < kStRows; ++r) {
+          if (r >= rows) break;
+          if constexpr (KL == 2) {
+            const float2 v = load2_f(x_s + r * SK + 2 * lane);
+            xv[r][0] = v.x;
+            xv[r][KL - 1] = v.y;
+          } else {
+            xv[r][0] = to_f(x_s[r * SK + lane]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const T* wr = w_s + (q * 8 + c) * SK;
+          float wv[KL];
+          if constexpr (KL == 2) {
+            const float2 v = load2_f(wr + 2 * lane);
+            wv[0] = v.x;
+            wv[KL - 1] = v.y;
+          } else {
+            wv[0] = to_f(wr[lane]);
+          }
+#pragma unroll
+          for (int r = 0; r < kStRows; ++r) {
+            if (r >= rows) break;
+#pragma unroll
+            for (int j = 0; j < KL; ++j) acc[r][c] = fmaf(xv[r][j], wv[j], acc[r][c]);
+          }
+        }
+      } else {
+        constexpr int KW = SK / 8;  // k a warp: 8 (bf16) or 4 (f32)
+#pragma unroll
+        for (int j = 0; j < KW; ++j) {
+          const int k = q * KW + j;
+          const float2 wv = load2_f(w_s + k * kStN + 2 * lane);
+#pragma unroll
+          for (int r = 0; r < kStRows; ++r) {
+            if (r >= rows) break;
+            const float xv = to_f(x_s[r * SK + k]);
+            acc[r][0] = fmaf(xv, wv.x, acc[r][0]);
+            acc[r][1] = fmaf(xv, wv.y, acc[r][1]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: the N-major sums meet in it
+    if (KMajorB) {
+#pragma unroll
+      for (int r = 0; r < kStRows; ++r) {
+        if (r >= rows) break;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float v = acc[r][c];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+          const int col = n0 + q * 8 + c;
+          if (lane == c && col < N) store_f(y + (long long)(r0 + r) * N + col, v);
+        }
+      }
+    } else {
+      float* red = reinterpret_cast<float*>(ring);  // red[q][r][n]: 16 KB
+#pragma unroll
+      for (int r = 0; r < kStRows; ++r) {
+        if (r >= rows) break;
+        red[(q * kStRows + r) * kStN + 2 * lane] = acc[r][0];
+        red[(q * kStRows + r) * kStN + 2 * lane + 1] = acc[r][1];
+      }
+      __syncthreads();
+      for (int e = tid; e < rows * kStN; e += kStThreads) {
+        const int r = e / kStN, c = e % kStN;
+        float v = 0.f;
+#pragma unroll
+        for (int qq = 0; qq < 8; ++qq) v += red[(qq * kStRows + r) * kStN + c];
+        if (n0 + c < N) store_f(y + (long long)(r0 + r) * N + n0 + c, v);
+      }
+    }
+    __syncthreads();  // the ring is loaded again by the next pass
+  }
+}
+
+// -------------------------------------------------------------------- tgmm
+
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kTile = 64;      // tgmm's output tile edge (TK = TN)
 
 // dw (G, K, N): block (blockIdx.x, blockIdx.y, g) owns one (kTile, kTile) tile
 // of dw[g] and loops over the rows of group g.
@@ -165,35 +582,99 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(
   }
 }
 
-inline unsigned blocks(int n) { return (unsigned)((n + kTile - 1) / kTile); }
+inline unsigned cdiv(int n, int d) { return (unsigned)((n + d - 1) / d); }
 
-}  // namespace
+// gmm's paths and the (rows, columns) of a block's tile in each; the
+// wrapper's table in ops.py is checked against repro_gmm_tile at load.
+enum Path { kStream = 0, kFfma = 1, kFfmaWide = 2, kWgmma = 3 };
+constexpr int kTileRows[] = {kStRows, 32, 128, kWgM};
+constexpr int kTileCols[] = {kStN, 32, 128, kWgN};
 
-// dtype: 0 = float32, 1 = bfloat16.  Each entry launches on `stream` and
-// returns cudaGetLastError() of the launch (0 on success).
-extern "C" int repro_gmm(int dtype, const void* x, const void* w, const void* offsets,
-                         void* y, int M, int K, int N, int G, long long w_sg,
-                         long long w_sk, long long w_sn, void* stream) {
-  const dim3 grid(blocks(N), blocks(M));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* offs = static_cast<const int*>(offsets);
-  if (dtype == 0) {
-    gmm_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), offs,
-        static_cast<float*>(y), M, K, N, G, w_sg, w_sk, w_sn);
-  } else if (dtype == 1) {
-    gmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), offs,
-        static_cast<__nv_bfloat16*>(y), M, K, N, G, w_sg, w_sk, w_sn);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch_gmm(int path, const T* x, const T* w, const int* bounds, const int* prefix, T* y,
+               int M, int K, int N, int G, long long w_sg, long long w_sk, long long w_sn,
+               cudaStream_t s) {
+  const unsigned gx = cdiv(N, kTileCols[path]);
+  const dim3 tiled(gx, cdiv(M, kTileRows[path]) + (unsigned)G);
+  switch (path) {
+    case kStream: {
+      const dim3 grid(gx, (unsigned)G + 1);
+      if (w_sk == 1)
+        gmm_stream_kernel<T, true><<<grid, kStThreads, 0, s>>>(x, w, bounds, y, M, K, N, G, w_sg, w_sk, w_sn);
+      else
+        gmm_stream_kernel<T, false><<<grid, kStThreads, 0, s>>>(x, w, bounds, y, M, K, N, G, w_sg, w_sk, w_sn);
+      break;
+    }
+    case kFfma:
+      gmm_ffma_kernel<T, 32, 32, 2, 4><<<tiled, 128, 0, s>>>(
+          x, w, bounds, prefix, y, M, K, N, G, w_sg, w_sk, w_sn);
+      break;
+    case kFfmaWide:
+      gmm_ffma_kernel<T, 128, 128, 8, 8><<<tiled, 256, 0, s>>>(
+          x, w, bounds, prefix, y, M, K, N, G, w_sg, w_sk, w_sn);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool KMajorB>
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, const int* bounds,
+                 const int* prefix, __nv_bfloat16* y, int M, int K, int N, int G, long long w_sg,
+                 long long w_sk, long long w_sn, cudaStream_t s) {
+  const cudaError_t attr = cudaFuncSetAttribute(  // per device: set on every launch
+      gmm_wgmma_kernel<KMajorB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(cdiv(N, kWgN), cdiv(M, kWgM) + (unsigned)G);
+  gmm_wgmma_kernel<KMajorB><<<grid, kWgThreads, kWgSmem, s>>>(
+      x, w, bounds, prefix, y, M, K, N, G, w_sg, w_sk, w_sn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The tile of `path`: rows if which == 0, columns if which == 1; -1 for an
+// unknown path.
+extern "C" int repro_gmm_tile(int path, int which) {
+  if (path < kStream || path > kWgmma) return -1;
+  return which == 0 ? kTileRows[path] : kTileCols[path];
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  Each entry launches on `stream` and
+// returns cudaGetLastError() of the launch (0 on success).  gmm's `bounds`
+// (G + 2 ints) and, for the tiled paths, `prefix` (G + 2 ints) are the
+// wrapper's schedule; the stream and wgmma paths need K and N multiples of
+// 8 and 16-byte aligned rows; wgmma takes bf16 only.
+extern "C" int repro_gmm(int path, int dtype, const void* x, const void* w, const void* bounds,
+                         const void* prefix, void* y, int M, int K, int N, int G,
+                         long long w_sg, long long w_sk, long long w_sn, void* stream) {
+  if (path < kStream || path > kWgmma) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* b = static_cast<const int*>(bounds);
+  const int* pre = static_cast<const int*>(prefix);
+  if (path == kWgmma) {
+    if (dtype != 1 || (w_sk != 1 && w_sn != 1)) return static_cast<int>(cudaErrorInvalidValue);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    auto* yb = static_cast<__nv_bfloat16*>(y);
+    return w_sn == 1 ? launch_wgmma<false>(xb, wb, b, pre, yb, M, K, N, G, w_sg, w_sk, w_sn, s)
+                     : launch_wgmma<true>(xb, wb, b, pre, yb, M, K, N, G, w_sg, w_sk, w_sn, s);
+  }
+  if (path == kStream && w_sk != 1 && w_sn != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_gmm<float>(path, static_cast<const float*>(x), static_cast<const float*>(w),
+                             b, pre, static_cast<float*>(y), M, K, N, G, w_sg, w_sk, w_sn, s);
+  if (dtype == 1)
+    return launch_gmm<__nv_bfloat16>(
+        path, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), b, pre,
+        static_cast<__nv_bfloat16*>(y), M, K, N, G, w_sg, w_sk, w_sn, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" int repro_tgmm(int dtype, const void* x, const void* dy, const void* offsets,
                           void* dw, int M, int K, int N, int G, void* stream) {
-  const dim3 grid(blocks(N), blocks(K), (unsigned)G);
+  const dim3 grid(cdiv(N, kTile), cdiv(K, kTile), (unsigned)G);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* offs = static_cast<const int*>(offsets);
   if (dtype == 0) {

@@ -9,18 +9,26 @@ with ``impl="pallas"``.  The tensor's device picks the implementation:
   raises; nothing falls back to the plain version;
 * a CPU tensor takes the plain versions in ``ref.py``.
 
-``LAUNCHES`` counts kernel launches per kernel, so a run can show that its
-path went through the kernels.  The wrappers never read group sizes on the
-host: ``offsets = [0, cumsum(group_sizes)]`` is computed on the card and
-the kernels read it there.
+``gmm`` has three paths, picked by ``choose_path`` from M, K, N, G and the
+dtype alone: ``stream`` (a few rows a group: one block per group and
+64-column slab streams the slab once), ``wgmma`` (bf16 tiles on the
+tensor cores) and ``ffma`` / ``ffma_wide`` (f32 tiles, and bf16 rows that
+are no 16-byte multiple).  The tiled paths give every block one (part, row
+tile, column tile): ``row_bounds`` and ``tile_prefix`` are that schedule,
+computed with torch ops on the tensor's device, and ``grid`` is its upper
+bound on the host.  ``LAUNCHES`` counts kernel launches per kernel (one a wrapper
+call), so a run can show that its path went through the kernels.  The
+wrappers never read group sizes on the host.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.grouped_matmul import ref
@@ -31,8 +39,13 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu",)
 LAUNCHES = {"gmm": 0, "tgmm": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64          # output tile edge of both kernels (grid sizing limits)
+#: gmm's paths: (code of the C entry, rows, columns) of a block's tile; a
+#: ``stream`` block owns a whole group and 64 columns, 8 rows a pass
+PATHS = {"stream": (0, 8, 64), "ffma": (1, 32, 32), "ffma_wide": (2, 128, 128),
+         "wgmma": (3, 128, 256)}
+_SMS = 132          # an H100's SMs: ffma_wide once its grid has 4 blocks an SM
 _MAX_GRID_YZ = 65535
+_TGMM_TILE = 64     # tgmm's output tile edge (its grid's limits)
 _INT32_MAX = 2 ** 31 - 1
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -42,11 +55,54 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def library() -> ctypes.CDLL:
     """Build (first call only) and load the kernels' library."""
     lib = load_library("grouped_matmul", SOURCES)
-    lib.repro_gmm.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P]
+    lib.repro_gmm.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P]
     lib.repro_gmm.restype = _I
+    lib.repro_gmm_tile.argtypes = [_I, _I]
+    lib.repro_gmm_tile.restype = _I
     lib.repro_tgmm.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.repro_tgmm.restype = _I
+    for name, (code, tm, tn) in PATHS.items():
+        if (lib.repro_gmm_tile(code, 0), lib.repro_gmm_tile(code, 1)) != (tm, tn):
+            raise RuntimeError(f"gmm path {name}: the kernel's tile differs from ({tm}, {tn})")
     return lib
+
+
+def choose_path(m: int, k: int, n: int, g: int, dtype: torch.dtype,
+                vectors: bool = True) -> str:
+    """The path for an (m, k) x (g, k, n) product.  ``vectors``: the operands'
+    rows start on 16-byte boundaries (``_vector_rows``); without it, and
+    where K or N is no multiple of 8, only the ffma paths take them."""
+    vectors = vectors and k % 8 == 0 and n % 8 == 0
+    if vectors and m <= 4 * g:
+        return "stream"
+    if vectors and dtype == torch.bfloat16:
+        return "wgmma"
+    cols, rows = grid("ffma_wide", m, n, g)
+    return "ffma_wide" if cols * rows >= 4 * _SMS else "ffma"
+
+
+def grid(path: str, m: int, n: int, g: int) -> Tuple[int, int]:
+    """(columns, rows) of the launch grid: an upper bound of the blocks that
+    own a tile for any split of m rows over g groups."""
+    _, tm, tn = PATHS[path]
+    if path == "stream":
+        return -(-n // tn), g + 1
+    return -(-n // tn), -(-m // tm) + g
+
+
+def row_bounds(group_sizes: torch.Tensor, m: int) -> torch.Tensor:
+    """int32 (G + 2,): [0, end of group 0, .., end of group G-1, m], clamped
+    to [0, m]; part G, the rows past the groups, is written as zeros."""
+    ends = F.pad(group_sizes.to(torch.int32), (1, 1)).cumsum(0, dtype=torch.int32)
+    ends[-1:].fill_(m)
+    return ends.clamp_(0, m)
+
+
+def tile_prefix(bounds: torch.Tensor, tm: int) -> torch.Tensor:
+    """int32 (G + 2,): [0, running count of the parts' tm-row tiles]; part p
+    owns grid rows prefix[p] .. prefix[p + 1] - 1."""
+    tiles = bounds.diff().clamp_(min=0).add_(tm - 1).div_(tm, rounding_mode="floor")
+    return F.pad(tiles.cumsum(0, dtype=torch.int32), (1, 0))
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -67,11 +123,15 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
         raise ValueError(f"{name}: dimension too large for the kernel: {tuple(t.shape)}")
 
 
-def _offsets(group_sizes: torch.Tensor, num_groups: int) -> torch.Tensor:
+def _check_sizes(group_sizes: torch.Tensor, num_groups: int) -> None:
     if group_sizes.dim() != 1 or group_sizes.shape[0] != num_groups:
         raise ValueError(f"group_sizes must be ({num_groups},), got {tuple(group_sizes.shape)}")
     if group_sizes.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"group_sizes must be int32 or int64, got {group_sizes.dtype}")
+
+
+def _offsets(group_sizes: torch.Tensor, num_groups: int) -> torch.Tensor:
+    _check_sizes(group_sizes, num_groups)
     zero = torch.zeros(1, dtype=torch.int32, device=group_sizes.device)
     return torch.cat([zero, torch.cumsum(group_sizes, 0, dtype=torch.int32)])
 
@@ -81,10 +141,35 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def _vector_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """16-byte copies can read x's rows and w's slabs: aligned starts and a
+    non-unit stride of w that keeps them aligned (K, N % 8 is the path's)."""
+    e = 16 // x.element_size()
+    s_g, s_k, s_n = w.stride()
+    return (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and s_g % e == 0
+            and (s_k if s_n == 1 else s_n) % e == 0)
+
+
+def launch_gmm(path: str, x: torch.Tensor, w: torch.Tensor, bounds: torch.Tensor,
+               prefix: Optional[torch.Tensor], y: torch.Tensor) -> None:
+    """One launch of ``path`` on a schedule already made (``gmm`` makes it;
+    timings call this to keep the schedule's own launches out)."""
+    (m, k), (g, _, n) = x.shape, w.shape
+    with torch.cuda.device(x.device):
+        err = library().repro_gmm(
+            PATHS[path][0], _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), bounds.data_ptr(),
+            0 if prefix is None else prefix.data_ptr(), y.data_ptr(), m, k, n, g, *w.stride(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "gmm")
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+        path: Optional[str] = None) -> torch.Tensor:
     """(M, K) rows sorted by group x (G, K, N) -> (M, N) in x.dtype.
 
-    ``w`` may be any strided view (the backward passes ``wᵀ`` in place)."""
+    ``w`` is (G, K, N) with unit stride along N, or a view with unit stride
+    along K (the backward passes ``wᵀ`` in place).  ``path`` forces one of
+    ``PATHS`` (every path computes the same function; tests hold each)."""
     if x.device.type == "cpu":
         return ref.grouped_matmul_ref(x, w, group_sizes)
     _check_cuda("gmm", x, w, group_sizes)
@@ -94,19 +179,27 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Te
     _check_operand("gmm w", w, x.dtype)
     if not x.is_contiguous():
         raise ValueError("gmm: x must be contiguous")
+    if w.stride(2) != 1 and w.stride(1) != 1:
+        raise ValueError(f"gmm: w needs unit stride along K or N, got strides {w.stride()}")
     (m, k), (g, _, n) = x.shape, w.shape
-    if -(-m // _TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"gmm: {m} rows exceed the kernel's grid")
-    offs = _offsets(group_sizes, g)
+    _check_sizes(group_sizes, g)
+    vectors = _vector_rows(x, w)
+    if path is None:
+        path = choose_path(m, k, n, g, x.dtype, vectors)
+    elif path not in PATHS:
+        raise ValueError(f"gmm: unknown path {path!r}, not one of {sorted(PATHS)}")
+    elif path in ("stream", "wgmma") and not (vectors and k % 8 == 0 and n % 8 == 0):
+        raise ValueError(f"gmm: the {path} path needs 16-byte rows (K, N multiples of 8)")
+    elif path == "wgmma" and x.dtype != torch.bfloat16:
+        raise ValueError("gmm: the wgmma path takes bfloat16")
+    if grid(path, m, n, g)[1] > _MAX_GRID_YZ:
+        raise ValueError(f"gmm: {m} rows in {g} groups exceed the kernel's grid")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    with torch.cuda.device(x.device):
-        err = library().repro_gmm(
-            _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), offs.data_ptr(),
-            y.data_ptr(), m, k, n, g, *w.stride(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "gmm")
+    bounds = row_bounds(group_sizes, m)
+    prefix = None if path == "stream" else tile_prefix(bounds, PATHS[path][1])
+    launch_gmm(path, x, w, bounds, prefix, y)
     LAUNCHES["gmm"] += 1
     return y
 
@@ -124,7 +217,7 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("tgmm: x and dy must be contiguous")
     (m, k), n = x.shape, dy.shape[1]
-    if num_groups > _MAX_GRID_YZ or -(-k // _TILE) > _MAX_GRID_YZ:
+    if num_groups > _MAX_GRID_YZ or -(-k // _TGMM_TILE) > _MAX_GRID_YZ:
         raise ValueError(f"tgmm: {num_groups} groups x {k} rows exceed the kernel's grid")
     offs = _offsets(group_sizes, num_groups)
     dw = torch.empty((num_groups, k, n), dtype=x.dtype, device=x.device)

@@ -107,6 +107,96 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         ops.gmm(x, w.cpu(), gs)                        # mixed devices
 
 
+def _decode_split_384():
+    sizes = [0] * 384
+    for i in range(24):
+        sizes[(37 * i) % 384] += 1 + (i % 3 == 0)
+    return sizes
+
+
+# gmm's split edge cases, on every path: (K, N, group sizes, rows past them) —
+# groups ending at and one row past the tile edges (8-row stream passes, 32-
+# and 64-row ffma tiles, 128-row wgmma tiles; N = 320 past a 256-column tile),
+# one expert taking every row, a 32-row decode split over 384 experts, and
+# every group empty with rows past them
+PATH_CASES = {
+    "tile-edges": (64, 320, [128, 129, 127, 32, 33, 8, 9, 64, 65, 0, 1], 3),
+    "one-expert-all-rows": (128, 128, [0] * 11 + [300] + [0] * 4, 0),
+    "G384-decode": (64, 64, _decode_split_384(), 0),
+    "all-empty-rows-past": (64, 96, [0] * 8, 300),
+}
+
+
+# every path with each dtype it takes (wgmma takes bf16; f32 stays on FFMA)
+PATH_DTYPES = [(p, d) for p in ops.PATHS for d in ("float32", "bfloat16")
+               if not (p == "wgmma" and d == "float32")]
+
+
+@pytest.mark.parametrize("path,dtype", PATH_DTYPES)
+@pytest.mark.parametrize("case", list(PATH_CASES))
+def test_gmm_every_path_at_split_edges(card, case, path, dtype):
+    k, n, sizes, extra = PATH_CASES[case]
+    m = sum(sizes) + extra
+    x, w, dy, gs = _inputs((m, k, n, len(sizes)), sizes, seed=8)
+    tdt = getattr(torch, dtype)
+    xc, wc, dyc = (torch.from_numpy(a).to(card, tdt) for a in (x, w, dy))
+    gc = torch.from_numpy(gs).to(card)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    for lhs, rhs in ((xc, wc), (dyc, wc.transpose(1, 2))):
+        got = ops.gmm(lhs, rhs, gc, path=path)
+        torch.testing.assert_close(got.float(), ref.grouped_matmul_ref(lhs, rhs, gc).float(), **tol)
+        assert not got[sum(sizes):].any()     # rows past the groups: exact zeros
+
+
+@pytest.mark.parametrize("path", ["wgmma", "stream"])
+def test_gmm_bf16_transposed_w_at_a_prefill_split(card, path):
+    """The backward's dx = dy @ wᵀ in bf16 with wᵀ read in place, at a routed
+    prefill-like split (olmoe's shape cut to a few MB)."""
+    rng = np.random.default_rng(9)
+    sizes = rng.multinomial(2048, rng.dirichlet(np.ones(64))).astype(np.int32)
+    sizes[::7] = 0
+    m = int(sizes.sum())
+    dy = torch.from_numpy(rng.normal(size=(m, 128)).astype(np.float32)).to(card, torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(64, 256, 128)) / 16).astype(np.float32)).to(card, torch.bfloat16)
+    gc = torch.from_numpy(sizes).to(card)
+    got = ops.gmm(dy, w.transpose(1, 2), gc, path=path)
+    want = ref.grouped_matmul_ref(dy, w.transpose(1, 2), gc)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("path", list(ops.PATHS))
+def test_gmm_reads_no_group_size_on_the_host(card, path):
+    dtype = torch.bfloat16 if path == "wgmma" else torch.float32
+    x = torch.randn((48, 64), device=card).to(dtype)
+    w = torch.randn((16, 64, 64), device=card).to(dtype)
+    gs = torch.tensor([0, 5, 0, 20, 3] + [1] * 11, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = ops.gmm(x, w, gs, path=path)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(y.float(), ref.grouped_matmul_ref(x, w, gs).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_gmm_refuses_paths_that_do_not_take_the_operands(card):
+    x = torch.zeros((8, 62), device=card)
+    w = torch.zeros((2, 62, 16), device=card)
+    gs = torch.tensor([4, 4], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        ops.gmm(x, w, gs, path="stream")               # K = 62: no 16-byte rows
+    with pytest.raises(ValueError):
+        ops.gmm(x[:, :48].contiguous(), w[:, :48], gs, path="wgmma")   # f32
+    with pytest.raises(ValueError):
+        ops.gmm(x, w, gs, path="tiled")                # no such path
+    with pytest.raises(ValueError):
+        ops.gmm(x, w.transpose(0, 2).contiguous().transpose(0, 2), gs)  # no unit stride on K or N
+    before = ops.LAUNCHES["gmm"]
+    ops.gmm(x, w, gs)
+    assert ops.LAUNCHES["gmm"] == before + 1
+
+
 # flash attention: (b, sq, skv, hq, hk, d, causal, window) — the reference's
 # sweep (tests/test_kernels.py:26-34), a suffix (Sq < Skv), ragged lengths
 # and head sizes off the kernel's tiles
