@@ -36,16 +36,20 @@ Phases (any failure exits non-zero before the last line is printed):
              busy time against wall time); the wall seconds of each phase of
              a round;
 6. flash   — the flash-attention kernel against its plain version on the
-             card: the reference's sweep (GQA, window, MQA + window at
-             S=384, non-causal), a suffix (Sq=128, Skv=512), a ragged length
-             and the serve shapes (qwen1.5-0.5b: MHA, D=64; recurrentgemma-9b:
-             MQA, D=256, window 2048; olmoe-1b-7b: MHA, D=128), f32 within
-             2e-5, bf16 within 2e-2;
+             card, every case on each path that takes it (``ops.PATHS``:
+             wgmma takes bf16, ffma f32 and bf16; forced with ``path=``):
+             the reference's sweep (GQA, window, MQA + window at S=384,
+             non-causal), a suffix (Sq=128, Skv=512), a ragged length, the
+             serve shapes (qwen1.5-0.5b: MHA, D=64; recurrentgemma-9b: MQA,
+             D=256, window 2048; olmoe-1b-7b: MHA, D=128), MQA at D=256 with
+             a window edge inside the tiles (S=2048, window 512) and a suffix
+             at D=128 (Sq=128, Skv=2048), f32 within 2e-5, bf16 within 2e-2;
 7. serve   — the second path: ``repro_torch.launch.serve.serve`` on
              qwen1.5-0.5b at its published width (24 layers, d_model 1024,
              vocab 151,936), seeded random weights, batch 4, prompt 2048,
              32 greedy decode steps; the launches of that run (one flash
-             launch per layer, all in the prefill), wall times, memory, and
+             launch per layer, all in the prefill, every one on the wgmma
+             path), wall times, memory, and
              the card busy share of one prefill and one decode step
              (torch.profiler);
 8. twin    — the same prefill and teacher-forced decode with attention
@@ -55,8 +59,10 @@ Phases (any failure exits non-zero before the last line is printed):
              prefill's in f32 compute within SERVE_TWIN_F32_REL_TOL; the
              kernel fed K/V rolled by one position must fail each limit;
 9. timings — the flash kernel at the three serve shapes (median of 50 launches)
-             beside its plain version, scaled_dot_product_attention and the
-             least time the card could take;
+             on each path (wgmma and ffma in bf16, ffma in f32) with the
+             achieved TFLOP/s, beside its plain version,
+             scaled_dot_product_attention and the least time the card could
+             take;
 10. ssd    — the SSD-scan kernel against the step recurrence (its plain
              version) on the card: the reference's sweep, G > 1 with a
              ragged L, and mamba2-1.3b's serve shape, f32 and bf16, as
@@ -182,6 +188,8 @@ FLASH_CASES = [            # tests/test_kernels.py:26-34, a suffix, a ragged len
     ("serve shape (qwen1.5-0.5b)", SERVE_SHAPE),
     ("serve shape (recurrentgemma-9b)", RG_ATTN_SHAPE),
     ("serve shape (olmoe-1b-7b)", OLMOE_ATTN_SHAPE),
+    ("MQA, D=256, S=2048, window 512", (1, 2048, 2048, 16, 1, 256, True, 512)),
+    ("suffix D=128, Sq=128 Skv=2048", (2, 128, 2048, 8, 2, 128, True, None)),
 ]
 
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
@@ -608,25 +616,32 @@ def flash_inputs(torch, case, dtype, seed=0):
 
 
 def check_flash(torch, fa_ops, fa_ref):
-    """The flash kernel against its plain version on the card: the
-    reference's sweep, a suffix, a ragged length and the serve shape, f32
-    within 2e-5 and bf16 within 2e-2.  Returns the largest f32 error."""
-    worst = 0.0
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    """The flash kernel against its plain version on the card, every case
+    on each path that takes it (f32: ffma; bf16: wgmma and ffma), f32
+    within 2e-5 and bf16 within 2e-2.  Returns the largest error of each
+    dtype and path."""
+    worst = {}
+    for dtype, tol, paths in ((torch.float32, 2e-5, ("ffma",)),
+                              (torch.bfloat16, 2e-2, ("wgmma", "ffma"))):
         for name, case in FLASH_CASES:
             causal, window = case[6:]
             q, k, v = flash_inputs(torch, case, dtype)
-            got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+            assert fa_ops.choose_path(q, k, v) == paths[0], name
             want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            assert got.shape == want.shape and got.dtype == want.dtype == dtype, name
-            assert torch.isfinite(got.float()).all(), name
-            err = float((got.float() - want.float()).abs().max())
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
-                                       msg=lambda m_: f"flash {name} {dtype}: {m_}")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            say(f"  {str(dtype)[6:]:>8} {name:<30} {str(case):<40} max|err| {err:.2e} (tol {tol:g})")
+            for path in paths:
+                before = dict(fa_ops.PATH_LAUNCHES)
+                got = fa_ops.flash_attention(q, k, v, causal=causal, window=window, path=path)
+                torch.cuda.synchronize()
+                assert fa_ops.PATH_LAUNCHES == {**before, path: before[path] + 1}, name
+                assert got.shape == want.shape and got.dtype == want.dtype == dtype, name
+                assert torch.isfinite(got.float()).all(), name
+                err = float((got.float() - want.float()).abs().max())
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                           msg=lambda m_: f"flash {name} {dtype} {path}: {m_}")
+                key = f"{str(dtype)[6:]} {path}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                say(f"  {str(dtype)[6:]:>8} {path:<5} {name:<31} {str(case):<40} "
+                    f"max|err| {err:.2e} (tol {tol:g})")
     return worst
 
 
@@ -672,6 +687,7 @@ def run_serve(torch, cfg, counters, expected):
     counted run of ``serve`` with its own printed lines.  Every count in
     ``counters`` is set to 0 just before the run and read just after; the
     run must show ``expected`` launches of each kernel."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import serve
     from repro_torch.models.registry import model_fns
     from repro_torch.tree import tree_leaves
@@ -680,12 +696,13 @@ def run_serve(torch, cfg, counters, expected):
     serve(cfg, decode_steps=1, log=lambda *a: None, **kw)   # warm: allocator, library handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counts in counters:
+    for counts in (*counters, fa_ops.PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
     res = serve(cfg, decode_steps=SERVE_STEPS,
                 log=lambda *a: say("  " + " ".join(map(str, a))), **kw)
     launches = {k: v for counts in counters for k, v in counts.items()}
+    flash_paths = dict(fa_ops.PATH_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     b, s = SERVE_BATCH, SERVE_PROMPT
     param_gb = sum(t.numel() * t.element_size() for t in tree_leaves(res["params"])) / 1e9
@@ -693,9 +710,12 @@ def run_serve(torch, cfg, counters, expected):
     cache_gb = sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9
     say(f"  prefill {res['prefill_s']:.4f} s ({b * s / res['prefill_s']:.0f} tok/s), decode "
         f"{res['decode_s']:.4f} s ({b * SERVE_STEPS / res['decode_s']:.1f} tok/s); launches "
-        f"{launches}; weights {param_gb:.2f} GB, decode cache {cache_gb:.2f} GB, "
-        f"peak allocated {peak_gb:.2f} GB")
+        f"{launches}, flash by path {flash_paths}; weights {param_gb:.2f} GB, decode cache "
+        f"{cache_gb:.2f} GB, peak allocated {peak_gb:.2f} GB")
     assert launches == expected, (launches, expected)   # every launch in the prefill
+    # every served prefill computes in bf16 with 16-byte rows: all on the tensor cores
+    assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"]}, flash_paths
+    launches["flash_attention_by_path"] = flash_paths
     tokens = res["tokens"]
     assert tokens.shape == (b, SERVE_STEPS + 1), tokens.shape
     assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
@@ -906,8 +926,9 @@ def live_pairs(sq, skv, causal, window):
 
 
 def time_flash(torch, fa_ops, fa_ref, shape):
-    """The kernel at a serve shape beside its plain version, the library's
-    attention and the least time the card could take."""
+    """The kernel at a serve shape on each path (wgmma and ffma in bf16,
+    ffma in f32) beside its plain version, the library's attention and the
+    least time the card could take."""
     b, sq, skv, hq, hk, d, causal, window = shape
     q, k, v = flash_inputs(torch, shape, torch.bfloat16, seed=3)
     q32, k32, v32 = (t.float() for t in (q, k, v))
@@ -915,26 +936,37 @@ def time_flash(torch, fa_ops, fa_ref, shape):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # at these shapes the window (if any) covers every causal key: the library's causal mask is the same
     assert window is None or window >= skv
+    assert fa_ops.choose_path(q, k, v) == "wgmma"
     row = {
+        "path": "wgmma",
         "ms": median_ms(torch, lambda: fa_ops.flash_attention(q, k, v, window=window)),
+        "ffma_bf16_ms": median_ms(torch, lambda: fa_ops.flash_attention(q, k, v, window=window,
+                                                                       path="ffma")),
         "f32_ms": median_ms(torch, lambda: fa_ops.flash_attention(q32, k32, v32, window=window)),
         "plain_ms": median_ms(torch, lambda: fa_ref.attention_ref(q, k, v, window=window), reps=10),
         "library_ms": median_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
                                                     enable_gqa=hq != hk)),
     }
     pairs = live_pairs(sq, skv, causal, window)
+    tq, tk = fa_ops.tiles("wgmma", d)
+    visited = sum(tq * tk * max(0, end - begin) for begin, end in (
+        fa_ops.kv_tiles(qt, sq, skv, causal, window, tq, tk) for qt in range(-(-sq // tq))))
     flops = 4 * b * hq * d * pairs                     # q·k and p·v on each live pair
     io_bytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hk * d)   # q, o, k, v in bf16
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
     row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-               ffma_ms=flops / F32_FLOPS * 1e3)
-    say(f"  flash_attention B={b} S={sq} Hq={hq} Hk={hk} D={d} causal window={window} bf16: "
-        f"{row['ms']:.4f} ms (f32 {row['f32_ms']:.4f} ms); plain {row['plain_ms']:.4f} ms; library "
-        f"(scaled_dot_product_attention, bf16) {row['library_ms']:.4f} ms; bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s, "
-        f"{io_bytes / 1e6:.1f} MB at 3.35 TB/s); at the f32 FFMA rate {row['ffma_ms']:.4f} ms; "
-        f"kernel / bound {row['ms'] / row['bound_ms']:.1f}, kernel / library "
-        f"{row['ms'] / row['library_ms']:.1f}")
+               f32_bound_ms=flops / F32_FLOPS * 1e3, visited_over_live=visited / pairs,
+               tflops={k: flops / row[k] / 1e9 for k in ("ms", "ffma_bf16_ms", "f32_ms", "library_ms")})
+    tf = row["tflops"]
+    say(f"  flash_attention B={b} S={sq} Hq={hq} Hk={hk} D={d} causal window={window}: bf16 wgmma "
+        f"{row['ms']:.4f} ms ({tf['ms']:.1f} TFLOP/s), bf16 ffma {row['ffma_bf16_ms']:.4f} ms "
+        f"({tf['ffma_bf16_ms']:.1f}), f32 ffma {row['f32_ms']:.4f} ms ({tf['f32_ms']:.1f}); plain "
+        f"{row['plain_ms']:.4f} ms; library (scaled_dot_product_attention, bf16) "
+        f"{row['library_ms']:.4f} ms ({tf['library_ms']:.1f}); bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s, {io_bytes / 1e6:.1f} MB at "
+        f"3.35 TB/s); f32 at the FFMA rate {row['f32_bound_ms']:.4f} ms; the wgmma path's "
+        f"{tq} x {tk} tiles visit {row['visited_over_live']:.3f} x the live pairs; wgmma / bound "
+        f"{row['ms'] / row['bound_ms']:.2f}, wgmma / library {row['ms'] / row['library_ms']:.2f}")
     return row
 
 
@@ -1530,8 +1562,10 @@ def main() -> int:
         for line in build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 say("   ", line.strip())
-    say("  flash_attention dynamic shared memory a block: " + ", ".join(
-        f"D<={d} {fa_ops.library().repro_flash_attention_smem_bytes(d)} B" for d in (32, 64, 128, 256)))
+    say("  flash_attention dynamic shared memory a block: " + "; ".join(
+        f"{path}: " + ", ".join(f"D<={d} {fa_ops.library().repro_flash_attention_smem_bytes(code, d)} B"
+                                for d in (32, 64, 128, 256))
+        for path, code in fa_ops.PATHS.items()))
     say("  ssd_scan dynamic shared memory a block: " + ", ".join(
         f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(p, n)} B"
         for p, n in ((16, 32), (16, 128), (64, 32), (64, 128))))
@@ -1569,7 +1603,8 @@ def main() -> int:
     del trainer, globals_r1
 
     say("PHASE 6 flash attention against its plain version")
-    worst["flash_attention"] = check_flash(torch, fa_ops, fa_ref)
+    flash_errs = check_flash(torch, fa_ops, fa_ref)
+    worst["flash_attention"] = flash_errs["float32 ffma"]
 
     cfg = get_config(SERVE_ARCH)
     say(f"PHASE 7 serve path: {SERVE_ARCH} at its published width ({cfg.total_layers} layers, "
@@ -1577,7 +1612,7 @@ def main() -> int:
         f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy decode steps")
     res, qwen_launches = run_serve(torch, cfg, counters,
                                    {**no_launches, "flash_attention": cfg.total_layers})
-    profile_serve(torch, cfg, res, ("flash_fwd_kernel",))
+    profile_serve(torch, cfg, res, ("flash_fwd",))
 
     say("PHASE 8 serve twin: the same prefill and decode with attention through the plain version")
     serve_twin(torch, cfg, res, {"attn_impl": "reference"},
@@ -1625,7 +1660,7 @@ def main() -> int:
         f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy decode steps")
     res, rgemma_launches = run_serve(torch, cfg, counters, {
         **no_launches, "rglru_scan": n_lru, "flash_attention": n_attn})
-    profile_serve(torch, cfg, res, ("rglru_kernel", "flash_fwd_kernel"))
+    profile_serve(torch, cfg, res, ("rglru_kernel", "flash_fwd"))
 
     say("PHASE 15 serve twin: the same prefill and decode with every kernel through its plain version")
     # the RG-LRU's long memory (per-step decay 0.95 to 0.9995 at init) makes a
@@ -1662,7 +1697,7 @@ def main() -> int:
         f"greedy decode steps")
     res, olmoe_launches = run_serve(torch, cfg, counters, {
         **no_launches, "flash_attention": cfg.total_layers, "gmm": 3 * n_moe * (1 + SERVE_STEPS)})
-    profile_serve(torch, cfg, res, ("gmm_wgmma_kernel", "gmm_stream_kernel", "flash_fwd_kernel"))
+    profile_serve(torch, cfg, res, ("gmm_wgmma_kernel", "gmm_stream_kernel", "flash_fwd"))
 
     say("PHASE 19 serve twin: the same prefill and decode with every expert product through the "
         "plain loop")
@@ -1691,7 +1726,7 @@ def main() -> int:
             "flash_decode_int8": len(steps) * cfg.total_layers})
     caps = caps[-len(steps) * cfg.total_layers:]     # the counted run's (the warm-up's come first)
     assert [c["pos"] for c in caps] == [p for p in steps for _ in range(cfg.total_layers)]
-    profile_serve(torch, cfg, res, ("flash_fwd_kernel",))
+    profile_serve(torch, cfg, res, ("flash_fwd",))
     worst["flash_decode_int8"] = max(worst["flash_decode_int8"],
                                      check_served_decode(torch, decode_ops, decode_ref, caps))
     fp, _ = teacher_forced_logits(torch, cfg.replace(kv_cache_quant=False, **KERNEL_ROUTES),
@@ -1731,16 +1766,19 @@ def main() -> int:
     flash_row = flash_rows[SERVE_SHAPE]
     flash_paths = {SERVE_ARCH: qwen_launches, RGEMMA_ARCH: rgemma_launches,
                    OLMOE_ARCH: olmoe_launches, f"{SERVE_ARCH} (int8 KV cache)": int8_launches}
+    flash_keys = (*timing_keys, "path", "ffma_bf16_ms", "f32_ms", "tflops")
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
         "launches": sum(p["flash_attention"] for p in flash_paths.values()),
         "launches_by_path": {k: p["flash_attention"] for k, p in flash_paths.items()},
-        "max_abs_err": worst["flash_attention"], "ms": flash_row["ms"],
-        "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
-        "bound_by": flash_row["bound_by"], "library_ms": flash_row["library_ms"],
-        RGEMMA_ARCH: {k: flash_rows[RG_ATTN_SHAPE][k] for k in timing_keys},
-        OLMOE_ARCH: {k: flash_rows[OLMOE_ATTN_SHAPE][k] for k in timing_keys},
+        "launches_by_kernel_path": {path: sum(p["flash_attention_by_path"][path]
+                                              for p in flash_paths.values())
+                                    for path in fa_ops.PATHS},
+        "max_abs_err": worst["flash_attention"], "max_abs_err_by_path": flash_errs,
+        **{k: flash_row[k] for k in flash_keys},
+        RGEMMA_ARCH: {k: flash_rows[RG_ATTN_SHAPE][k] for k in flash_keys},
+        OLMOE_ARCH: {k: flash_rows[OLMOE_ATTN_SHAPE][k] for k in flash_keys},
     })
     for name, source, replaces_at, path_launches in (
             ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:63", mamba_launches),

@@ -8,36 +8,56 @@
 //
 // over the keys j that the masks leave live: query position i + (Skv - Sq),
 // causal j <= position, window j > position - window.  Masked scores are
-// -1e30, not -inf, exactly as the TPU kernel writes them (kernel.py:63-68).
+// -1e30, not -inf, exactly as the TPU kernel writes them (kernel.py:63-68);
+// keys past Skv do not exist (-inf).  q is pre-scaled by 1/sqrt(D) in f32
+// and rounded back to its dtype before the product (kernel.py:109-110); the
+// final division clamps l at 1e-37 (kernel.py:82).  Output in q's dtype.
 //
 // What bounds it on the card: operations.  At the serve shape of qwen1.5-0.5b
 // (B = 4, Hq = 16, S = 2048, D = 64, causal) attention moves ~34 MB of q, k,
 // v and o but does ~34 GFLOP: 10 us of HBM traffic against ~35 us on the bf16
-// tensor cores and ~0.5 ms at the f32 FFMA rate this kernel uses.  The design:
+// tensor cores.  Common to both paths:
 //   * The TPU kernel carries m, l and the (TQ, D) accumulator in VMEM scratch
 //     across a *sequential* KV axis of its grid.  Blocks on Hopper run in
 //     parallel and in no order, so here one block owns one (batch, q-head,
-//     64-row q tile), loops over its KV tiles itself with the online-softmax
+//     q tile), loops over its KV tiles itself with the online-softmax
 //     statistics and the accumulator in registers, and writes its output
-//     tile once.  2,048 blocks at the serve shape fill 132 SMs several times.
+//     tile once.
 //   * Only the KV tiles that can hold a live key for the block's rows are
 //     visited (the block-skip of kernel.py:44-52): under a causal mask the
 //     work is about half the square, and blocks start heaviest-first.
 //   * GQA reads KV head h / (Hq/Hk) in place, and q, k, v, o are read and
 //     written in the model's (B, S, H, D) layout through strides: no
-//     transposed or repeated copies.  Ragged Sq, Skv and D are masked here.
-//   * f32 inputs accumulate with f32 FFMA (the parity tolerance is 2e-5,
-//     which a single TF32 pass would miss); bf16 inputs widen on load.  q is
-//     pre-scaled by 1/sqrt(D) in f32 and rounded back to its dtype before the
-//     product, as kernel.py:109-110 does.  Output in q's dtype.
-// A shared-memory tiled FFMA kernel; mma/wgmma, TMA and warp specialisation
-// are later work.
+//     transposed or repeated copies.  Ragged Sq, Skv and D are masked or
+//     zero-filled here.
+// Two paths, chosen by the wrapper before the launch (ops.choose_path):
+//   * wgmma (bf16 with 16-byte rows): flash_fwd_wgmma_kernel.  A block owns
+//     128 query rows, 64 for each of two warpgroups.  S = Q K^T is wgmma
+//     m64nTKk16 from 128-byte-swizzled shared memory (both operands K-major:
+//     D is contiguous); the online softmax runs on the f32 accumulators in
+//     registers (row max and sum over the 4 lanes of a quad, exp2 with
+//     log2(e) folded into the scores); P is rounded to bf16 in registers and
+//     is the register A operand of O += P V (wgmma m64nDk16, V N-major
+//     through the transposed-B mode): the accumulator's fragment layout is
+//     the A operand's, so P never goes through shared memory.  K and V
+//     stream through a 2-stage ring of 16-byte cp.async copies, the next
+//     tile's loads in flight under this tile's products.  Element masks run
+//     only on tiles that straddle a mask's edge.  Tiles by head size: TK =
+//     128 keys at D <= 128 (80 KB and 160 KB of shared memory), 64 at D =
+//     256 (192 KB); D pads up to 64, 128 or 256 with zero-filled copies.
+//   * ffma (f32, whose parity tolerance is 2e-5 and which one TF32 pass
+//     would miss, and bf16 rows that are not 16-byte aligned):
+//     flash_fwd_kernel, 64-row q tiles, K and V widened to f32 in padded
+//     shared-memory rows, every product with scalar FFMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------------ FFMA path
 
 constexpr int kThreads = 256;  // 16 x 16: each thread owns 4 rows x (4 keys | D/16 columns)
 constexpr int kTQ = 64;        // query rows per block
@@ -215,6 +235,375 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
+// ----------------------------------------------------------------- wgmma path
+
+constexpr int kWgTQ = 128;     // query rows a block: two warpgroups of 64
+constexpr int kWgThreads = 256;
+constexpr int kWgStages = 2;   // K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DM>
+__host__ __device__ constexpr int wg_tk() { return DM >= 256 ? 64 : 128; }  // keys a KV tile
+template <int DM>
+constexpr int wg_smem_bytes() {  // Q, then the ring of (K, V); + room to align to 1 KB
+  return kWgTQ * DM * 2 + kWgStages * 2 * wg_tk<DM>() * DM * 2 + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok (src must
+// still be a valid address then: nothing is read from it)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Registers that an asynchronous wgmma reads or writes: the compiler may
+// neither move their other uses across this point nor reuse them before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x N, f32, in the registers of a warpgroup) = (scale_d ? d : 0) +
+// A (64 x 16) B (16 x N), both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d);
+// d (64 x N) += A (64 x 16, bf16 pairs in registers) B (16 x N), B N-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Shared memory, every 8-row atom of 1 KB swizzled by row % 8: a tile of R
+// rows (queries or keys) by DM columns is DM / 64 panels of R rows x 128
+// bytes; chunk c (8 columns) of row r lies at panel c / 8, r * 128 +
+// ((c % 8) ^ (r % 8)) * 16.  K serves S = Q K^T as a K-major B (n = keys);
+// V serves O += P V as an N-major B (k = keys, n = D), the descriptor's
+// leading offset stepping panels and its stride offset 8 key rows.
+// Accumulator layout of a warpgroup: warp w % 4 holds rows 16 (w % 4) ..
+// + 15; register 4j + 2h + e is (row lane / 4 + 8h, column 8j + 2 (lane % 4)
+// + e).  Registers 8t .. 8t + 7 of S are then exactly the A fragment of
+// k-step t of P V (rows lane / 4 and + 8, columns 16t + 2 (lane % 4) + {0, 1}
+// and + 8), so P feeds the second product from the registers it is made in.
+// Grid: B * Hq * ceil(Sq / 128) blocks, the q tiles that see the most keys
+// first across every (batch, head).
+template <int DM>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+    int Hq, int Hk, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, float scale, int causal, int window) {
+  constexpr int TK = wg_tk<DM>();
+  constexpr int CH = DM / 8;              // 16-byte chunks of a row
+  constexpr int KV_BYTES = TK * DM * 2;   // one of K, V
+  constexpr int NS = TK / 2, NO = DM / 2; // accumulator registers of S and O
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* q_s = smem;
+  uint8_t* kv_s = smem + kWgTQ * DM * 2;  // stage s: K at + 2 s KV_BYTES, V after it
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wgi = warp >> 2;
+  const int n_qt = (Sq + kWgTQ - 1) / kWgTQ;
+  const int n_bh = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - blockIdx.x / n_bh;  // the last tiles see the most keys: start them first
+  const int h = blockIdx.x % n_bh % Hq, b = blockIdx.x % n_bh / Hq;
+  const int hk = h / (Hq / Hk);
+  const int q0 = qt * kWgTQ;
+  const int q_offset = Skv - Sq;  // suffix convention: the queries are the last Sq positions
+
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
+
+  // Q once: load, scale in f32, round to bf16, store swizzled
+  for (int c = tid; c < kWgTQ * CH; c += kWgThreads) {
+    const int r = c / CH, ch = c % CH;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < Sq && ch * 8 < D) {
+      val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * q_ss + ch * 8);
+      __nv_bfloat162* pr = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(pr[i]);
+        pr[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(q_s + (ch >> 3) * (kWgTQ * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4)) = val;
+  }
+
+  // KV tiles that can hold a live key for rows [q0, q0 + kWgTQ)
+  const int q_lo = q0 + q_offset;
+  const int q_hi = min(q0 + kWgTQ, Sq) - 1 + q_offset;
+  const int n_kt = (Skv + TK - 1) / TK;
+  int kt_begin = 0, kt_end = n_kt;
+  if (causal) kt_end = q_hi < 0 ? 0 : min(n_kt, q_hi / TK + 1);
+  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / TK;
+
+  auto load_kv = [&](int stage, int kt) {
+    const int k0 = kt * TK;
+    uint8_t* ks = kv_s + stage * 2 * KV_BYTES;
+    uint8_t* vs = ks + KV_BYTES;
+#pragma unroll
+    for (int i = 0; i < TK * CH / kWgThreads; ++i) {
+      const int c = tid + i * kWgThreads, r = c / CH, ch = c % CH;
+      const bool ok = k0 + r < Skv && ch * 8 < D;
+      const int off = (ch >> 3) * (TK * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+      const long long kofs = (long long)(k0 + r) * k_ss + ch * 8;
+      const long long vofs = (long long)(k0 + r) * v_ss + ch * 8;
+      cp_async16(ks + off, ok ? kb + kofs : kb, ok);
+      cp_async16(vs + off, ok ? vb + vofs : vb, ok);
+    }
+  };
+
+  const int row = wgi * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's rows: row, row + 8
+  const int qpos = q0 + row + q_offset;
+  float o_acc[NO], s[NS];
+  uint32_t p[TK / 16][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};  // m in log2 units; l this thread's part of the row sum
+
+  if (kt_begin < kt_end) load_kv(0, kt_begin);
+  cp_async_commit();
+  const uint32_t q_addr = smem_addr(q_s) + wgi * 64 * 128;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    cp_async_wait_all();  // tile kt has landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... visible to wgmma
+    __syncthreads();      // every thread's; and nobody still reads the other stage
+    if (kt + 1 < kt_end) load_kv(stage ^ 1, kt + 1);
+    cp_async_commit();
+    const uint32_t k_addr = smem_addr(kv_s) + stage * 2 * KV_BYTES, v_addr = k_addr + KV_BYTES;
+
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DM / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;  // k-step within a 128-byte panel
+      wgmma_ss<TK>(s, smem_desc(q_addr + (kk >> 2) * (kWgTQ * 128) + off, 16, 1024),
+                   smem_desc(k_addr + (kk >> 2) * (TK * 128) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scores in log2 units; masks only where the tile straddles a mask's edge
+    const int k0 = kt * TK;
+    bool full = k0 + TK <= Skv;
+    if (causal) full = full && k0 + TK - 1 <= q_lo;
+    if (window > 0) full = full && k0 > q_hi - window;
+    if (full) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] *= kLog2e;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int kpos = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int qp = qpos + 8 * ((i >> 1) & 1);
+        bool live = true;
+        if (causal) live = live && kpos <= qp;
+        if (window > 0) live = live && kpos > qp - window;
+        s[i] = kpos >= Skv ? -INFINITY : (live ? s[i] * kLog2e : kMask);
+      }
+    }
+
+    // online softmax, two rows a thread (a row with no live key yet has m =
+    // -1e30 and p = 1 for its masked scores; the first live key wipes them
+    // through corr)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = exp2f(m[hh] - mx);
+      m[hh] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pe = exp2f(s[4 * j + 2 * hh + e] - mx);
+          s[4 * j + 2 * hh + e] = pe;
+          rs += pe;
+        }
+      l[hh] = l[hh] * corr + rs;
+#pragma unroll
+      for (int j = 0; j < DM / 8; ++j) {
+        o_acc[4 * j + 2 * hh] *= corr;
+        o_acc[4 * j + 2 * hh + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TK / 16; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[t][r] = pack_bf16(s[8 * t + 2 * r], s[8 * t + 2 * r + 1]);
+
+    fence_regs(o_acc);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < TK / 16; ++t)
+      wgmma_rs<DM>(o_acc, p[t], smem_desc(v_addr + t * 16 * 128, TK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    fence_regs(p);
+  }
+  cp_async_wait_all();
+
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = q0 + row + 8 * hh;
+    if (r >= Sq) continue;
+    const float denom = fmaxf(lt, 1e-37f);
+#pragma unroll
+    for (int j = 0; j < DM / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);  // D % 8 == 0: the pair is in or out
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r * o_ss + col) =
+            __floats2bfloat162_rn(o_acc[4 * j + 2 * hh] / denom, o_acc[4 * j + 2 * hh + 1] / denom);
+    }
+  }
+}
+
 template <typename T, int DM>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
            int Hq, int Hk, int D, const long long* st, float scale, int causal, int window,
@@ -231,6 +620,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DM>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+                 int Hq, int Hk, int D, const long long* st, float scale, int causal, int window,
+                 cudaStream_t stream) {
+  constexpr int bytes = wg_smem_bytes<DM>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (long long)B * Hq * ((Sq + kWgTQ - 1) / kWgTQ);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_wgmma_kernel<DM><<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hk, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+      causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
                int Hq, int Hk, int D, const long long* st, float scale, int causal,
@@ -242,11 +649,28 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+                   int Hq, int Hk, int D, const long long* st, float scale, int causal,
+                   int window, cudaStream_t s) {
+  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows
+  if (D <= 64) return launch_wgmma<64>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 128) return launch_wgmma<128>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 256) return launch_wgmma<256>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Dynamic shared memory of one block for head size D (0: D not supported).
-extern "C" int repro_flash_attention_smem_bytes(int D) {
+// path: 0 = ffma, 1 = wgmma.  Dynamic shared memory of one block for head
+// size D (0: D not supported).
+extern "C" int repro_flash_attention_smem_bytes(int path, int D) {
   if (D <= 0) return 0;
+  if (path == 1) {
+    if (D <= 64) return wg_smem_bytes<64>();
+    if (D <= 128) return wg_smem_bytes<128>();
+    if (D <= 256) return wg_smem_bytes<256>();
+    return 0;
+  }
   if (D <= 32) return smem_bytes<32>();
   if (D <= 64) return smem_bytes<64>();
   if (D <= 128) return smem_bytes<128>();
@@ -254,15 +678,31 @@ extern "C" int repro_flash_attention_smem_bytes(int D) {
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: (batch, seq, head) of q, k, v
-// and o in elements, 12 values; the head dimension is unit-stride.  Launches
-// on `stream` and returns the CUDA error of the launch (0 on success).
-extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* o, int B, int Sq, int Skv, int Hq, int Hk, int D,
-                                     const long long* strides, float scale, int causal,
-                                     int window, void* stream) {
+// Query rows (which = 0) or keys (which = 1) of a block's tile on `path`
+// for head size D.
+extern "C" int repro_flash_attention_tile(int path, int D, int which) {
+  if (path == 1) {
+    if (which == 0) return kWgTQ;
+    return D <= 128 ? wg_tk<128>() : wg_tk<256>();
+  }
+  return which == 0 ? kTQ : kTK;
+}
+
+// path: 0 = ffma, 1 = wgmma (bf16 only).  dtype: 0 = float32, 1 =
+// bfloat16.  strides: (batch, seq, head) of q, k, v and o in elements, 12
+// values; the head dimension is unit-stride.  Launches on `stream` and
+// returns the CUDA error of the launch (0 on success).
+extern "C" int repro_flash_attention(int path, int dtype, const void* q, const void* k,
+                                     const void* v, void* o, int B, int Sq, int Skv, int Hq,
+                                     int Hk, int D, const long long* strides, float scale,
+                                     int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_wgmma(q, k, v, o, B, Sq, Skv, Hq, Hk, D, strides, scale, causal, window, s);
+  }
+  if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, strides, scale, causal, window, s);
   if (dtype == 1)

@@ -199,7 +199,8 @@ def test_gmm_refuses_paths_that_do_not_take_the_operands(card):
 
 # flash attention: (b, sq, skv, hq, hk, d, causal, window) — the reference's
 # sweep (tests/test_kernels.py:26-34), a suffix (Sq < Skv), ragged lengths
-# and head sizes off the kernel's tiles
+# and head sizes off the kernel's tiles, MQA at D = 256 with a window edge
+# inside the wgmma path's tiles, and a long suffix at D = 128
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 32, True, None),
     (2, 256, 256, 8, 2, 64, True, None),
@@ -211,7 +212,11 @@ FLASH_CASES = [
     (1, 37, 150, 4, 4, 16, True, 24),
     (1, 70, 70, 2, 2, 48, False, None),
     (1, 65, 65, 2, 1, 128, True, 5),
+    (1, 2048, 2048, 16, 1, 256, True, 512),
+    (2, 128, 2048, 8, 2, 128, True, None),
 ]
+# each flash path with each dtype it takes (wgmma takes bf16; f32 stays on FFMA)
+FLASH_PATH_DTYPES = [("ffma", "float32"), ("ffma", "bfloat16"), ("wgmma", "bfloat16")]
 
 
 def _flash_inputs(case, device, dtype, seed=7):
@@ -226,14 +231,77 @@ def _flash_inputs(case, device, dtype, seed=7):
 def test_flash_attention_matches_plain_version(card, case, dtype):
     causal, window = case[6:]
     q, k, v = _flash_inputs(case, card, getattr(torch, dtype))
-    before = fa_ops.LAUNCHES["flash_attention"]
+    before, paths = fa_ops.LAUNCHES["flash_attention"], dict(fa_ops.PATH_LAUNCHES)
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    path = "wgmma" if dtype == "bfloat16" else "ffma"      # every case's D is a multiple of 8
+    assert fa_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
     want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("path,dtype", FLASH_PATH_DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_every_path_matches_plain_version(card, case, path, dtype):
+    causal, window = case[6:]
+    q, k, v = _flash_inputs(case, card, getattr(torch, dtype))
+    before, paths = fa_ops.LAUNCHES["flash_attention"], dict(fa_ops.PATH_LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window, path=path)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    assert fa_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _misaligned(t, how):
+    """``t``'s values in a bf16 view that 16-byte copies cannot read: a head
+    stride of D + 4 elements, or a start 2 bytes past an aligned one."""
+    b, s, h, d = t.shape
+    if how == "stride":
+        buf = torch.zeros((b, s, h, d + 4), dtype=t.dtype, device=t.device)
+        buf[..., :d] = t
+        return buf[..., :d]
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(b, s, h, d)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("how", ["stride", "offset"])
+def test_flash_unaligned_bf16_takes_ffma(card, how):
+    case = (2, 96, 160, 4, 2, 64, True, 40)
+    q, k, v = _flash_inputs(case, card, torch.bfloat16)
+    views = [_misaligned(t, how) for t in (q, k, v)]
+    assert fa_ops.choose_path(q, k, v) == "wgmma" and fa_ops.choose_path(*views) == "ffma"
+    paths = dict(fa_ops.PATH_LAUNCHES)
+    got = fa_ops.flash_attention(*views, window=40)
+    torch.cuda.synchronize()
+    assert fa_ops.PATH_LAUNCHES == {**paths, "ffma": paths["ffma"] + 1}
+    torch.testing.assert_close(got, fa_ops.flash_attention(q, k, v, window=40, path="ffma"),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got.float(), fa_ref.attention_ref(q, k, v, window=40).float(),
+                               rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(*views, window=40, path="wgmma")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 8, 20, 36, 64, 72, 100, 128, 136, 200, 256])
+def test_flash_takes_every_head_size_it_took_before(card, d, dtype):
+    """Every head size up to 256 runs, on the path chosen for it: bf16 with
+    D % 8 == 0 on wgmma (zero-padded to 64, 128 or 256), the rest on ffma."""
+    case = (1, 70, 90, 4, 2, d, True, None)
+    q, k, v = _flash_inputs(case, card, getattr(torch, dtype))
+    path = "wgmma" if dtype == "bfloat16" and d % 8 == 0 else "ffma"
+    assert fa_ops.choose_path(q, k, v) == path
+    got = fa_ops.flash_attention(q, k, v)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), fa_ref.attention_ref(q, k, v).float(), **tol)
 
 
 def test_flash_attention_reads_strided_layouts_in_place(card):
@@ -244,6 +312,17 @@ def test_flash_attention_reads_strided_layouts_in_place(card):
     assert not views[0].is_contiguous()
     want = fa_ops.flash_attention(q, k, v, window=40)
     got = fa_ops.flash_attention(*views, window=40)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_wgmma_reads_strided_layouts_in_place(card):
+    """bf16 (B, H, S, D) tensors viewed as (B, S, H, D) keep 16-byte rows:
+    the wgmma path takes them and gives the contiguous result exactly."""
+    q, k, v = _flash_inputs((2, 300, 300, 4, 2, 128), card, torch.bfloat16)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous() and fa_ops.choose_path(*views) == "wgmma"
+    want = fa_ops.flash_attention(q, k, v, window=100)
+    got = fa_ops.flash_attention(*views, window=100)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -266,6 +345,10 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         odd = torch.zeros((1, 8, 4, 32), device=card)[..., ::2]
         fa_ops.flash_attention(odd, odd, odd)                       # D not unit-stride
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k, path="wgmma")               # f32
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k, path="mma")                 # no such path
     with pytest.raises(NotImplementedError):
         fa_ops.flash_attention(q.requires_grad_(), k, k)            # no backward yet
 
