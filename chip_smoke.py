@@ -64,17 +64,26 @@ Phases (any failure exits non-zero before the last line is printed):
              scaled_dot_product_attention and the least time the card could
              take;
 10. ssd    — the SSD-scan kernel against the step recurrence (its plain
-             version) on the card: the reference's sweep, G > 1 with a
-             ragged L, and mamba2-1.3b's serve shape, f32 and bf16, as
-             relative norms of y and of the final state (and elementwise at
-             the reference's tolerances below the serve shape);
+             version) on the card, every case on each path that takes it
+             (``ssd_ops.PATHS``: wgmma takes bf16 with 16-byte rows and
+             N > 32, ffma f32 and bf16; forced with ``path=``): the
+             reference's sweep, G > 1 with a ragged L, mamba2-1.3b's serve
+             shape, served widths with L off the wgmma path's 64-row chunks,
+             G = 2 at served widths, a narrow case (N = 64, padded to the
+             block's 128 state columns) and a strong decay
+             (a = -exp(normal + 2)), f32 within 2e-5 and bf16 within 2e-2:
+             relative norms of y and of the final state, and below the
+             serve shape the state elementwise and y elementwise where
+             N <= 32;
 11. rglru  — the RG-LRU-scan kernel against the step recurrence: the
              reference's sweep, a ragged L and recurrentgemma-9b's serve
              shape, y within 2e-5 (f32) or 2e-2 (bf16), the final state 1e-4;
 12. serve  — the third path: ``serve`` on mamba2-1.3b at its published width
              (48 layers, d_model 2048, 64 SSD heads of 64, state 128, vocab
              50,280, f32 weights), batch 4, prompt 2048, 32 greedy steps: 48
-             ssd_scan launches, all in the prefill; wall, memory, card busy;
+             ssd_scan launches, all in the prefill and every one on the
+             wgmma path (``run_serve`` asserts ``ssd_ops.PATH_LAUNCHES``);
+             wall, memory, card busy;
 13. twin   — phase 8's twin for it with the scan through its plain version
              (``ssd_chunked``) and the kernel's inputs rolled by one position
              along L as the control; the final SSM states of the f32 prefill
@@ -97,6 +106,8 @@ Phases (any failure exits non-zero before the last line is printed):
              layer's RG-LRU scan at phase 11's tolerances;
 16. timings — ``ssd_scan`` and ``rglru_scan`` at their serve shapes (median of
              50 launches) beside their plain versions and their bounds;
+             ``ssd_scan`` on each path (wgmma and ffma in bf16, ffma in
+             f32) with achieved TFLOP/s and TB/s and kernel over bound;
 17. gmm    — ``gmm`` at olmoe-1b-7b's expert shapes (64 experts, 2048 -> 1024
              and 1024 -> 2048) on the router's splits (a 4 x 2048-token
              prefill, the same with 16 experts empty, a 4-token decode step)
@@ -135,7 +146,9 @@ The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3 and 18, ``tgmm`` with those of phase 3, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
-phase 21), the card's name and power limit as ``nvidia-smi`` prints them, and
+phase 21; flash and ``ssd_scan`` also by kernel path, with worst errors and
+times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's),
+the card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  The script uses one card: unless
 ``CUDA_VISIBLE_DEVICES`` names exactly one, it is set to the first.
 """
@@ -197,12 +210,20 @@ RGLRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
 MAMBA_ARCH, RGEMMA_ARCH = "mamba2-1.3b", "recurrentgemma-9b"
 # (B, L, H, P, G, N) of mamba2-1.3b's prefill; its config's ssm_chunk sizes the plain version
 SSD_SERVE_SHAPE, SSD_CHUNK = (SERVE_BATCH, SERVE_PROMPT, 64, 64, 1, 128), 256
-SSD_CASES = [              # tests/test_kernels.py:66-68, G > 1 with a ragged L, the serve shape
-    ("sweep, G=1", (1, 64, 2, 8, 1, 8)),
-    ("sweep, G=2", (2, 128, 4, 16, 2, 16)),
-    ("sweep, L=96", (1, 96, 4, 8, 1, 16)),
-    ("G=2, ragged L=45", (2, 45, 4, 8, 2, 16)),
-    ("serve shape (mamba2-1.3b)", SSD_SERVE_SHAPE),
+# tests/test_kernels.py:66-68, G > 1 with a ragged L, the serve shape; then
+# where the wgmma path's 64-row chunks and N padding matter (a strong decay:
+# a = -exp(normal + 2), exp(cs) underflows within a chunk and a seg factored
+# as exp(cs_t) exp(-cs_s) would overflow)
+SSD_CASES = [              # (name, (B, L, H, P, G, N), strong decay)
+    ("sweep, G=1", (1, 64, 2, 8, 1, 8), False),
+    ("sweep, G=2", (2, 128, 4, 16, 2, 16), False),
+    ("sweep, L=96", (1, 96, 4, 8, 1, 16), False),
+    ("G=2, ragged L=45", (2, 45, 4, 8, 2, 16), False),
+    ("serve shape (mamba2-1.3b)", SSD_SERVE_SHAPE, False),
+    ("served widths, L=1000", (2, 1000, 8, 64, 1, 128), False),
+    ("served widths, G=2", (2, 512, 8, 64, 2, 128), False),
+    ("narrow, N=64 padded to 128", (2, 256, 4, 32, 1, 64), False),
+    ("served widths, strong decay", (2, 256, 8, 64, 1, 128), True),
 ]
 # (B, L, W) of recurrentgemma-9b's prefill
 RGLRU_SERVE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 4096)
@@ -688,6 +709,7 @@ def run_serve(torch, cfg, counters, expected):
     ``counters`` is set to 0 just before the run and read just after; the
     run must show ``expected`` launches of each kernel."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import serve
     from repro_torch.models.registry import model_fns
     from repro_torch.tree import tree_leaves
@@ -696,13 +718,13 @@ def run_serve(torch, cfg, counters, expected):
     serve(cfg, decode_steps=1, log=lambda *a: None, **kw)   # warm: allocator, library handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counts in (*counters, fa_ops.PATH_LAUNCHES):
+    for counts in (*counters, fa_ops.PATH_LAUNCHES, ssd_ops.PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
     res = serve(cfg, decode_steps=SERVE_STEPS,
                 log=lambda *a: say("  " + " ".join(map(str, a))), **kw)
     launches = {k: v for counts in counters for k, v in counts.items()}
-    flash_paths = dict(fa_ops.PATH_LAUNCHES)
+    flash_paths, ssd_paths = dict(fa_ops.PATH_LAUNCHES), dict(ssd_ops.PATH_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     b, s = SERVE_BATCH, SERVE_PROMPT
     param_gb = sum(t.numel() * t.element_size() for t in tree_leaves(res["params"])) / 1e9
@@ -710,12 +732,14 @@ def run_serve(torch, cfg, counters, expected):
     cache_gb = sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9
     say(f"  prefill {res['prefill_s']:.4f} s ({b * s / res['prefill_s']:.0f} tok/s), decode "
         f"{res['decode_s']:.4f} s ({b * SERVE_STEPS / res['decode_s']:.1f} tok/s); launches "
-        f"{launches}, flash by path {flash_paths}; weights {param_gb:.2f} GB, decode cache "
+        f"{launches}, flash by path {flash_paths}, ssd_scan by path {ssd_paths}; weights {param_gb:.2f} GB, decode cache "
         f"{cache_gb:.2f} GB, peak allocated {peak_gb:.2f} GB")
     assert launches == expected, (launches, expected)   # every launch in the prefill
     # every served prefill computes in bf16 with 16-byte rows: all on the tensor cores
     assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"]}, flash_paths
+    assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"]}, ssd_paths
     launches["flash_attention_by_path"] = flash_paths
+    launches["ssd_scan_by_path"] = ssd_paths
     tokens = res["tokens"]
     assert tokens.shape == (b, SERVE_STEPS + 1), tokens.shape
     assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
@@ -973,8 +997,9 @@ def time_flash(torch, fa_ops, fa_ref, shape):
 # ---------------------------------------------------------------- phases 10, 11
 
 
-def ssd_inputs(torch, case, dtype, seed=0):
-    """x, B, C in ``dtype``; dt = softplus(normal) and a = -exp(normal) in f32."""
+def ssd_inputs(torch, case, dtype, seed=0, strong=False):
+    """x, B, C in ``dtype``; dt = softplus(normal) and a = -exp(normal) in
+    f32 (strong: a = -exp(normal + 2))."""
     b, l, h, p, g, n = case
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -982,35 +1007,50 @@ def ssd_inputs(torch, case, dtype, seed=0):
         return torch.randn(shape, generator=gen, device="cuda")
 
     return (rnd(b, l, h, p).to(dtype), torch.nn.functional.softplus(rnd(b, l, h)),
-            -torch.exp(rnd(h)), rnd(b, l, g, n).to(dtype), rnd(b, l, g, n).to(dtype))
+            -torch.exp(rnd(h) + (2.0 if strong else 0.0)), rnd(b, l, g, n).to(dtype),
+            rnd(b, l, g, n).to(dtype))
 
 
 def check_ssd(torch, ssd_ops, ssd_ref):
-    """The SSD kernel against the step recurrence on the card, as
+    """The SSD kernel against the step recurrence on the card, every case on
+    each path that takes it (f32: ffma; bf16: wgmma where N > 32, and ffma), as
     tests/test_kernels.py holds the Pallas kernel: relative norms of y and
-    of the final state within 2e-5 (f32) or 2e-2 (bf16), and elementwise at
-    the same tolerances below the serve shape.  Returns the largest f32
-    error of y."""
-    worst = 0.0
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for name, case in SSD_CASES:
-            args = ssd_inputs(torch, case, dtype)
-            y, st = ssd_ops.ssd(*args, chunk=SSD_CHUNK, impl="pallas")
+    of the final state within 2e-5 (f32) or 2e-2 (bf16); below the serve
+    shape also the state elementwise and y elementwise where N <= 32 (above
+    that one read-out sums N products, and an element that cancels carries
+    the rounding of those terms).  Returns the largest error of y for each
+    dtype and path."""
+    worst = {}
+    for dtype, tol, dtype_paths in ((torch.float32, 2e-5, ("ffma",)),
+                                    (torch.bfloat16, 2e-2, ("wgmma", "ffma"))):
+        for name, case, strong in SSD_CASES:
+            paths = dtype_paths if case[-1] > 32 else ("ffma",)
+            args = ssd_inputs(torch, case, dtype, strong=strong)
+            assert ssd_ops.choose_path(args[0], args[3], args[4]) == paths[0], name
             want_y, want_st = ssd_ref.ssd_sequential(*args)
-            torch.cuda.synchronize()
-            assert y.shape == want_y.shape and y.dtype == want_y.dtype == dtype, name
-            assert st.shape == want_st.shape and st.dtype == torch.float32, name
-            assert torch.isfinite(y.float()).all() and torch.isfinite(st).all(), name
-            ry, rs = rel_norm(y, want_y), rel_norm(st, want_st)
-            err = float((y.float() - want_y.float()).abs().max())
-            say(f"  {str(dtype)[6:]:>8} {name:<28} {str(case):<32} y rel {ry:.2e} max|err| "
-                f"{err:.2e}, state rel {rs:.2e} (tol {tol:g})")
-            assert ry < tol and rs < tol, (name, dtype, ry, rs)
-            if case != SSD_SERVE_SHAPE:
-                torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
-                torch.testing.assert_close(st, want_st, rtol=tol, atol=tol)
-            if dtype == torch.float32:
-                worst = max(worst, err)
+            for path in paths:
+                before = dict(ssd_ops.PATH_LAUNCHES)
+                y, st = ssd_ops.ssd(*args, chunk=SSD_CHUNK, impl="pallas", path=path)
+                torch.cuda.synchronize()
+                assert ssd_ops.PATH_LAUNCHES == {**before, path: before[path] + 1}, name
+                assert y.shape == want_y.shape and y.dtype == want_y.dtype == dtype, name
+                assert st.shape == want_st.shape and st.dtype == torch.float32, name
+                assert torch.isfinite(y.float()).all() and torch.isfinite(st).all(), name
+                ry, rs = rel_norm(y, want_y), rel_norm(st, want_st)
+                err = float((y.float() - want_y.float()).abs().max())
+                # max |got - want| / (tol + tol |want|): above 1 an elementwise hold fails
+                ey, es = (float(((g_.float() - w_.float()).abs() / (tol + tol * w_.float().abs())).max())
+                          for g_, w_ in ((y, want_y), (st, want_st)))
+                say(f"  {str(dtype)[6:]:>8} {path:<5} {name:<28} {str(case):<28} y rel {ry:.2e} "
+                    f"max|err| {err:.2e} elementwise {ey:.2f}, state rel {rs:.2e} elementwise "
+                    f"{es:.2f} (tol {tol:g})")
+                assert ry < tol and rs < tol, (name, dtype, path, ry, rs)
+                if case != SSD_SERVE_SHAPE:
+                    torch.testing.assert_close(st, want_st, rtol=tol, atol=tol)
+                    if case[-1] <= 32:
+                        torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+                key = f"{str(dtype)[6:]} {path}"
+                worst[key] = max(worst.get(key, 0.0), err)
     return worst
 
 
@@ -1058,12 +1098,37 @@ def time_scans(torch, ssd_ops, ssd_ref, lru_ops, lru_ref):
     args32 = [t.float() for t in args]
     io_bytes = 2 * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * p * n)
     flops = 5 * b * l * h * p * n   # per step and head: decay, dt·x·Bᵀ into the state, S·C out
+    assert ssd_ops.choose_path(args[0], args[3], args[4]) == "wgmma"
     rows["ssd_scan"] = {
+        "path": "wgmma",
         "ms": median_ms(torch, lambda: ssd_ops.ssd(*args, impl="pallas")),
+        "ffma_bf16_ms": median_ms(torch, lambda: ssd_ops.ssd(*args, impl="pallas", path="ffma")),
         "f32_ms": median_ms(torch, lambda: ssd_ops.ssd(*args32, impl="pallas")),
         "plain_ms": median_ms(torch, lambda: ssd_ref.ssd_chunked(*args, chunk=SSD_CHUNK), reps=10),
         "bytes": io_bytes, "flops": flops,
     }
+    # the tensor-core work the wgmma path issues for each q-row chunk of each
+    # (b, h), with P and N padded to the block's pm and nm (L·x twice: L
+    # goes in as bf16 hi + lo)
+    q, pm, nm = (ssd_ops.library().repro_ssd_scan_wgmma_tile(i) for i in range(3))
+    per_chunk = 2 * (q * q * nm          # G = C·Bᵀ
+                     + q * pm * nm       # C·S_inᵀ
+                     + 2 * q * pm * q    # L·x
+                     + pm * nm * q)      # (x∘w)ᵀ·B
+    issued = b * h * -(-l // q) * per_chunk
+    r = rows["ssd_scan"]
+    bytes32 = io_bytes + 2 * (2 * b * l * h * p + 2 * b * l * g * n)   # x, B, C in and y out in f32
+    by_path = {"bfloat16 wgmma": (r["ms"], io_bytes), "bfloat16 ffma": (r["ffma_bf16_ms"], io_bytes),
+               "float32 ffma": (r["f32_ms"], bytes32)}
+    t_bound = max(io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    r["by_path"] = {k: {"ms": ms, "tflops": flops / ms / 1e9, "tb_per_s": nbytes / ms / 1e9,
+                        "over_bound": ms / t_bound} for k, (ms, nbytes) in by_path.items()}
+    for k, v in r["by_path"].items():
+        say(f"  ssd_scan {SSD_SERVE_SHAPE} {k}: {v['ms']:.4f} ms, {v['tflops']:.2f} TFLOP/s of the "
+            f"recurrence's {flops / 1e9:.2f} GFLOP, {v['tb_per_s']:.3f} TB/s, kernel / bound "
+            f"{v['over_bound']:.2f}")
+    say(f"  ssd_scan wgmma path: {issued / 1e9:.2f} GFLOP issued to the tensor cores "
+        f"({issued / r['ms'] / 1e9:.1f} TFLOP/s)")
     log_a, bx = rglru_inputs(torch, RGLRU_SERVE_SHAPE, torch.float32, seed=5)
     io_bytes = 4 * 3 * log_a.numel() + 4 * b * RGLRU_SERVE_SHAPE[2]   # log_a, b in; y, h out (f32)
     rows["rglru_scan"] = {
@@ -1076,7 +1141,8 @@ def time_scans(torch, ssd_ops, ssd_ref, lru_ops, lru_ref):
         t_ops = r["flops"] / BF16_FLOPS * 1e3 if name == "ssd_scan" else r["flops"] / F32_FLOPS * 1e3
         r.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                  ffma_ms=r["flops"] / F32_FLOPS * 1e3, library_ms=None)
-        extra = f" (f32 {r['f32_ms']:.4f} ms)" if "f32_ms" in r else ""
+        extra = (f" (bf16 ffma {r['ffma_bf16_ms']:.4f} ms, f32 ffma {r['f32_ms']:.4f} ms)"
+                 if "f32_ms" in r else "")
         say(f"  {name} {SSD_SERVE_SHAPE if name == 'ssd_scan' else RGLRU_SERVE_SHAPE}: "
             f"{r['ms']:.4f} ms{extra}; plain {r['plain_ms']:.4f} ms; library null (no single "
             f"PyTorch call); bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB "
@@ -1566,9 +1632,10 @@ def main() -> int:
         f"{path}: " + ", ".join(f"D<={d} {fa_ops.library().repro_flash_attention_smem_bytes(code, d)} B"
                                 for d in (32, 64, 128, 256))
         for path, code in fa_ops.PATHS.items()))
-    say("  ssd_scan dynamic shared memory a block: " + ", ".join(
-        f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(p, n)} B"
-        for p, n in ((16, 32), (16, 128), (64, 32), (64, 128))))
+    say("  ssd_scan dynamic shared memory a block: " + "; ".join(
+        f"{path}: " + ", ".join(f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(code, p, n)} B"
+                                for p, n in ((16, 32), (16, 128), (64, 32), (64, 64), (64, 128)))
+        for path, code in ssd_ops.PATHS.items()))
     say("  flash_decode_int8 dynamic shared memory a block: " + ", ".join(
         f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B"
         for g, d in ((1, 64), (1, 128), (16, 256))))
@@ -1604,7 +1671,7 @@ def main() -> int:
 
     say("PHASE 6 flash attention against its plain version")
     flash_errs = check_flash(torch, fa_ops, fa_ref)
-    worst["flash_attention"] = flash_errs["float32 ffma"]
+    worst["flash_attention"] = flash_errs["bfloat16 wgmma"]   # the path the entry times
 
     cfg = get_config(SERVE_ARCH)
     say(f"PHASE 7 serve path: {SERVE_ARCH} at its published width ({cfg.total_layers} layers, "
@@ -1625,7 +1692,8 @@ def main() -> int:
     say(f"  so far {time.perf_counter() - t_all:.1f} s")
 
     say("PHASE 10 ssd_scan against its plain version")
-    worst["ssd_scan"] = check_ssd(torch, ssd_ops, ssd_ref)
+    ssd_errs = check_ssd(torch, ssd_ops, ssd_ref)
+    worst["ssd_scan"] = ssd_errs["bfloat16 wgmma"]   # the path the entry times
 
     say("PHASE 11 rglru_scan against its plain version")
     worst["rglru_scan"] = check_rglru(torch, lru_ops, lru_ref)
@@ -1638,7 +1706,7 @@ def main() -> int:
         f"{SERVE_STEPS} greedy decode steps")
     res, mamba_launches = run_serve(torch, cfg, counters,
                                     {**no_launches, "ssd_scan": cfg.total_layers})
-    profile_serve(torch, cfg, res, ("ssd_kernel",))
+    profile_serve(torch, cfg, res, ("ssd_wgmma_kernel", "ssd_kernel"))
 
     say("PHASE 13 serve twin: the same prefill and decode with the SSD scan through its plain version")
     serve_twin(torch, cfg, res, {"ssm_impl": "chunked"},
@@ -1791,6 +1859,12 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    kernels[-2].update({
+        "path": scan_rows["ssd_scan"]["path"], "dtype": "bfloat16",
+        "launches_by_kernel_path": mamba_launches["ssd_scan_by_path"],
+        "max_abs_err_by_path": ssd_errs,
+        "by_path": scan_rows["ssd_scan"]["by_path"],
+    })
     kernels.append({
         "name": "flash_decode_int8", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/decode_kernel.py:70",

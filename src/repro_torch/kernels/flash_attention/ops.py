@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import vector_rows
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import ref
 
@@ -97,19 +98,12 @@ def kv_tiles(q_tile: int, sq: int, skv: int, causal: bool, window: Optional[int]
     return begin, end
 
 
-def _vector_rows(*tensors: torch.Tensor) -> bool:
-    """16-byte copies can read every row: aligned pointers, and batch,
-    sequence and head strides that keep them aligned."""
-    return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-               for t in tensors)
-
-
 def choose_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``wgmma`` for bf16 with 16-byte rows (D and the batch, sequence and
     head strides multiples of 8, pointers 16-byte aligned) whose grid fits;
     ``ffma`` for the rest: f32, whose 2e-5 parity a TF32 pass would miss,
     and bf16 that is not aligned so."""
-    if (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 and _vector_rows(q, k, v)
+    if (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 and vector_rows(q, k, v)
             and q.shape[0] * q.shape[2] * -(-q.shape[1] // tiles("wgmma", q.shape[-1])[0])
             <= _INT32_MAX):
         return "wgmma"

@@ -1,7 +1,7 @@
 """Mamba-2 SSD scan: the Hopper kernel and its dispatch.
 
-``ssd(x, dt, a, b_mat, c_mat, chunk=, impl=)`` takes the model's layout,
-x (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, G, N), as
+``ssd(x, dt, a, b_mat, c_mat, chunk=, impl=, path=)`` takes the model's
+layout, x (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, G, N), as
 ``repro.kernels.ssd_scan.ops.ssd`` does, and returns (y (B, L, H, P) in
 x's dtype, final state (B, H, P, N) in f32).  ``impl`` is the reference's:
 
@@ -12,6 +12,12 @@ x's dtype, final state (B, H, P, N) in f32).  ``impl`` is the reference's:
   anything else goes to ``csrc/ssd_scan.cu``, which launches or raises
   (nothing falls back to the plain version).
 
+The kernel has two paths, picked by ``choose_path`` before the launch from
+the dtype, P, N and the operands' alignment: ``wgmma`` (bf16 with 16-byte
+rows and N above 32, every product on the tensor cores) and ``ffma`` (f32,
+and the rest of bf16).  ``path=`` forces one; a forced path raises where
+it does not take the operands.
+
 The kernel reads the model's layout in place through strides (the
 reference's wrapper transposes to (B, H, L, P)) and masks a ragged tail
 itself, as the reference pads it: with dt = 0, so the final state is
@@ -19,21 +25,22 @@ exact.  It runs its own internal chunk: the chunk length does not change
 the function, only the order of its sums, so ``chunk`` sizes the plain
 version alone.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel.  The kernel is a forward: on the card it refuses
-inputs that need a gradient (training is a later slice of the port).
-``ssd_decode_step`` is the one-token update of decode, plain torch as in
-the reference.
+``LAUNCHES`` counts kernel launches and ``PATH_LAUNCHES`` the same launches
+by path, so a run can show which path its scan went through.  The kernel is
+a forward: on the card it refuses inputs that need a gradient (training is
+a later slice of the port).  ``ssd_decode_step`` is the one-token update of
+decode, plain torch as in the reference.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import vector_rows
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ssd_scan import ref
 
@@ -41,6 +48,10 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",)
 
 #: kernel launches so far; callers reset it to 0 to count a run
 LAUNCHES = {"ssd_scan": 0}
+#: the same launches by path
+PATH_LAUNCHES = {"ffma": 0, "wgmma": 0}
+#: the kernel's paths: code of the C entry
+PATHS = {"ffma": 0, "wgmma": 1}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N = 64, 128     # the kernel's largest head and state sizes
@@ -55,12 +66,29 @@ _Strides = ctypes.c_longlong * 15
 def library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel's library."""
     lib = load_library("ssd_scan", SOURCES)
-    lib.repro_ssd_scan.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    lib.repro_ssd_scan.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _Strides, _P]
     lib.repro_ssd_scan.restype = _I
-    lib.repro_ssd_scan_smem_bytes.argtypes = [_I, _I]
+    lib.repro_ssd_scan_smem_bytes.argtypes = [_I, _I, _I]
     lib.repro_ssd_scan_smem_bytes.restype = _I
+    lib.repro_ssd_scan_wgmma_tile.argtypes = [_I]
+    lib.repro_ssd_scan_wgmma_tile.restype = _I
     return lib
+
+
+def choose_path(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor) -> str:
+    """``wgmma`` for bf16 with 16-byte rows (P and N multiples of 8, the
+    batch, length and head or group strides of x, B and C multiples of 8,
+    pointers 16-byte aligned) and N above 32; ``ffma`` for the rest: f32,
+    whose 2e-5 parity a bf16 or TF32 operand would miss, bf16 that is not
+    aligned so, and bf16 with N <= 32, where y is held elementwise at 2e-2
+    and the ``wgmma`` path's bf16 operands miss that where a read-out over
+    few state columns cancels."""
+    n = b_mat.shape[-1]
+    if (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and n % 8 == 0 and n > 32
+            and vector_rows(x, b_mat, c_mat)):
+        return "wgmma"
+    return "ffma"
 
 
 def _check(x, dt, a, b_mat, c_mat) -> None:
@@ -98,9 +126,21 @@ def _check(x, dt, a, b_mat, c_mat) -> None:
 
 
 def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
-               c_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel: (y (B, L, H, P) in x's dtype, final state (B, H, P, N) f32)."""
+               c_mat: torch.Tensor, path: Optional[str] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel: (y (B, L, H, P) in x's dtype, final state (B, H, P, N) f32).
+    ``path`` forces one of ``PATHS`` (every path computes the same function;
+    tests hold each); it raises where that path does not take the operands."""
     _check(x, dt, a, b_mat, c_mat)
+    chosen = choose_path(x, b_mat, c_mat)
+    if path is None:
+        path = chosen
+    elif path not in PATHS:
+        raise ValueError(f"ssd_scan: unknown path {path!r}, not one of {sorted(PATHS)}")
+    elif path == "wgmma" and chosen != "wgmma":
+        raise ValueError("ssd_scan: the wgmma path takes bfloat16 with 16-byte rows (P, N and "
+                         "the batch, length and head or group strides multiples of 8) and N "
+                         "above 32")
     dt, a = dt.float(), a.float().contiguous()   # the kernel reads both in f32, as the reference does
     (bsz, l, h, p), (g, n) = x.shape, b_mat.shape[2:]
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
@@ -110,12 +150,13 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.
     strides = _Strides(*(s for t in (x, dt, b_mat, c_mat, y) for s in t.stride()[:3]))
     with torch.cuda.device(x.device):
         err = library().repro_ssd_scan(
-            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-            c_mat.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, l, h, p, g, n, strides,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            PATHS[path], _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+            b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, l, h, p, g,
+            n, strides, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan"] += 1
+    PATH_LAUNCHES[path] += 1
     return y, state
 
 
@@ -128,10 +169,12 @@ def ssd(
     *,
     chunk: int = 128,
     impl: str = "chunked",
+    path: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan.  x (B,L,H,P), dt (B,L,H), a (H,), B/C (B,L,G,N).
 
-    Returns (y (B,L,H,P), final_state (B,H,P,N))."""
+    Returns (y (B,L,H,P), final_state (B,H,P,N)).  ``path`` forces one of
+    the kernel's ``PATHS`` on the card (``impl="pallas"``)."""
     if impl == "sequential":
         return ref.ssd_sequential(x, dt, a, b_mat, c_mat)
     if impl == "chunked":
@@ -139,7 +182,7 @@ def ssd(
     if impl == "pallas":
         if all(t.device.type == "cpu" for t in (x, dt, a, b_mat, c_mat)):
             return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk=chunk)
-        return ssd_kernel(x, dt, a, b_mat, c_mat)
+        return ssd_kernel(x, dt, a, b_mat, c_mat, path)
     raise ValueError(f"unknown ssd impl: {impl}")
 
 

@@ -356,7 +356,9 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
 # SSD scan: (b, l, h, p, g, n) — the reference's sweep (tests/test_kernels.py:
 # 66-68), G > 1 with a ragged tail, one chunk's worth with no tail, a length
 # shorter than the kernel's chunk with P and N off its buckets, and
-# mamba2-1.3b's head and state sizes
+# mamba2-1.3b's head and state sizes; then where the wgmma path's 64-row
+# chunks and its N padding matter: served widths with L off 64, G = 2 at
+# served widths, a narrow case (N = 64, padded to 128)
 SSD_CASES = [
     (1, 64, 2, 8, 1, 8),
     (2, 128, 4, 16, 2, 16),
@@ -365,15 +367,23 @@ SSD_CASES = [
     (1, 32, 2, 8, 1, 8),
     (1, 7, 2, 24, 1, 40),
     (2, 100, 8, 64, 1, 128),
+    (2, 1000, 8, 64, 1, 128),
+    (2, 512, 8, 64, 2, 128),
+    (2, 256, 4, 32, 1, 64),
 ]
+# each SSD path with each dtype it takes (wgmma takes bf16 with N > 32; f32
+# stays on FFMA)
+SSD_PATH_DTYPES = [("ffma", "float32"), ("ffma", "bfloat16"), ("wgmma", "bfloat16")]
 
 
-def _ssd_inputs(case, device, dtype, seed=8):
+def _ssd_inputs(case, device, dtype, seed=8, strong=False):
+    """strong: a = -exp(normal + 2), where exp(cs) underflows within a chunk
+    and a seg factored as exp(cs_t) exp(-cs_s) would overflow."""
     b, l, h, p, g, n = case
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, l, h, p))
     dt = np.log1p(np.exp(rng.normal(size=(b, l, h))))    # softplus
-    a = -np.exp(rng.normal(size=(h,)))
+    a = -np.exp(rng.normal(size=(h,)) + (2.0 if strong else 0.0))
     bm, cm = rng.normal(size=(b, l, g, n)), rng.normal(size=(b, l, g, n))
     f32 = torch.float32
     return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(dt).to(device, f32),
@@ -381,28 +391,57 @@ def _ssd_inputs(case, device, dtype, seed=8):
             torch.from_numpy(cm).to(device, dtype))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", SSD_CASES)
-def test_ssd_scan_matches_plain_version(card, case, dtype):
-    """Held against the step recurrence, as tests/test_kernels.py holds the
-    Pallas kernel, at the reference's tolerances: elementwise, but for y at
-    N = 128, where one read-out sums 128 products of unit normals and an
-    element that cancels carries the rounding of those terms on either
-    side: there y is held by its relative norm."""
-    args = _ssd_inputs(case, card, getattr(torch, dtype))
-    before = ssd_ops.LAUNCHES["ssd_scan"]
-    y, s = ssd_ops.ssd(*args, chunk=32, impl="pallas")
-    torch.cuda.synchronize()
-    assert ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+def _hold_ssd(y, s, args):
+    """The kernel's outputs against the step recurrence, as tests/test_kernels.py
+    holds the Pallas kernel, at the reference's tolerances: elementwise, but
+    for y where N > 32, where one read-out sums N products of unit normals
+    and an element that cancels carries the rounding of those terms on
+    either side: there y is held by its relative norm."""
     want_y, want_s = ssd_ref.ssd_sequential(*args)
     assert y.dtype == args[0].dtype and y.shape == args[0].shape
     assert s.dtype == torch.float32 and s.shape == want_s.shape
-    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
-    if case[-1] <= 32:
+    tol = dict(rtol=2e-2, atol=2e-2) if y.dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
+    if args[3].shape[-1] <= 32:
         torch.testing.assert_close(y.float(), want_y.float(), **tol)
     rel = float((y.float() - want_y.float()).norm() / want_y.float().norm())
     assert rel < tol["rtol"], rel
     torch.testing.assert_close(s, want_s, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_matches_plain_version(card, case, dtype):
+    """On the path chosen for it: every case's P and N are multiples of 8,
+    so bf16 takes wgmma where N > 32 and ffma elsewhere, and f32 ffma."""
+    args = _ssd_inputs(case, card, getattr(torch, dtype))
+    before, paths = ssd_ops.LAUNCHES["ssd_scan"], dict(ssd_ops.PATH_LAUNCHES)
+    y, s = ssd_ops.ssd(*args, chunk=32, impl="pallas")
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+    path = "wgmma" if dtype == "bfloat16" and case[-1] > 32 else "ffma"
+    assert ssd_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
+    _hold_ssd(y, s, args)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("path,dtype", SSD_PATH_DTYPES)
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_every_path_matches_plain_version(card, case, path, dtype, strong):
+    """Each case on each path; wgmma refuses N <= 32, where y is held
+    elementwise."""
+    args = _ssd_inputs(case, card, getattr(torch, dtype), strong=strong)
+    before, paths = ssd_ops.LAUNCHES["ssd_scan"], dict(ssd_ops.PATH_LAUNCHES)
+    if path == "wgmma" and case[-1] <= 32:
+        with pytest.raises(ValueError):
+            ssd_ops.ssd(*args, impl="pallas", path=path)
+        assert (ssd_ops.LAUNCHES["ssd_scan"], ssd_ops.PATH_LAUNCHES) == (before, paths)
+        return
+    y, s = ssd_ops.ssd(*args, impl="pallas", path=path)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+    assert ssd_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    _hold_ssd(y, s, args)
 
 
 def test_ssd_scan_reads_strided_layouts_in_place(card):
@@ -437,6 +476,91 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
         ssd_ops.ssd(x[..., ::2], dt, a, bm, cm, impl="pallas")       # P not unit-stride
     with pytest.raises(NotImplementedError):
         ssd_ops.ssd(x.requires_grad_(), dt, a, bm, cm, impl="pallas")   # no backward yet
+
+
+def _fused_projection(x, bm, cm, extra=0):
+    """x, B and C as column slices of one wider projection (``extra``
+    columns more a row), as a fused in-projection would hand them over."""
+    (b, l, h, p), (g, n) = x.shape, bm.shape[2:]
+    wide = torch.zeros((b, l, h * p + 2 * g * n + extra), dtype=x.dtype, device=x.device)
+    wide[..., :h * p] = x.flatten(2)
+    wide[..., h * p:h * p + g * n] = bm.flatten(2)
+    wide[..., h * p + g * n:h * p + 2 * g * n] = cm.flatten(2)
+    return (wide[..., :h * p].unflatten(2, (h, p)), wide[..., h * p:h * p + g * n].unflatten(2, (g, n)),
+            wide[..., h * p + g * n:h * p + 2 * g * n].unflatten(2, (g, n)))
+
+
+def test_ssd_wgmma_reads_strided_layouts_in_place(card):
+    """bf16 slices of one fused projection keep 16-byte rows: the wgmma
+    path takes them and gives the contiguous result exactly."""
+    x, dt, a, bm, cm = _ssd_inputs((2, 200, 4, 32, 2, 64), card, torch.bfloat16)
+    xv, bv, cv = _fused_projection(x, bm, cm)
+    assert not xv.is_contiguous() and ssd_ops.choose_path(xv, bv, cv) == "wgmma"
+    want = ssd_ops.ssd(x, dt, a, bm, cm, impl="pallas")
+    got = ssd_ops.ssd(xv, dt, a, bv, cv, impl="pallas")
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("how", ["stride", "offset"])
+def test_ssd_unaligned_bf16_takes_ffma(card, how):
+    """bf16 that 16-byte copies cannot read (a row stride 4 elements off,
+    or x starting 2 bytes past an aligned address) runs on ffma, as before."""
+    args = _ssd_inputs((2, 70, 4, 16, 2, 48), card, torch.bfloat16)
+    x, dt, a, bm, cm = args
+    if how == "stride":
+        xv, bv, cv = _fused_projection(x, bm, cm, extra=4)
+    else:
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=card)
+        xv = flat[1:].view(x.shape)
+        xv.copy_(x)
+        bv, cv = bm, cm
+    assert ssd_ops.choose_path(x, bm, cm) == "wgmma" and ssd_ops.choose_path(xv, bv, cv) == "ffma"
+    paths = dict(ssd_ops.PATH_LAUNCHES)
+    got = ssd_ops.ssd(xv, dt, a, bv, cv, impl="pallas")
+    torch.cuda.synchronize()
+    assert ssd_ops.PATH_LAUNCHES == {**paths, "ffma": paths["ffma"] + 1}
+    for g_, w_ in zip(got, ssd_ops.ssd(*args, impl="pallas", path="ffma")):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+    _hold_ssd(*got, args)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xv, dt, a, bv, cv, impl="pallas", path="wgmma")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,n", [(1, 1), (8, 8), (12, 20), (16, 128), (24, 40), (40, 72),
+                                 (64, 32), (64, 100), (64, 128)])
+def test_ssd_takes_every_shape_it_took_before(card, p, n, dtype):
+    """Every P up to 64 and N up to 128 runs, on the path chosen for it:
+    bf16 with P and N multiples of 8 and N > 32 on wgmma (padded to 64 and
+    128), the rest on ffma."""
+    args = _ssd_inputs((2, 75, 4, p, 2, n), card, getattr(torch, dtype))
+    path = "wgmma" if dtype == "bfloat16" and p % 8 == 0 and n % 8 == 0 and n > 32 else "ffma"
+    assert ssd_ops.choose_path(args[0], args[3], args[4]) == path
+    paths = dict(ssd_ops.PATH_LAUNCHES)
+    y, s = ssd_ops.ssd(*args, impl="pallas")
+    torch.cuda.synchronize()
+    assert ssd_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
+    _hold_ssd(y, s, args)
+
+
+def test_ssd_refuses_paths_that_do_not_take_the_operands(card):
+    x, dt, a, bm, cm = _ssd_inputs((1, 40, 4, 16, 2, 48), card, torch.float32)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x, dt, a, bm, cm, impl="pallas", path="wgmma")            # f32
+    xb, bb, cb = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xb[..., :12], dt, a, bb, cb, impl="pallas", path="wgmma")  # P off 8
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xb, dt, a, bb[..., :44], cb[..., :44], impl="pallas", path="wgmma")  # N off 8
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xb, dt, a, bb[..., :32], cb[..., :32], impl="pallas", path="wgmma")  # N <= 32
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xb, dt, a, bb, cb, impl="pallas", path="mma")              # no such path
+    paths = dict(ssd_ops.PATH_LAUNCHES)
+    ssd_ops.ssd(xb, dt, a, bb, cb, impl="pallas", path="ffma")                # ffma takes bf16
+    torch.cuda.synchronize()
+    assert ssd_ops.PATH_LAUNCHES == {**paths, "ffma": paths["ffma"] + 1}
 
 
 # RG-LRU scan: (b, l, w) — the reference's sweep (tests/test_kernels.py:111),
