@@ -18,11 +18,17 @@ Phases (any failure exits non-zero before the last line is printed):
              and transposed w, at groups ending at and one row past the tile
              edges, one expert taking every row, a 32-row split over 384
              experts and all groups empty with rows past them (exact zeros);
+             then ``tgmm`` on each path that takes the operands
+             (``ops.TGMM_PATHS``: wgmma takes bf16 with 16-byte rows, ffma f32
+             and any bf16; forced with ``path=``) at the layer shapes, the
+             edge cases, one group of 300 rows and K = 784 with N = 136 (an
+             empty group's dw exact zeros);
 3. main    — three federated rounds of 128 FEMNIST-MLP clients (784→128→
              128→62, the repo's default width), 32 participants per round
              with per-step batch sizes 16/32/48/64, so COLLECT trains every
              round's finishers as one ragged wave through the kernels;
-             launch counts are read around that run;
+             launch counts are read around that run, ``tgmm``'s by path (all
+             on ffma: the FL path runs f32);
 4. split   — the kernels again at the main path's own row split (round 1's
              wave), then that whole wave trained on the card and on the CPU
              from the round-1 globals on twin worlds: each client's delta,
@@ -30,7 +36,8 @@ Phases (any failure exits non-zero before the last line is printed):
              wave through a kernel that reads every group boundary one row
              late must fail that limit;
 5. timings — each grouped-matmul kernel at the main path's shapes (median of
-             50 launches), in f32 and bf16, beside its plain version,
+             50 launches), in f32 and bf16 (``tgmm`` on each path that takes
+             the dtype), beside its plain version,
              ``torch._grouped_mm`` on the same dtype and the least time the
              card could take; one profiled wave (card
              busy time against wall time); the wall seconds of each phase of
@@ -113,10 +120,14 @@ Phases (any failure exits non-zero before the last line is printed):
              prefill, the same with 16 experts empty, a 4-token decode step)
              against the plain loop, f32 within 2e-5, bf16 within 2e-2; the
              backward's transposed w in bf16 at the prefill split on the
-             wgmma and stream paths; one call on each path under
-             ``torch.cuda.set_sync_debug_mode("error")`` (no group size read
-             on the host); timed beside the plain loop, torch._grouped_mm and
-             the bound, with the decode split's achieved bandwidth;
+             wgmma and stream paths; ``tgmm`` in bf16 on its wgmma path at
+             the prefill split for both products (x (65,536, 2,048) with dy
+             (65,536, 1,024), and the reverse) and at the split with 16
+             experts empty, within 2e-2; one call of ``gmm`` and of ``tgmm``
+             on each path under ``torch.cuda.set_sync_debug_mode("error")``
+             (no group size read on the host); both timed beside the plain
+             loop, torch._grouped_mm and the bound, with the decode split's
+             achieved bandwidth;
 18. serve  — the fifth path: ``serve`` on olmoe-1b-7b at its published width
              (16 layers, d_model 2048, 16 heads of 128, 64 experts of 1024,
              top-8, vocab 50,304, f32 weights): 16 flash launches a prefill
@@ -143,7 +154,8 @@ Phases (any failure exits non-zero before the last line is printed):
              plain version, the bound and SDPA over a pre-dequantized cache.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3 and 18, ``tgmm`` with those of phase 3, ``flash_attention`` with
+of phases 3 and 18, ``tgmm`` with those of phase 3, by path too, with worst
+errors and times by path and olmoe's wgmma times, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
 phase 21; flash and ``ssd_scan`` also by kernel path, with worst errors and
@@ -159,6 +171,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -333,6 +346,57 @@ def check_paths(torch, ops, ref, cases, seed=3):
     return worst
 
 
+def tgmm_cases(sizes):
+    """(name, K, N, group sizes, rows past the groups) that ``tgmm`` takes on
+    each path: the three layers at ``sizes``, the edge cases, one group of
+    300 rows (several 64-row wgmma stages) and K = 784 with N = 136 (ragged
+    edges on the 128-row wgmma tile, N into its 256-column tile)."""
+    return ([(name, k, n, sizes, 0) for name, k, n in LAYERS] + edge_cases()
+            + [("one group of 300 rows", 128, 128, [300], 0),
+               ("K=784 ragged edge, N=136", 784, 136, [150, 0, 300, 150], 7)])
+
+
+def check_tgmm_paths(torch, ops, ref, cases, seed=4):
+    """``tgmm`` on each path that takes the operands (``ops.TGMM_PATHS``,
+    forced): f32 on ffma within 2e-5, bf16 on ffma and wgmma within 2e-2; an
+    empty group's dw exact zeros; wgmma refuses rows that are no 16-byte
+    multiple.  Returns the largest error by dtype and path."""
+    gen = torch.Generator().manual_seed(seed)
+    worst = {}
+    for name, k, n, sizes, extra in cases:
+        g, m = len(sizes), sum(sizes) + extra
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        x0, dy0 = torch.randn(m, k, generator=gen), torch.randn(m, n, generator=gen)
+        line = []
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            x, dy = x0.to("cuda", dtype), dy0.to("cuda", dtype)
+            want = ref.tgmm_ref(x, dy, gs, g).float()
+            for path in ops.TGMM_PATHS:
+                if path == "wgmma" and dtype != torch.bfloat16:
+                    continue
+                if path == "wgmma" and (k % 8 or n % 8):
+                    try:
+                        ops.tgmm(x, dy, gs, g, path=path)
+                    except ValueError:
+                        line.append(f"{path} refuses N={n}")
+                        continue
+                    raise AssertionError(f"tgmm {name}: wgmma took rows of {k} and {n}")
+                got = ops.tgmm(x, dy, gs, g, path=path)
+                torch.cuda.synchronize()
+                assert got.shape == (g, k, n) and got.dtype == dtype, (name, path)
+                torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                           msg=lambda m_, p_=path: f"tgmm {name} {p_} {dtype}: {m_}")
+                for gi, size in enumerate(sizes):   # an empty group's dw is exact zeros
+                    assert size or not got[gi].any(), (name, path, gi)
+                err = float((got.float() - want).abs().max())
+                key = f"{str(dtype)[6:]} {path}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                line.append(f"{key} {err:.2e}")
+        say(f"  tgmm {name:<38} M={m} K={k} N={n} G={g}: " + ", ".join(line)
+            + " (tol 2e-5 f32, 2e-2 bf16)")
+    return worst
+
+
 def check_kernels(torch, ops, ref, sizes, extra_cases=(), seed=0):
     """Each kernel and the autograd Function against the plain versions at
     the three layer shapes with ``sizes`` rows per group, plus
@@ -411,8 +475,9 @@ def run_main_path(torch, ops, mcfg):
     fed = FedConfig(rounds=3, participants_per_round=32, max_parallel=32,
                     local_steps=10, client_batching="wave")
     trainer = FederatedTrainer(mcfg, clients, fed, test_batch=test)   # the card, MeasuredRuntime
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    for counts in (ops.LAUNCHES, ops.TGMM_PATH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     phase_s, collect_launches, waves, globals_r1 = [], [], [], None
     t_run = time.perf_counter()
     for _ in range(fed.rounds):
@@ -434,11 +499,14 @@ def run_main_path(torch, ops, mcfg):
         say("  round", json.dumps(st.rec))
     run_s = time.perf_counter() - t_run
     launches = dict(ops.LAUNCHES)
+    tgmm_paths = dict(ops.TGMM_PATH_LAUNCHES)
     hist = trainer.history
     stats = trainer.batch_exec.stats
-    say(f"  wave stats {stats.as_dict()}; launches {launches}; "
+    say(f"  wave stats {stats.as_dict()}; launches {launches}; tgmm by path {tgmm_paths}; "
         f"COLLECT launches per round {collect_launches}; run {run_s:.2f} s")
     assert stats.ragged_clients > 0, stats
+    # the FL path runs f32: every weight gradient on tgmm's ffma path
+    assert tgmm_paths == {"ffma": launches["tgmm"], "wgmma": 0}, tgmm_paths
     assert all(c["gmm"] > 0 and c["tgmm"] > 0 for c in collect_launches), collect_launches
     assert all(launches[k] > 0 for k in launches), launches
     for rec in hist:
@@ -446,7 +514,7 @@ def run_main_path(torch, ops, mcfg):
             if "loss" in k or k.endswith("_ce"):
                 assert math.isfinite(v), (k, v)
     assert hist[-1]["test_loss"] < hist[0]["test_loss"], [r["test_loss"] for r in hist]
-    return trainer, launches, phase_s, waves, globals_r1, run_s
+    return trainer, launches, tgmm_paths, phase_s, waves, globals_r1, run_s
 
 
 # ---------------------------------------------------------------- phase 4
@@ -516,7 +584,8 @@ def profile_wave(torch, mcfg, opt, wave_cids, params):
     wave = [by_id[c] for c in wave_cids]
     ex = BatchedExecutor(mcfg, opt, device="cuda")
     profile_call(torch, f"one warm wave ({len(wave)} clients x 10 steps)",
-                 lambda: ex.run_wave(params, wave, 10), share_of=("gmm_ffma_kernel", "tgmm_kernel"))
+                 lambda: ex.run_wave(params, wave, 10),
+                 share_of=("gmm_ffma_kernel", "tgmm_ffma_kernel"))
 
 
 def median_ms(torch, fn, reps=50, warm=5):
@@ -554,18 +623,17 @@ def grouped_mm_ms(torch, x, w, ends, note=""):
 def time_kernels(torch, ops, ref, sizes):
     """Times at the main path's shapes: the first round's wave of ``sizes``
     rows per client, f32 (the path's dtype) and bf16, each beside
-    ``torch._grouped_mm`` on the same dtype and its own bound.  ``gmm`` is
-    timed on a schedule made beforehand (``ops.launch_gmm``), the wrapper
-    whole beside it.  Returns rows for each kernel and layer."""
+    ``torch._grouped_mm`` on the same dtype and its own bound.  Each kernel
+    is timed on a schedule made beforehand (``ops.launch_gmm``,
+    ``ops.launch_tgmm``), ``gmm``'s wrapper whole beside it; ``tgmm`` on
+    each path that takes the dtype (``by_path``), its ``ms`` the path the
+    wrapper picks.  Returns rows for each kernel and layer."""
     dev = "cuda"
-    lib = ops.library()
     gen = torch.Generator().manual_seed(1)
     g, m = len(sizes), sum(sizes)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
-                      torch.cumsum(gs, 0, dtype=torch.int32)])
-    ends = offs[1:].contiguous()
-    stream = torch.cuda.current_stream().cuda_stream
+    ends = torch.cumsum(gs, 0, dtype=torch.int32)
+    bounds = ops.row_bounds(gs, m)
     rows = []
     for layer, k, n in LAYERS:
         x = torch.randn(m, k, generator=gen).to(dev)
@@ -577,13 +645,9 @@ def time_kernels(torch, ops, ref, sizes):
             y = torch.empty(m, n, device=dev, dtype=dtype)
             dw = torch.empty(g, k, n, device=dev, dtype=dtype)
             path = ops.choose_path(m, k, n, g, dtype)
-            bounds = ops.row_bounds(gs, m)
             prefix = None if path == "stream" else ops.tile_prefix(bounds, ops.PATHS[path][1])
-            code = 0 if dtype == torch.float32 else 1
-
-            def tgmm(x_=xd, dy_=dyd, dw_=dw, code=code):
-                assert lib.repro_tgmm(code, x_.data_ptr(), dy_.data_ptr(), offs.data_ptr(),
-                                      dw_.data_ptr(), m, k, n, g, stream) == 0
+            tgmm_path = ops.choose_tgmm_path(m, k, n, g, dtype)
+            tgmm_paths = [p for p in ops.TGMM_PATHS if p == "ffma" or p == tgmm_path]
 
             # the library call wants K and N multiples of 16: N = 62 is timed on
             # operands zero-padded to 64 (the padding is the library's cost, not ours)
@@ -604,25 +668,33 @@ def time_kernels(torch, ops, ref, sizes):
                     ("gmm", lambda: ops.launch_gmm(path, xd, wd, bounds, prefix, y),
                      lambda: ops.gmm(xd, wd, gs), lambda: ref.grouped_matmul_ref(xd, wd, gs),
                      lib_gmm),
-                    ("tgmm", tgmm, None, lambda: ref.tgmm_ref(xd, dyd, gs, g), lib_tgmm)):
+                    ("tgmm", lambda: ops.launch_tgmm(tgmm_path, xd, dyd, bounds, dw),
+                     lambda: ops.tgmm(xd, dyd, gs, g), lambda: ref.tgmm_ref(xd, dyd, gs, g),
+                     lib_tgmm)):
                 r = {"name": name, "layer": layer, "dtype": str(dtype)[6:], "M": m, "K": k, "N": n,
-                     "G": g, "path": path if name == "gmm" else "tgmm",
-                     "ms": median_ms(torch, fn),
-                     "wrapper_ms": median_ms(torch, wrapped) if wrapped else None,
+                     "G": g, "path": path if name == "gmm" else tgmm_path,
+                     "ms": median_ms(torch, fn), "wrapper_ms": median_ms(torch, wrapped),
                      "plain_ms": median_ms(torch, plain), "library_ms": lib_ms,
                      "bound_ms": bound[0], "bound_by": bound[1], "bytes": io_bytes, "flops": flops}
+                if name == "tgmm":
+                    r["by_path"] = {p: median_ms(torch, lambda p=p: ops.launch_tgmm(
+                        p, xd, dyd, bounds, dw)) for p in tgmm_paths}
                 by_dtype.setdefault(name, {})[r["dtype"]] = r
                 say(f"  {name:<4} {layer:<8} {r['dtype']:>8} M={m} G={g} ({r['path']}): {r['ms']:.4f} ms"
-                    + (f" (wrapper with its schedule {r['wrapper_ms']:.4f} ms)" if wrapped else "")
+                    f" (wrapper with its schedule {r['wrapper_ms']:.4f} ms)"
+                    + ("; by path " + ", ".join(f"{p} {v:.4f} ms" for p, v in r["by_path"].items())
+                       if name == "tgmm" else "")
                     + f"; plain {r['plain_ms']:.4f} ms; library "
                     f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                     f"{f' ({lib_note})' if lib_note else ''}; bound {r['bound_ms']:.4f} ms "
-                    f"({r['bound_by']}, {io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+                    f"({r['bound_by']}, {io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+                    f"kernel / bound {r['ms'] / r['bound_ms']:.2f}"
                     + (f"; kernel / library {r['ms'] / lib_ms:.2f}" if lib_ms else ""))
         for name, per in by_dtype.items():
             rows.append({**per["float32"], "bfloat16": {
                 key: per["bfloat16"][key]
-                for key in ("ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "path")}})
+                for key in ("ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                            "path", "by_path") if key in per["bfloat16"]}})
     return rows
 
 
@@ -678,7 +750,8 @@ def device_rows(torch, prof):
 
 def profile_call(torch, what, fn, share_of=()):
     """Wall time of one warm call against the card's busy time in it (and
-    the share of that time in kernels whose name holds each of ``share_of``)."""
+    the share of that time in kernels whose name holds each of ``share_of``
+    after no letter: ``gmm_ffma_kernel`` is not ``tgmm_ffma_kernel``)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -695,7 +768,7 @@ def profile_call(torch, what, fn, share_of=()):
         return
     share = ""
     for name in share_of:
-        ms = sum(r[0] for r in rows if name in r[2])
+        ms = sum(r[0] for r in rows if re.search(r"(?<![A-Za-z_])" + re.escape(name), r[2]))
         share += f"; {name} {ms:.2f} ms ({100 * ms / busy_ms:.1f} % of busy)"
     say(f"  {what}: wall {wall_ms:.2f} ms, card busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches{share}")
@@ -1244,6 +1317,22 @@ def check_no_host_sync(torch, ops, cfg, splits):
         torch.cuda.synchronize()
         say(f"  {path:<9} M={m}: no host synchronization under set_sync_debug_mode('error'), "
             f"nor on the path the wrapper picks ({ops.choose_path(m, k, n, cfg.n_experts, dtype)})")
+    for path, sizes, dtype in (("wgmma", prefill, torch.bfloat16), ("ffma", prefill, torch.float32),
+                               ("wgmma", decode, torch.bfloat16), ("ffma", decode, torch.bfloat16)):
+        m, k, n = int(sizes.sum()), cfg.d_model, cfg.d_ff_expert
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.tgmm(x, dy, sizes, cfg.n_experts, path=path)
+            ops.tgmm(x, dy, sizes, cfg.n_experts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say(f"  tgmm {path:<5} {str(dtype)[6:]:>8} M={m}: no host synchronization under "
+            f"set_sync_debug_mode('error'), nor on the path the wrapper picks "
+            f"({ops.choose_tgmm_path(m, k, n, cfg.n_experts, dtype)})")
 
 
 def time_moe_gmm(torch, ops, ref, cfg, splits):
@@ -1300,6 +1389,78 @@ def time_moe_gmm(torch, ops, ref, cfg, splits):
                 f"{row['gb_per_s']:.1f} GB/s, {row['tflop_per_s']:.1f} TFLOP/s; kernel / bound "
                 f"{row['ms'] / row['bound_ms']:.2f}"
                 + (f", kernel / library {row['ms'] / lib_ms:.2f}" if lib_ms else ""))
+    return rows
+
+
+def check_moe_tgmm(torch, ops, ref, cfg, splits):
+    """``tgmm`` in bf16 on its ``wgmma`` path at olmoe's expert products on
+    the routed prefill split and, for the gate/up product, the split with 16
+    experts empty (their dw exact zeros), against the plain per-group loop
+    within 2e-2.  Returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst, g = 0.0, cfg.n_experts
+    for (name, sizes), products in ((splits[0], moe_products(cfg)),
+                                    (splits[1], moe_products(cfg)[:1])):
+        m = int(sizes.sum())
+        for prod, k, n in products:
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            dy = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
+            got = ops.tgmm(x, dy, sizes, g, path="wgmma")
+            want = ref.tgmm_ref(x, dy, sizes, g).float()
+            torch.cuda.synchronize()
+            assert got.shape == (g, k, n) and got.dtype == torch.bfloat16, name
+            torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2,
+                                       msg=lambda m_: f"tgmm {name} {prod}: {m_}")
+            for gi in (sizes == 0).nonzero().flatten().tolist():
+                assert not got[gi].any(), (name, gi)
+            err = float((got.float() - want).abs().max())
+            worst = max(worst, err)
+            say(f"  bfloat16 {name:<26} {prod:<5} tgmm x ({m}, {k}) dy ({m}, {n}) on wgmma: "
+                f"max|err| {err:.2e} (tol 0.02), {int((sizes == 0).sum())} empty experts' dw zero")
+            del x, dy, got, want
+    return worst
+
+
+def time_moe_tgmm(torch, ops, ref, cfg, splits):
+    """``tgmm`` in bf16 at olmoe's routed prefill split on ``wgmma`` (on bounds
+    made beforehand; the wrapper with its schedule beside it) against the
+    plain loop, ``torch._grouped_mm`` and the least time the card could take
+    (274.9 GFLOP a product at 989 TFLOP/s, against 671 MB at 3.35 TB/s)."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    name, sizes = splits[0]
+    m, g = int(sizes.sum()), cfg.n_experts
+    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+    bounds = ops.row_bounds(sizes, m)
+    rows = {}
+    for prod, k, n in moe_products(cfg):
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        dy = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
+        dw = torch.empty((g, k, n), device="cuda", dtype=torch.bfloat16)
+        path = ops.choose_tgmm_path(m, k, n, g, torch.bfloat16)
+        assert path == "wgmma", path
+        lib_ms, lib_note = grouped_mm_ms(torch, x.t(), dy, ends)
+        row = {"M": m, "K": k, "N": n, "G": g, "path": path,
+               "ms": median_ms(torch, lambda: ops.launch_tgmm(path, x, dy, bounds, dw),
+                               reps=10, warm=2),
+               "wrapper_ms": median_ms(torch, lambda: ops.tgmm(x, dy, sizes, g), reps=10, warm=2),
+               "plain_ms": median_ms(torch, lambda: ref.tgmm_ref(x, dy, sizes, g), reps=5, warm=1),
+               "library_ms": lib_ms}
+        flops = 2 * m * k * n
+        io_bytes = 2 * (m * k + m * n + g * k * n) + 4 * (g + 2)
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+        row.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   tflop_per_s=flops / row["ms"] / 1e9)
+        rows[f"{name}, {prod}"] = row
+        say(f"  tgmm {name:<16} {prod:<5} x ({m}, {k}) dy ({m}, {n}), {g} experts: "
+            f"{row['ms']:.4f} ms ({path}; wrapper with its schedule {row['wrapper_ms']:.4f} ms); "
+            f"plain {row['plain_ms']:.4f} ms; library (torch._grouped_mm, bf16) "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}{f' ({lib_note})' if lib_note else ''}; "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 "
+            f"TFLOP/s, {io_bytes / 1e6:.1f} MB at 3.35 TB/s); achieved {row['tflop_per_s']:.1f} "
+            f"TFLOP/s; kernel / bound {row['ms'] / row['bound_ms']:.2f}"
+            + (f", kernel / library {row['ms'] / lib_ms:.2f}" if lib_ms else ""))
+        del x, dy, dw
     return rows
 
 
@@ -1647,11 +1808,15 @@ def main() -> int:
     worst = check_kernels(torch, ops, ref, list(CLIENT_BATCH_SIZES) * 8, edge_cases())
     say("  gmm on every path at the split edge cases:")
     worst["gmm"] = max(worst["gmm"], check_paths(torch, ops, ref, path_cases()))
+    say("  tgmm on each path at the layer shapes and the edge cases:")
+    tgmm_errs = check_tgmm_paths(torch, ops, ref, tgmm_cases(list(CLIENT_BATCH_SIZES) * 8))
+    worst["tgmm"] = max(worst["tgmm"], tgmm_errs["float32 ffma"])   # the FL path's dtype
 
     say("PHASE 3 main path: 3 rounds, 128 FEMNIST-MLP clients, ragged waves")
     mcfg = SmallModelConfig(kind="mlp", n_classes=62, hidden=128, n_layers=2,
                             image_size=28, channels=1)
-    trainer, launches, phase_s, waves, globals_r1, run_s = run_main_path(torch, ops, mcfg)
+    trainer, launches, tgmm_paths, phase_s, waves, globals_r1, run_s = run_main_path(
+        torch, ops, mcfg)
 
     say("PHASE 4 the main path's row split: kernels, then one wave on the card and the CPU")
     by_id = {c.client_id: c for c in trainer.clients}
@@ -1754,8 +1919,11 @@ def main() -> int:
     say(f"PHASE 17 gmm at {OLMOE_ARCH}'s expert shapes against its plain version")
     splits = moe_splits(torch, cfg)
     worst["gmm"] = max(worst["gmm"], check_moe_gmm(torch, ops, ref, cfg, splits))
+    tgmm_errs["bfloat16 wgmma"] = max(tgmm_errs["bfloat16 wgmma"],
+                                      check_moe_tgmm(torch, ops, ref, cfg, splits))
     check_no_host_sync(torch, ops, cfg, splits)
     moe_rows = time_moe_gmm(torch, ops, ref, cfg, splits)
+    moe_tgmm_rows = time_moe_tgmm(torch, ops, ref, cfg, splits)
 
     n_moe = sum(g.repeat for g in cfg.groups for spec in g.pattern if spec.ffn == "moe")
     say(f"PHASE 18 serve path: {OLMOE_ARCH} at its published width ({cfg.total_layers} layers, "
@@ -1823,6 +1991,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": "float32", "bfloat16": r["bfloat16"],
         })
+    kernels[1].update({
+        "path": rows[1]["path"], "wrapper_ms": rows[1]["wrapper_ms"],
+        "launches_by_kernel_path": tgmm_paths, "max_abs_err_by_path": tgmm_errs,
+        "by_path": {r["layer"]: {"float32": r["by_path"], "bfloat16": r["bfloat16"]["by_path"]}
+                    for r in rows if r["name"] == "tgmm"},
+        "layers": {r["layer"]: {**{k: r[k] for k in (*timing_keys, "path", "wrapper_ms")},
+                                "bfloat16": r["bfloat16"]}
+                   for r in rows if r["name"] == "tgmm"},
+        OLMOE_ARCH: {key: {k: r[k] for k in (*timing_keys, "path", "wrapper_ms", "tflop_per_s")}
+                     for key, r in moe_tgmm_rows.items()},
+    })
     kernels[0].update({
         "launches": launches["gmm"] + olmoe_launches["gmm"],
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],

@@ -46,6 +46,26 @@
 //     784 -> 128 layer puts ~190 blocks in flight (bytes bound it there),
 //     or, where the grid has blocks to spare (operations bound it), 128 x
 //     128 tiles of 8 x 8 outputs a thread read from shared memory as float4.
+//   * tgmm, dw[g] = x_g^T dy_g over `bounds`, one block a (N tile, K tile,
+//     g), no split over rows and no atomics, so dw is deterministic.  dw is
+//     most of the bytes.  A FEMNIST wave (f32, <= 64 rows a group; at 784 ->
+//     128 dw is 12.85 of 17.8 MB) is bound by bytes; olmoe's prefill (bf16,
+//     ~1,000 rows an expert, 274.9 GFLOP a product) by operations.
+//     tgmm_ffma_kernel (f32, whose 2e-5 parity TF32 would miss, and bf16
+//     rows that are no 16-byte multiple): FFMA from a 4-stage
+//     cp.async ring of the widest copies the rows allow (16 bytes; 8 for
+//     128 -> 62's 248-byte f32 rows), each thread a run of neighbouring
+//     columns stored 16 bytes at once; the tile (64 x 64, 32 x 64, 32 x 32)
+//     is the largest whose grid puts eight blocks on every SM, so blocks of
+//     ragged groups (16 to 64 rows: 4x apart in work) even out, and
+//     128 -> 128 and 128 -> 62 fill the card too.  tgmm_wgmma_kernel
+//     (bf16, 16-byte rows): 128 x 256 tiles on the tensor cores (4,096 at
+//     olmoe's prefill), 128 x 128 where N <= 128 (224 at FEMNIST's 784 ->
+//     128, two blocks an SM), A = x_g^T and B = dy_g read as they lie
+//     through wgmma's transposed modes, 64 rows a stage, dw out through
+//     shared memory in whole rows.
+//     wgmma rather than mma.sync m16n8k16: an FL group is one stage either
+//     way and bytes bound it, while olmoe's needs the tensor cores' rate.
 // w[g, k, n] is read at w + g*w_sg + k*w_sk + n*w_sn: the forward's (G, K,
 // N) with w_sn == 1 and the backward's transposed view with w_sk == 1.
 
@@ -57,8 +77,6 @@ namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 // two neighbouring elements as f32 (8-byte or 4-byte aligned)
@@ -79,6 +97,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+// B bytes global -> shared: asynchronously for 16, 8 and 4; two bytes (bf16
+// rows of odd length) have no cp.async, so they are copied in place
+template <int B>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool ok) {
+  if constexpr (B == 16) cp_async16(dst, src, ok);
+  else if constexpr (B == 8) cp_async8(dst, src, ok);
+  else if constexpr (B == 4) cp_async4(dst, src, ok);
+  else *static_cast<uint16_t*>(dst) = ok ? *static_cast<const uint16_t*>(src) : 0;
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
@@ -225,8 +256,9 @@ constexpr int kWgStageBytes = kWgABytes + kWgBBytes;       // 48 KB
 constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;  // + room to align to 1 KB
 
 // d (64 x 256, f32, in the registers of a warpgroup) += A (64 x 16) B (16 x 256),
-// both read from shared memory through their descriptors; TnspB: B is N-major
-template <int TnspB>
+// both read from shared memory through their descriptors; TnspA: A is M-major,
+// TnspB: B is N-major (the transposed modes)
+template <int TnspA, int TnspB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -234,7 +266,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "setp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -252,7 +284,29 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TnspB));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TnspA), "n"(TnspB));
+}
+
+// the same with 128 columns: d (64 x 128) += A (64 x 16) B (16 x 128)
+template <int TnspA, int TnspB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TnspA), "n"(TnspB));
 }
 
 // A shared-memory matrix descriptor with the 128-byte swizzle: start
@@ -340,9 +394,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(
     for (int kk = 0; kk < kWgK / 16; ++kk) {
       const uint64_t da = smem_desc(a_s + kk * 32, 16, 1024);
       if (KMajorB)
-        wgmma_m64n256k16<0>(acc, da, smem_desc(b_s + kk * 32, 16, 1024));
+        wgmma_m64n256k16<0, 0>(acc, da, smem_desc(b_s + kk * 32, 16, 1024));
       else
-        wgmma_m64n256k16<1>(acc, da, smem_desc(b_s + kk * 16 * 128, kWgK * 128, 1024));
+        wgmma_m64n256k16<0, 1>(acc, da, smem_desc(b_s + kk * 16 * 128, kWgK * 128, 1024));
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // slice kt - 1 is done
@@ -527,58 +581,265 @@ __global__ void __launch_bounds__(kStThreads) gmm_stream_kernel(
 }
 
 // -------------------------------------------------------------------- tgmm
+//
+// dw[g] = x[rows of g]^T @ dy[rows of g]: block (N tile, K tile, g) owns one
+// tile of dw[g] and walks the group's rows [bounds[g], bounds[g + 1]); each
+// element of dw is written once, by one block, with no split over rows and no
+// atomics, and an empty group's tile is written as exact zeros.
 
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kTile = 64;      // tgmm's output tile edge (TK = TN)
+constexpr int kTgDepth = 16;  // ffma: a group's rows a stage
 
-// dw (G, K, N): block (blockIdx.x, blockIdx.y, g) owns one (kTile, kTile) tile
-// of dw[g] and loops over the rows of group g.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) tgmm_kernel(
-    const T* __restrict__ x, const T* __restrict__ dy, const int* __restrict__ offsets,
-    T* __restrict__ dw, int M, int K, int N) {
-  __shared__ float xs[kDepth][kTile + kPad];  // xs[r][k]
-  __shared__ float ds[kDepth][kTile + kPad];  // ds[r][n]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile, g = blockIdx.z;
-  const int start = max(offsets[g], 0);
-  const int end = min(offsets[g + 1], M);
-  float acc[4][4] = {};
+// R neighbouring elements of shared memory as f32 (R a multiple of 4)
+template <int R>
+__device__ __forceinline__ void read_run(const float* p, float (&v)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i);
+    v[i] = q.x, v[i + 1] = q.y, v[i + 2] = q.z, v[i + 3] = q.w;
+  }
+}
+template <int R>
+__device__ __forceinline__ void read_run(const __nv_bfloat16* p, float (&v)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; i += 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p + i);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[i] = lo.x, v[i + 1] = lo.y, v[i + 2] = hi.x, v[i + 3] = hi.y;
+  }
+}
+// pins the accumulators in their registers, so that no other instruction
+// defines them inside a wgmma pipeline stage (which would serialize it)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// four neighbouring results, 16-byte aligned (f32) or 8-byte (bf16), and two, half that
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+__device__ __forceinline__ void store2(float* p, const float* v) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v[0], v[1]);
+}
 
-  for (int r0 = start; r0 < end; r0 += kDepth) {
-    for (int e = tid; e < kTile * kDepth; e += kThreads) {
-      const int r = e / kTile, c = e % kTile;
-      const int row = r0 + r;
-      xs[r][c] = (row < end && k0 + c < K) ? load_f(x + (long long)row * K + k0 + c) : 0.f;
-      ds[r][c] = (row < end && n0 + c < N) ? load_f(dy + (long long)row * N + n0 + c) : 0.f;
+// Path ffma: a TK x TN tile of dw[g], each thread RK rows (k) by RN
+// neighbouring columns (n).  The group's rows come in stages of kTgDepth
+// through an S-stage cp.async ring that keeps S - 1 stages loading (all of
+// an FL group's <= 64 rows at S = 4), VB bytes a copy (16 where x's and dy's
+// rows allow, else 8, 4 or 2: the wrapper picks the widest that divides both
+// rows and both bases); rows past the group and k, n past the edges are
+// zero-filled.  A thread reads its RK x-values and RN dy-values of a row as
+// runs of 4 (the warp's x runs broadcast), and writes its RN columns with
+// 16-byte stores where N % 4 == 0, else pairs or single elements.
+template <typename T, int TK, int TN, int RK, int RN, int S, int VB>
+__global__ void __launch_bounds__((TK / RK) * (TN / RN)) tgmm_ffma_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy, const int* __restrict__ bounds,
+    T* __restrict__ dw, int K, int N) {
+  constexpr int kThreads = (TK / RK) * (TN / RN), kTX = TN / RN;
+  constexpr int E = VB / sizeof(T);  // elements a copy
+  static_assert(E >= 1 && TK % E == 0 && TN % E == 0 && RK % 4 == 0 && RN % 4 == 0 && S >= 2,
+                "tile");
+  __shared__ __align__(16) T xs[S][kTgDepth][TK];  // xs[stage][r][k]
+  __shared__ __align__(16) T ds[S][kTgDepth][TN];  // ds[stage][r][n]
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const int n0 = blockIdx.x * TN, k0 = blockIdx.y * TK, g = blockIdx.z;
+  const int start = bounds[g], end = max(bounds[g + 1], start);
+
+  auto load = [&](int stage, int r0) {
+    for (int c = tid; c < kTgDepth * (TK / E); c += kThreads) {
+      const int r = c / (TK / E), col = (c % (TK / E)) * E;  // neighbouring threads along k
+      const int row = r0 + r, kk = k0 + col;
+      const bool ok = row < end && kk < K;                 // K % E == 0: in or out whole
+      cp_async_n<VB>(&xs[stage][r][col], ok ? x + (long long)row * K + kk : x, ok);
     }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kDepth; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[r][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ds[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int c = tid; c < kTgDepth * (TN / E); c += kThreads) {
+      const int r = c / (TN / E), col = (c % (TN / E)) * E;
+      const int row = r0 + r, nn = n0 + col;
+      const bool ok = row < end && nn < N;
+      cp_async_n<VB>(&ds[stage][r][col], ok ? dy + (long long)row * N + nn : dy, ok);
     }
-    __syncthreads();
+  };
+
+  float acc[RK][RN] = {};
+  const int ns = (end - start + kTgDepth - 1) / kTgDepth;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ns) load(s, start + s * kTgDepth);
+    cp_async_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<S - 2>();  // stage s has landed (this thread's copies)
+    __syncthreads();         // every thread's; and every thread is done with stage s - 1
+    const int next = s + S - 1;
+    if (next < ns) load(next % S, start + next * kTgDepth);
+    cp_async_commit();
+    const int stage = s % S;
+#pragma unroll
+    for (int r = 0; r < kTgDepth; ++r) {
+      float a[RK], b[RN];
+      read_run(&xs[stage][r][ty * RK], a);
+      read_run(&ds[stage][r][tx * RN], b);
+#pragma unroll
+      for (int i = 0; i < RK; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
   }
   // an empty group skips the loop and writes exact zeros
-  T* out = dw + (long long)g * K * N;
+  const int col = n0 + tx * RN, live = min(RN, N - col);
+  if (live <= 0) return;
+  T* out = dw + (long long)g * K * N + col;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= K) continue;
+  for (int i = 0; i < RK; ++i) {
+    const int kr = k0 + ty * RK + i;
+    if (kr >= K) break;
+    T* o = out + (long long)kr * N;
+    if (N % 4 == 0) {  // col % 4 == 0: whole runs of four, aligned
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) store_f(out + (long long)kr * N + col, acc[i][j]);
+      for (int j = 0; j < RN; j += 4)
+        if (j < live) store4(o + j, &acc[i][j]);
+    } else if (N % 2 == 0) {
+#pragma unroll
+      for (int j = 0; j < RN; j += 2)
+        if (j < live) store2(o + j, &acc[i][j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < RN; ++j)
+        if (j < live) store_f(o + j, acc[i][j]);
     }
+  }
+}
+
+// Path wgmma (bf16, K and N multiples of 8, 16-byte aligned rows): a 128 x
+// BN tile of dw[g] on the tensor cores, two warpgroups of 64 rows.  The
+// product's M is dw's k (x's columns), its N dw's n, its depth the group's
+// rows: A = x_g^T enters M-major and B = dy_g N-major, through the
+// transposed-A and -B modes, so x and dy are read as they lie.  A stage
+// holds 64 of the group's rows: A as two 64-column panels of x (one a
+// warpgroup), B as BN / 64 panels of dy, each panel 64 rows of 128 bytes
+// with the 128-byte swizzle (16-byte chunk c of row r at r * 128 + ((c ^ r
+// % 8) << 4)); the descriptor's leading offset steps panels, its stride
+// offset 8 rows.  A cp.async ring of kStages stages keeps kStages - 2
+// slices loading while one wgmma group runs; rows past the group are
+// zero-filled.  BN = 256 (where N > 128: olmoe) takes 4 stages, 192 KB, one
+// block an SM; BN = 128 (FEMNIST's N = 128) 3 stages, 96 KB, two blocks an
+// SM.  The f32 accumulators are rounded to bf16 once and leave through the
+// spent ring (swizzled the same way by chunk) in 16-byte stores of whole
+// rows.
+template <int BN>
+struct TgWg {
+  static constexpr int kM = 128, kDepth = 64;         // dw rows a block, group rows a stage
+  static constexpr int kStages = BN == 256 ? 4 : 3;
+  static constexpr int kPanel = kDepth * 128;         // 64 rows of 64 columns: 8 KB
+  static constexpr int kABytes = 2 * kPanel, kBBytes = (BN / 64) * kPanel;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + room to align to 1 KB
+  static_assert(kStages * kStageBytes >= kM * BN * 2, "dw's tile fits the ring");
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, BN == 256 ? 1 : 2) tgmm_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+    const int* __restrict__ bounds, __nv_bfloat16* __restrict__ dw, int K, int N) {
+  using L = TgWg<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * L::kM, g = blockIdx.z;
+  const int start = bounds[g], end = max(bounds[g + 1], start);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wgi = warp >> 2;
+
+  // 64 rows of 128 columns of x (k0 ..) and of BN columns of dy (n0 ..)
+  auto load = [&](int stage, int r0) {
+    uint8_t* a_s = smem + stage * L::kStageBytes;
+    uint8_t* b_s = a_s + L::kABytes;
+#pragma unroll
+    for (int i = 0; i < L::kABytes / 16 / kWgThreads; ++i) {
+      const int c = tid + i * kWgThreads, r = c >> 4, ch = c & 15;
+      const int row = r0 + r, kk = k0 + ch * 8;
+      const bool ok = row < end && kk < K;
+      cp_async16(a_s + (ch >> 3) * L::kPanel + r * 128 + (((ch & 7) ^ (r & 7)) << 4),
+                 ok ? x + (long long)row * K + kk : x, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < L::kBBytes / 16 / kWgThreads; ++i) {
+      const int c = tid + i * kWgThreads, r = c / (BN / 8), ch = c % (BN / 8);
+      const int row = r0 + r, nn = n0 + ch * 8;
+      const bool ok = row < end && nn < N;
+      cp_async16(b_s + (ch >> 3) * L::kPanel + r * 128 + (((ch & 7) ^ (r & 7)) << 4),
+                 ok ? dy + (long long)row * N + nn : dy, ok);
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  const int ns = (end - start + L::kDepth - 1) / L::kDepth;
+#pragma unroll
+  for (int s = 0; s < L::kStages - 2; ++s) {
+    if (s < ns) load(s, start + s * L::kDepth);
+    cp_async_commit();
+  }
+  const uint32_t base = smem_addr(smem);
+  for (int st = 0; st < ns; ++st) {
+    cp_async_wait<L::kStages - 3>();  // slice st has landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... visible to wgmma
+    __syncthreads();                  // every thread's; and wgmma of slice st - 2 is done
+    const int next = st + L::kStages - 2;
+    if (next < ns) load(next % L::kStages, start + next * L::kDepth);
+    cp_async_commit();
+    const uint32_t a_s = base + (st % L::kStages) * L::kStageBytes + wgi * L::kPanel;
+    const uint32_t b_s = base + (st % L::kStages) * L::kStageBytes + L::kABytes;
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < L::kDepth / 16; ++kk) {
+      const uint64_t da = smem_desc(a_s + kk * 16 * 128, L::kPanel, 1024);
+      const uint64_t db = smem_desc(b_s + kk * 16 * 128, L::kPanel, 1024);
+      if constexpr (BN == 256)
+        wgmma_m64n256k16<1, 1>(acc, da, db);
+      else
+        wgmma_m64n128k16<1, 1>(acc, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // slice st - 1 is done
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // every warpgroup's wgmma is done: the ring is free
+  // accumulator layout: warp (warp & 3) of the warpgroup holds rows 16 (warp & 3) ..
+  // + 15; register 4j + 2h + e is (row lane / 4 + 8h, column 8j + 2 (lane % 4) + e)
+  constexpr int kPitch = BN * 2;  // bytes of a staged row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wgi * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<uint32_t*>(smem + r * kPitch + ((j ^ (r & 7)) << 4) + 4 * (lane & 3)) =
+          pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  __syncthreads();
+  __nv_bfloat16* out = dw + (long long)g * K * N;
+#pragma unroll
+  for (int i = 0; i < L::kM * BN / 8 / kWgThreads; ++i) {
+    const int c = tid + i * kWgThreads, r = c / (BN / 8), ch = c % (BN / 8);
+    const int kr = k0 + r, nn = n0 + ch * 8;
+    if (kr < K && nn < N)  // N % 8 == 0: a chunk is in or out whole
+      *reinterpret_cast<uint4*>(out + (long long)kr * N + nn) =
+          *reinterpret_cast<const uint4*>(smem + r * kPitch + ((ch ^ (r & 7)) << 4));
   }
 }
 
@@ -672,21 +933,85 @@ extern "C" int repro_gmm(int path, int dtype, const void* x, const void* w, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int repro_tgmm(int dtype, const void* x, const void* dy, const void* offsets,
-                          void* dw, int M, int K, int N, int G, void* stream) {
-  const dim3 grid(cdiv(N, kTile), cdiv(K, kTile), (unsigned)G);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* offs = static_cast<const int*>(offsets);
-  if (dtype == 0) {
-    tgmm_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), offs,
-        static_cast<float*>(dw), M, K, N);
-  } else if (dtype == 1) {
-    tgmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), offs,
-        static_cast<__nv_bfloat16*>(dw), M, K, N);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+// tgmm's paths (0 = ffma, 1 = wgmma) and the (K rows, N columns) of a
+// block's tile in each, by tile code; the wrapper's table in ops.py is
+// checked against repro_tgmm_tile at load.
+constexpr int kTgTiles = 3;
+constexpr int kTgTileK[2][kTgTiles] = {{64, 32, 32}, {128, 128, 0}};
+constexpr int kTgTileN[2][kTgTiles] = {{64, 64, 32}, {128, 256, 0}};
+
+extern "C" int repro_tgmm_tile(int path, int tile, int which) {
+  if (path < 0 || path > 1 || tile < 0 || tile >= kTgTiles || kTgTileK[path][tile] == 0) return -1;
+  return which == 0 ? kTgTileK[path][tile] : kTgTileN[path][tile];
+}
+
+namespace {
+
+template <typename T, int VB>
+int launch_tgmm_ffma(int tile, const T* x, const T* dy, const int* bounds, T* dw, int K, int N,
+                     int G, cudaStream_t s) {
+  const dim3 grid(cdiv(N, kTgTileN[0][tile]), cdiv(K, kTgTileK[0][tile]), (unsigned)G);
+  switch (tile) {
+    case 0: tgmm_ffma_kernel<T, 64, 64, 8, 4, 4, VB><<<grid, 128, 0, s>>>(x, dy, bounds, dw, K, N); break;
+    case 1: tgmm_ffma_kernel<T, 32, 64, 4, 4, 4, VB><<<grid, 128, 0, s>>>(x, dy, bounds, dw, K, N); break;
+    case 2: tgmm_ffma_kernel<T, 32, 32, 4, 4, 4, VB><<<grid, 64, 0, s>>>(x, dy, bounds, dw, K, N); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tgmm_ffma_vb(int vbytes, int tile, const void* x, const void* dy, const int* bounds,
+                        void* dw, int K, int N, int G, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dwt = static_cast<T*>(dw);
+  switch (vbytes) {
+    case 16: return launch_tgmm_ffma<T, 16>(tile, xt, dyt, bounds, dwt, K, N, G, s);
+    case 8: return launch_tgmm_ffma<T, 8>(tile, xt, dyt, bounds, dwt, K, N, G, s);
+    case 4: return launch_tgmm_ffma<T, 4>(tile, xt, dyt, bounds, dwt, K, N, G, s);
+    case 2:
+      if constexpr (sizeof(T) == 2) return launch_tgmm_ffma<T, 2>(tile, xt, dyt, bounds, dwt, K, N, G, s);
+      [[fallthrough]];
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int BN>
+int launch_tgmm_wgmma(const void* x, const void* dy, const int* bounds, void* dw, int K, int N,
+                      int G, cudaStream_t s) {
+  const cudaError_t attr = cudaFuncSetAttribute(  // per device: set on every launch
+      tgmm_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, TgWg<BN>::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(cdiv(N, BN), cdiv(K, TgWg<BN>::kM), (unsigned)G);
+  tgmm_wgmma_kernel<BN><<<grid, kWgThreads, TgWg<BN>::kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), bounds,
+      static_cast<__nv_bfloat16*>(dw), K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dw (G, K, N) = x_g^T dy_g for the rows [bounds[g], bounds[g + 1]) of each
+// group (`bounds`: gmm's G + 2 row bounds, clamped to [0, M]).  path 0
+// (ffma) takes f32 and bf16, copying `vbytes` (16, 8, 4; 2 for bf16) a
+// cp.async: K and N multiples of vbytes / element size and both bases so
+// aligned; path 1 (wgmma) takes bf16 with K and N multiples of 8 and 16-byte
+// aligned bases.  `tile` indexes the path's tiles (repro_tgmm_tile).
+extern "C" int repro_tgmm(int path, int tile, int dtype, int vbytes, const void* x,
+                          const void* dy, const void* bounds, void* dw, int K, int N, int G,
+                          void* stream) {
+  if (repro_tgmm_tile(path, tile, 0) < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* b = static_cast<const int*>(bounds);
+  if (path == 1) {
+    if (dtype != 1 || K % 8 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return tile == 1 ? launch_tgmm_wgmma<256>(x, dy, b, dw, K, N, G, s)
+                     : launch_tgmm_wgmma<128>(x, dy, b, dw, K, N, G, s);
+  }
+  const int e = vbytes / (dtype == 0 ? 4 : 2);
+  if (e < 1 || K % e != 0 || N % e != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 0 ? launch_tgmm_ffma_vb<float>(vbytes, tile, x, dy, b, dw, K, N, G, s)
+                    : launch_tgmm_ffma_vb<__nv_bfloat16>(vbytes, tile, x, dy, b, dw, K, N, G, s);
 }

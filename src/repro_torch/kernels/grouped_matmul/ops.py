@@ -16,9 +16,14 @@ tensor cores) and ``ffma`` / ``ffma_wide`` (f32 tiles, and bf16 rows that
 are no 16-byte multiple).  The tiled paths give every block one (part, row
 tile, column tile): ``row_bounds`` and ``tile_prefix`` are that schedule,
 computed with torch ops on the tensor's device, and ``grid`` is its upper
-bound on the host.  ``LAUNCHES`` counts kernel launches per kernel (one a wrapper
-call), so a run can show that its path went through the kernels.  The
-wrappers never read group sizes on the host.
+bound on the host.  ``tgmm`` has two paths, picked by ``choose_tgmm_path``
+from K, N, the dtype and alignment alone: ``wgmma`` (bf16 with 16-byte
+rows, on the tensor cores) and ``ffma`` (f32, and the rest of bf16); it
+reads the same ``row_bounds``, which the autograd Function builds once in
+the forward for the backward's ``gmm`` and ``tgmm``.  ``LAUNCHES`` counts
+kernel launches per kernel (one a wrapper call) and ``TGMM_PATH_LAUNCHES``
+``tgmm``'s by path, so a run can show that its path went through the
+kernels.  The wrappers never read group sizes on the host.
 """
 from __future__ import annotations
 
@@ -37,15 +42,20 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu",)
 
 #: kernel launches so far, by kernel; callers reset entries to 0 to count a run
 LAUNCHES = {"gmm": 0, "tgmm": 0}
+#: the same ``tgmm`` launches, by path
+TGMM_PATH_LAUNCHES = {"ffma": 0, "wgmma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: gmm's paths: (code of the C entry, rows, columns) of a block's tile; a
 #: ``stream`` block owns a whole group and 64 columns, 8 rows a pass
 PATHS = {"stream": (0, 8, 64), "ffma": (1, 32, 32), "ffma_wide": (2, 128, 128),
          "wgmma": (3, 128, 256)}
+#: tgmm's paths: (code of the C entry, the (K rows, N columns) tiles a block
+#: may own, by tile code); ``tgmm_tile`` picks one from the shapes
+TGMM_PATHS = {"ffma": (0, ((64, 64), (32, 64), (32, 32))),
+              "wgmma": (1, ((128, 128), (128, 256)))}
 _SMS = 132          # an H100's SMs: ffma_wide once its grid has 4 blocks an SM
 _MAX_GRID_YZ = 65535
-_TGMM_TILE = 64     # tgmm's output tile edge (its grid's limits)
 _INT32_MAX = 2 ** 31 - 1
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -59,11 +69,17 @@ def library() -> ctypes.CDLL:
     lib.repro_gmm.restype = _I
     lib.repro_gmm_tile.argtypes = [_I, _I]
     lib.repro_gmm_tile.restype = _I
-    lib.repro_tgmm.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.repro_tgmm.argtypes = [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.repro_tgmm.restype = _I
+    lib.repro_tgmm_tile.argtypes = [_I, _I, _I]
+    lib.repro_tgmm_tile.restype = _I
     for name, (code, tm, tn) in PATHS.items():
         if (lib.repro_gmm_tile(code, 0), lib.repro_gmm_tile(code, 1)) != (tm, tn):
             raise RuntimeError(f"gmm path {name}: the kernel's tile differs from ({tm}, {tn})")
+    for name, (code, tiles) in TGMM_PATHS.items():
+        for i, tile in enumerate(tiles):
+            if (lib.repro_tgmm_tile(code, i, 0), lib.repro_tgmm_tile(code, i, 1)) != tile:
+                raise RuntimeError(f"tgmm path {name}: the kernel's tile {i} differs from {tile}")
     return lib
 
 
@@ -88,6 +104,51 @@ def grid(path: str, m: int, n: int, g: int) -> Tuple[int, int]:
     if path == "stream":
         return -(-n // tn), g + 1
     return -(-n // tn), -(-m // tm) + g
+
+
+def choose_tgmm_path(m: int, k: int, n: int, g: int, dtype: torch.dtype,
+                     vectors: bool = True) -> str:
+    """``tgmm``'s path for (m, k) x (m, n) over g groups: ``wgmma`` for bf16
+    whose rows are 16-byte multiples (``vectors``: x's and dy's bases are
+    16-byte aligned; K and N multiples of 8), else ``ffma``.  Shapes, dtype
+    and alignment alone: never a group size."""
+    del m, g   # every split of any m rows takes the same path
+    if vectors and dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "ffma"
+
+
+def tgmm_tile(path: str, k: int, n: int, g: int) -> int:
+    """The code of ``path``'s tile for dw (g, k, n): ``wgmma`` 128 x 256
+    where N > 128 (one block an SM, the wider product), else 128 x 128;
+    ``ffma`` the largest tile whose grid has eight blocks for every SM, else
+    the smallest.  A block's work is its group's rows, so many small blocks
+    even out ragged groups (at 784 → 128, 32 × 64 beat 64 × 64 by 5 %)."""
+    tiles = TGMM_PATHS[path][1]
+    if path == "wgmma":
+        return 1 if n > 128 else 0
+    for i, (tk, tn) in enumerate(tiles):
+        if g * -(-k // tk) * -(-n // tn) >= 8 * _SMS:
+            return i
+    return len(tiles) - 1
+
+
+def tgmm_grid(path: str, k: int, n: int, g: int) -> Tuple[int, int, int]:
+    """(N tiles, K tiles, g) of ``tgmm``'s launch: block (x, y, z) owns
+    dw[z, y TK: (y + 1) TK, x TN: (x + 1) TN], whatever the split."""
+    tk, tn = TGMM_PATHS[path][1][tgmm_tile(path, k, n, g)]
+    return -(-n // tn), -(-k // tk), g
+
+
+def tgmm_copy_bytes(k: int, n: int, esize: int, *ptrs: int) -> int:
+    """Bytes of each of the ``ffma`` path's cp.async copies: the widest of
+    16, 8, 4 (and 2, for bf16) that divides x's and dy's rows (k, n
+    elements of esize bytes) and every base address in ``ptrs``."""
+    for b in (16, 8, 4, 2):
+        if b >= esize and (k * esize) % b == 0 and (n * esize) % b == 0 \
+                and all(p % b == 0 for p in ptrs):
+            return b
+    raise ValueError(f"tgmm: no copy width fits rows of {k} and {n} {esize}-byte elements")
 
 
 def row_bounds(group_sizes: torch.Tensor, m: int) -> torch.Tensor:
@@ -130,10 +191,10 @@ def _check_sizes(group_sizes: torch.Tensor, num_groups: int) -> None:
         raise TypeError(f"group_sizes must be int32 or int64, got {group_sizes.dtype}")
 
 
-def _offsets(group_sizes: torch.Tensor, num_groups: int) -> torch.Tensor:
-    _check_sizes(group_sizes, num_groups)
-    zero = torch.zeros(1, dtype=torch.int32, device=group_sizes.device)
-    return torch.cat([zero, torch.cumsum(group_sizes, 0, dtype=torch.int32)])
+def _check_bounds(bounds: torch.Tensor, num_groups: int, dev: torch.device) -> None:
+    if bounds.shape != (num_groups + 2,) or bounds.dtype != torch.int32 or bounds.device != dev:
+        raise ValueError(f"bounds must be int32 ({num_groups + 2},) on {dev} (row_bounds), got "
+                         f"{bounds.dtype} {tuple(bounds.shape)} on {bounds.device}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -164,12 +225,14 @@ def launch_gmm(path: str, x: torch.Tensor, w: torch.Tensor, bounds: torch.Tensor
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
-        path: Optional[str] = None) -> torch.Tensor:
+        path: Optional[str] = None, bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, K) rows sorted by group x (G, K, N) -> (M, N) in x.dtype.
 
     ``w`` is (G, K, N) with unit stride along N, or a view with unit stride
     along K (the backward passes ``wᵀ`` in place).  ``path`` forces one of
-    ``PATHS`` (every path computes the same function; tests hold each)."""
+    ``PATHS`` (every path computes the same function; tests hold each).
+    ``bounds``: ``row_bounds(group_sizes, M)`` made already (the autograd
+    Function shares the forward's with the backward)."""
     if x.device.type == "cpu":
         return ref.grouped_matmul_ref(x, w, group_sizes)
     _check_cuda("gmm", x, w, group_sizes)
@@ -183,6 +246,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         raise ValueError(f"gmm: w needs unit stride along K or N, got strides {w.stride()}")
     (m, k), (g, _, n) = x.shape, w.shape
     _check_sizes(group_sizes, g)
+    if bounds is not None:
+        _check_bounds(bounds, g, x.device)
     vectors = _vector_rows(x, w)
     if path is None:
         path = choose_path(m, k, n, g, x.dtype, vectors)
@@ -197,16 +262,34 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    bounds = row_bounds(group_sizes, m)
+    if bounds is None:
+        bounds = row_bounds(group_sizes, m)
     prefix = None if path == "stream" else tile_prefix(bounds, PATHS[path][1])
     launch_gmm(path, x, w, bounds, prefix, y)
     LAUNCHES["gmm"] += 1
     return y
 
 
-def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
-         num_groups: int) -> torch.Tensor:
-    """(M, K) x (M, N), rows sorted by group -> dw (G, K, N) in x.dtype."""
+def launch_tgmm(path: str, x: torch.Tensor, dy: torch.Tensor, bounds: torch.Tensor,
+                dw: torch.Tensor) -> None:
+    """One launch of ``path`` on bounds already made (``tgmm`` checks the
+    operands; timings call this to keep the schedule's launches out)."""
+    (k, n), g = dw.shape[1:], dw.shape[0]
+    vbytes = tgmm_copy_bytes(k, n, x.element_size(), x.data_ptr(), dy.data_ptr())
+    with torch.cuda.device(x.device):
+        err = library().repro_tgmm(
+            TGMM_PATHS[path][0], tgmm_tile(path, k, n, g), _DTYPES[x.dtype], vbytes,
+            x.data_ptr(), dy.data_ptr(), bounds.data_ptr(), dw.data_ptr(), k, n, g,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "tgmm")
+
+
+def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor, num_groups: int,
+         path: Optional[str] = None, bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M, K) x (M, N), rows sorted by group -> dw (G, K, N) in x.dtype.
+
+    ``path`` forces one of ``TGMM_PATHS`` (tests hold each); ``bounds`` is
+    ``row_bounds(group_sizes, M)`` made already, as for ``gmm``."""
     if x.device.type == "cpu":
         return ref.tgmm_ref(x, dy, group_sizes, num_groups)
     _check_cuda("tgmm", x, dy, group_sizes)
@@ -217,37 +300,47 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("tgmm: x and dy must be contiguous")
     (m, k), n = x.shape, dy.shape[1]
-    if num_groups > _MAX_GRID_YZ or -(-k // _TGMM_TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"tgmm: {num_groups} groups x {k} rows exceed the kernel's grid")
-    offs = _offsets(group_sizes, num_groups)
+    _check_sizes(group_sizes, num_groups)
+    if bounds is not None:
+        _check_bounds(bounds, num_groups, x.device)
+    vectors = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    if path is None:
+        path = choose_tgmm_path(m, k, n, num_groups, x.dtype, vectors)
+    elif path not in TGMM_PATHS:
+        raise ValueError(f"tgmm: unknown path {path!r}, not one of {sorted(TGMM_PATHS)}")
+    elif path == "wgmma" and choose_tgmm_path(m, k, n, num_groups, x.dtype, vectors) != path:
+        raise ValueError("tgmm: the wgmma path takes bfloat16 with 16-byte rows "
+                         "(K, N multiples of 8)")
+    if num_groups > _MAX_GRID_YZ or max(tgmm_grid(path, k, n, num_groups)[:2]) > _MAX_GRID_YZ:
+        raise ValueError(f"tgmm: {num_groups} groups of ({k}, {n}) exceed the kernel's grid")
     dw = torch.empty((num_groups, k, n), dtype=x.dtype, device=x.device)
     if dw.numel() == 0:
         return dw
-    with torch.cuda.device(x.device):
-        err = library().repro_tgmm(
-            _DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(), offs.data_ptr(),
-            dw.data_ptr(), m, k, n, num_groups,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "tgmm")
+    if bounds is None:
+        bounds = row_bounds(group_sizes, m)
+    launch_tgmm(path, x, dy, bounds, dw)
     LAUNCHES["tgmm"] += 1
+    TGMM_PATH_LAUNCHES[path] += 1
     return dw
 
 
 class GroupedMatmul(torch.autograd.Function):
     """``gmm`` with its gradient: ``dx = gmm(dy, wᵀ)``, ``dw = tgmm(x, dy)``
-    (the reference's custom VJP, ``repro/kernels/grouped_matmul/ops.py:45``)."""
+    (the reference's custom VJP, ``repro/kernels/grouped_matmul/ops.py:45``).
+    On the card the forward's ``row_bounds`` serve all three products."""
 
     @staticmethod
     def forward(ctx, x, w, group_sizes):
-        ctx.save_for_backward(x, w, group_sizes)
-        return gmm(x, w, group_sizes)
+        bounds = row_bounds(group_sizes, x.shape[0]) if x.device.type == "cuda" else None
+        ctx.save_for_backward(x, w, group_sizes, bounds)
+        return gmm(x, w, group_sizes, bounds=bounds)
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, gs = ctx.saved_tensors
+        x, w, gs, bounds = ctx.saved_tensors
         dy = dy.contiguous()
-        dx = gmm(dy, w.transpose(1, 2), gs) if ctx.needs_input_grad[0] else None
-        dw = tgmm(x, dy, gs, w.shape[0]) if ctx.needs_input_grad[1] else None
+        dx = gmm(dy, w.transpose(1, 2), gs, bounds=bounds) if ctx.needs_input_grad[0] else None
+        dw = tgmm(x, dy, gs, w.shape[0], bounds=bounds) if ctx.needs_input_grad[1] else None
         return dx, dw, None
 
 

@@ -164,3 +164,124 @@ def test_cpu_tensors_take_the_plain_version_on_any_path():
     for path in ops.PATHS:
         torch.testing.assert_close(ops.gmm(x, w, gs, path=path), want)
     assert not ops.gmm(x, w, gs)[17:].any()
+
+
+# ---------------------------------------------------------------- tgmm
+#
+# ``tgmm`` gives every block of its grid (N tiles, K tiles, G) one tile of one
+# group's dw and the group's rows [bounds[g], bounds[g + 1]); the grid and the
+# path come from the shapes, dtype and alignment alone.
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((1283, 784, 128, 32), torch.float32, "ffma"),      # the FEMNIST wave's layers, f32
+    ((1283, 128, 128, 32), torch.float32, "ffma"),
+    ((1283, 128, 62, 32), torch.float32, "ffma"),
+    ((1283, 784, 128, 32), torch.bfloat16, "wgmma"),    # bf16 with 16-byte rows
+    ((1283, 128, 128, 32), torch.bfloat16, "wgmma"),
+    ((1283, 128, 62, 32), torch.bfloat16, "ffma"),      # N = 62: 124-byte rows
+    ((65536, 2048, 1024, 64), torch.bfloat16, "wgmma"),  # olmoe's prefill, both products
+    ((65536, 1024, 2048, 64), torch.bfloat16, "wgmma"),
+    ((65536, 2048, 1024, 64), torch.float32, "ffma"),
+    ((32, 2048, 1024, 64), torch.bfloat16, "wgmma"),     # olmoe's decode split
+])
+def test_tgmm_path_is_chosen_from_shapes_dtype_and_alignment(shape, dtype, want):
+    assert ops.choose_tgmm_path(*shape, dtype) == want
+    assert ops.choose_tgmm_path(*shape, dtype, vectors=False) == "ffma"
+    m, k, n, g = shape
+    for other_m in (0, 1, 7 * m + 3):       # never the rows or their split
+        assert ops.choose_tgmm_path(other_m, k, n, g, dtype) == want
+
+
+@pytest.mark.parametrize("path,k,n,g,tile,blocks", [
+    ("ffma", 784, 128, 32, (32, 64), 1600),   # 64 x 64 gives 832 blocks, < 8 an SM
+    ("ffma", 128, 128, 32, (32, 32), 512),    # 128 and 256 blocks would leave SMs idle
+    ("ffma", 128, 62, 32, (32, 32), 256),     # the smallest tile, the most blocks
+    ("ffma", 2048, 1024, 64, (64, 64), 32768),  # olmoe's shape in f32
+    ("wgmma", 784, 128, 32, (128, 128), 224),
+    ("wgmma", 2048, 1024, 64, (128, 256), 4096),
+    ("wgmma", 1024, 2048, 64, (128, 256), 4096),
+    ("wgmma", 784, 136, 4, (128, 256), 28),
+])
+def test_tgmm_tile_puts_enough_blocks_on_every_sm(path, k, n, g, tile, blocks):
+    tk, tn = ops.TGMM_PATHS[path][1][ops.tgmm_tile(path, k, n, g)]
+    assert (tk, tn) == tile
+    nx, ny, nz = ops.tgmm_grid(path, k, n, g)
+    assert (nx, ny, nz) == (-(-n // tn), -(-k // tk), g) and nx * ny * nz == blocks
+
+
+@pytest.mark.parametrize("k,n,esize,ptrs,want", [
+    (784, 128, 4, (0, 256), 16),     # f32 784 -> 128: 16-byte copies
+    (128, 62, 4, (0, 512), 8),       # f32 128 -> 62: 248-byte rows, 8-byte copies
+    (128, 62, 2, (0, 512), 4),       # bf16 128 -> 62: 124-byte rows
+    (128, 61, 2, (0, 512), 2),       # bf16 of odd length: two bytes, no cp.async
+    (784, 128, 4, (4, 0), 4),        # a base one f32 off 16 bytes
+    (784, 128, 2, (0, 6), 2),
+])
+def test_tgmm_copy_width_divides_rows_and_bases(k, n, esize, ptrs, want):
+    assert ops.tgmm_copy_bytes(k, n, esize, *ptrs) == want
+
+
+def _check_tgmm_grid(sizes, tail, k, n, path):
+    """Every (g, K tile, N tile) of dw is owned by exactly one block, the
+    tiles cover dw once, and a block's rows are its group's rows."""
+    g = len(sizes)
+    m = sum(sizes) + tail
+    bounds = ops.row_bounds(torch.tensor(sizes, dtype=torch.int32), m)
+    tk, tn = ops.TGMM_PATHS[path][1][ops.tgmm_tile(path, k, n, g)]
+    nx, ny, nz = ops.tgmm_grid(path, k, n, g)
+    assert nz == g and (nx - 1) * tn < n <= nx * tn and (ny - 1) * tk < k <= ny * tk
+    covered = torch.zeros((g, k, n), dtype=torch.int64)
+    rows = torch.zeros(m, dtype=torch.int64)
+    seen = set()
+    for bz in range(nz):
+        start, end = int(bounds[bz]), max(int(bounds[bz + 1]), int(bounds[bz]))
+        assert end - start == min(sizes[bz], max(m - sum(sizes[:bz]), 0))
+        rows[start:end] += 1
+        for by in range(ny):
+            for bx in range(nx):
+                assert (bz, by, bx) not in seen
+                seen.add((bz, by, bx))
+                covered[bz, by * tk:(by + 1) * tk, bx * tn:(bx + 1) * tn] += 1
+    assert bool((covered == 1).all())
+    assert bool((rows[:sum(sizes)] == 1).all()) and not rows[sum(sizes):].any()
+
+
+@settings(max_examples=40, deadline=None)
+@given(sizes=st.lists(st.integers(0, 300), min_size=1, max_size=40),
+       tail=st.integers(0, 140), k=st.integers(1, 800), n=st.integers(1, 300),
+       path=st.sampled_from(list(ops.TGMM_PATHS)))
+def test_tgmm_grid_owns_every_tile_once_for_any_split(sizes, tail, k, n, path):
+    _check_tgmm_grid(sizes, tail, k, n, path)
+
+
+@pytest.mark.parametrize("name", list(SPLITS))
+def test_tgmm_grid_at_named_splits(name):
+    sizes, tail = SPLITS[name]
+    for path, k, n in (("ffma", 784, 62), ("ffma", 128, 128), ("wgmma", 136, 320)):
+        _check_tgmm_grid(sizes, tail, k, n, path)
+
+
+def test_cpu_tensors_take_tgmm_ref_on_any_path():
+    x, dy = torch.randn(20, 16), torch.randn(20, 8)
+    gs = torch.tensor([5, 0, 12], dtype=torch.int32)
+    want = ops.ref.tgmm_ref(x, dy, gs, 3)
+    assert not want[1].any()
+    before = dict(ops.TGMM_PATH_LAUNCHES)
+    for path in (None, *ops.TGMM_PATHS):
+        torch.testing.assert_close(ops.tgmm(x, dy, gs, 3, path=path), want)
+        torch.testing.assert_close(
+            ops.tgmm(x, dy, gs, 3, path=path, bounds=ops.row_bounds(gs, 20)), want)
+    assert ops.TGMM_PATH_LAUNCHES == before and set(before) == {"ffma", "wgmma"}
+
+
+def test_autograd_shares_the_forward_bounds_on_the_cpu():
+    """On the CPU the Function saves no bounds and its grads are the plain
+    versions' (the card's are held in tests/test_torch_kernels_cuda.py)."""
+    x = torch.randn(20, 16, requires_grad=True)
+    w = torch.randn(3, 16, 8, requires_grad=True)
+    gs = torch.tensor([5, 0, 12], dtype=torch.int32)
+    dy = torch.randn(20, 8)
+    ops.grouped_matmul(x, w, gs).backward(dy)
+    torch.testing.assert_close(w.grad, ops.ref.tgmm_ref(x.detach(), dy, gs, 3))
+    torch.testing.assert_close(
+        x.grad, ops.ref.grouped_matmul_ref(dy, w.detach().transpose(1, 2), gs))

@@ -197,6 +197,127 @@ def test_gmm_refuses_paths_that_do_not_take_the_operands(card):
     assert ops.LAUNCHES["gmm"] == before + 1
 
 
+# tgmm on each path: CASES as they stand, one group of 300 rows (several
+# 64-row wgmma stages and 16-row ffma stages), K = 784 (a ragged K edge on
+# the 128-row wgmma tile) with N = 62 and with N = 136 (past a 128-column
+# tile, into a 256-column one), and empty groups with 98 rows past the groups
+TGMM_CASES = list(CASES) + [
+    ((300, 128, 128, 1), [300]),
+    ((600, 784, 62, 4), [150, 0, 300, 150]),
+    ((600, 784, 136, 4), [150, 0, 300, 150]),
+    ((213, 64, 96, 6), [0, 70, 0, 0, 45, 0]),
+]
+TGMM_PATH_DTYPES = [("ffma", "float32"), ("ffma", "bfloat16"), ("wgmma", "bfloat16")]
+
+
+def _tgmm_inputs(shape, sizes, dtype, device, seed=10, offset=0):
+    """x, dy (``offset`` elements into their storage) and the group sizes."""
+    x, _, dy, gs = _inputs(shape, sizes, seed)
+    tdt = getattr(torch, dtype)
+
+    def place(a):
+        flat = torch.empty(a.size + offset, device=device, dtype=tdt)[offset:]
+        return flat.view(a.shape).copy_(torch.from_numpy(a))
+    return place(x), place(dy), torch.from_numpy(gs).to(device)
+
+
+def _hold_tgmm(dw, xc, dyc, gc, g, dtype):
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(dw.float(), ref.tgmm_ref(xc, dyc, gc, g).float(), **tol)
+    for gi, size in enumerate(gc.tolist()):   # an empty group's gradient is exact zeros
+        assert size or not dw[gi].any()
+
+
+@pytest.mark.parametrize("path,dtype", TGMM_PATH_DTYPES)
+@pytest.mark.parametrize("shape,sizes", TGMM_CASES)
+def test_tgmm_every_path_matches_plain_version(card, shape, sizes, path, dtype):
+    _, k, n, g = shape
+    xc, dyc, gc = _tgmm_inputs(shape, sizes, dtype, card)
+    if path == "wgmma" and (k % 8 or n % 8):        # no 16-byte rows: the path refuses
+        with pytest.raises(ValueError):
+            ops.tgmm(xc, dyc, gc, g, path=path)
+        return
+    before, by_path = ops.LAUNCHES["tgmm"], dict(ops.TGMM_PATH_LAUNCHES)
+    dw = ops.tgmm(xc, dyc, gc, g, path=path)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tgmm"] == before + 1
+    assert ops.TGMM_PATH_LAUNCHES == {**by_path, path: by_path[path] + 1}
+    _hold_tgmm(dw, xc, dyc, gc, g, dtype)
+
+
+@pytest.mark.parametrize("dtype,offset,copy_bytes", [("float32", 1, 4), ("float32", 2, 8),
+                                                     ("bfloat16", 1, 2), ("bfloat16", 2, 4)])
+def test_tgmm_unaligned_rows_take_ffma_with_narrower_copies(card, dtype, offset, copy_bytes):
+    shape, sizes = (600, 784, 136, 4), [150, 0, 300, 150]
+    xc, dyc, gc = _tgmm_inputs(shape, sizes, dtype, card, offset=offset)
+    esize = xc.element_size()
+    assert ops.tgmm_copy_bytes(784, 136, esize, xc.data_ptr(), dyc.data_ptr()) == copy_bytes
+    before = dict(ops.TGMM_PATH_LAUNCHES)
+    dw = ops.tgmm(xc, dyc, gc, 4)
+    assert ops.TGMM_PATH_LAUNCHES == {**before, "ffma": before["ffma"] + 1}
+    _hold_tgmm(dw, xc, dyc, gc, 4, dtype)
+
+
+@pytest.mark.parametrize("path", list(ops.TGMM_PATHS))
+def test_tgmm_reads_no_group_size_on_the_host(card, path):
+    dtype = torch.bfloat16 if path == "wgmma" else torch.float32
+    x = torch.randn((48, 64), device=card).to(dtype)
+    dy = torch.randn((48, 32), device=card).to(dtype)
+    gs = torch.tensor([0, 5, 0, 20, 3] + [1] * 11, dtype=torch.int32, device=card)
+    bounds = ops.row_bounds(gs, 48)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dw = ops.tgmm(x, dy, gs, 16, path=path)
+        dw_shared = ops.tgmm(x, dy, gs, 16, path=path, bounds=bounds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = ref.tgmm_ref(x, dy, gs, 16).float()
+    for got in (dw, dw_shared):
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_tgmm_refuses_paths_that_do_not_take_the_operands(card):
+    x = torch.zeros((8, 64), device=card)
+    dy = torch.zeros((8, 62), device=card)
+    gs = torch.tensor([4, 4], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        ops.tgmm(x, dy[:, :32].contiguous(), gs, 2, path="wgmma")     # f32
+    with pytest.raises(ValueError):
+        ops.tgmm(x.bfloat16(), dy.bfloat16(), gs, 2, path="wgmma")    # N = 62
+    with pytest.raises(ValueError):
+        ops.tgmm(x, dy, gs, 2, path="tiled")                          # no such path
+    with pytest.raises(ValueError):
+        ops.tgmm(x, dy, gs, 2, bounds=ops.row_bounds(gs, 8)[:-1])     # G + 1 bounds
+    before = dict(ops.TGMM_PATH_LAUNCHES)
+    ops.tgmm(x, dy, gs, 2)
+    ops.tgmm(x.bfloat16(), dy[:, :32].contiguous().bfloat16(), gs, 2)
+    assert ops.TGMM_PATH_LAUNCHES == {"ffma": before["ffma"] + 1, "wgmma": before["wgmma"] + 1}
+
+
+@pytest.mark.parametrize("dtype,path", [("float32", "ffma"), ("bfloat16", "wgmma")])
+def test_autograd_backward_runs_tgmm_on_its_path(card, dtype, path):
+    """The backward's dw takes the path its dtype picks, on the forward's bounds."""
+    shape, sizes = (600, 784, 136, 4), [150, 0, 300, 150]
+    x, w, dy, gs = _inputs(shape, sizes, seed=11)
+    tdt = getattr(torch, dtype)
+    gc = torch.from_numpy(gs).to(card)
+
+    def grads_of(fn):
+        xc = torch.from_numpy(x).to(card, tdt).requires_grad_()
+        wc = torch.from_numpy(w).to(card, tdt).requires_grad_()
+        fn(xc, wc, gc).backward(torch.from_numpy(dy).to(card, tdt))
+        return xc.grad.float(), wc.grad.float()
+
+    before = dict(ops.TGMM_PATH_LAUNCHES)
+    grads = [grads_of(ops.grouped_matmul)]
+    assert ops.TGMM_PATH_LAUNCHES == {**before, path: before[path] + 1}
+    grads.append(grads_of(ref.grouped_matmul_ref))
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
 # flash attention: (b, sq, skv, hq, hk, d, causal, window) — the reference's
 # sweep (tests/test_kernels.py:26-34), a suffix (Sq < Skv), ragged lengths
 # and head sizes off the kernel's tiles, MQA at D = 256 with a window edge
