@@ -140,8 +140,11 @@ Phases (any failure exits non-zero before the last line is printed):
              control; the bf16 end-to-end reading and the share of top-8
              sets that differ, printed (a routing flip is no kernel fault);
 20. decode — ``flash_decode_int8`` against its plain version: the reference's
-             cases, the serve decode (S=2081), MQA at D=256, D=128, f32 and
-             bf16 q, within 1e-5;
+             cases, the serve decode (S=2081), MQA at D=256, D=128, three,
+             eight and 32 query heads a KV head, kv_len = 65 of 2,081 (the
+             cluster's idle splits), kv_len = 1 with eight splits, qwen's
+             heads at a short S with kv_len on the last split edge and one
+             past it; f32 and bf16 q, bf16 and f32 scales, within 1e-5;
 21. serve  — qwen1.5-0.5b with an int8 KV cache at full width, profiled as
              phase 7 is; at the first and last decode steps
              ``flash_decode_int8`` runs on every layer's served cache and is
@@ -151,14 +154,19 @@ Phases (any failure exits non-zero before the last line is printed):
              as the control; the int8 run's logits against a bf16 cache's,
              printed;
 22. timings — ``flash_decode_int8`` at that served decode shape beside its
-             plain version, the bound and SDPA over a pre-dequantized cache.
+             plain version, the bound and SDPA over a pre-dequantized cache;
+             the launch floor as this timing reads it (``_sleep(0)``, a
+             one-element ``zero_``) and the wrapper's host time a call; then
+             at decode_32k's length (S = kv_len = 32,768, batch 4, qwen's
+             heads) on three random caches (831 MB, past the L2), with the
+             achieved TB/s beside the bound.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3 and 18, ``tgmm`` with those of phase 3, by path too, with worst
 errors and times by path and olmoe's wgmma times, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
-phase 21; flash and ``ssd_scan`` also by kernel path, with worst errors and
+phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's),
 the card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  The script uses one card: unless
@@ -258,7 +266,16 @@ DECODE_CASES = [           # tests/test_kernels.py:166-168, the serve decode, MQ
     ("ragged S=2081 (qwen decode)", (SERVE_BATCH, 16, 16, 2081, 64, 2080)),
     ("MQA, D=256, S=2081", (SERVE_BATCH, 16, 1, 2081, 256, 2049)),
     ("D=128, S=2081, kv_len 1500", (SERVE_BATCH, 16, 16, 2081, 128, 1500)),
+    ("G=3 (a thread's 4th head idle)", (1, 6, 2, 200, 64, 150)),
+    ("G=8 (two warp teams)", (1, 8, 1, 333, 128, 300)),
+    ("G=32, D=128 (two passes a team)", (1, 32, 1, 100, 128, 97)),
+    ("kv_len 65 of 2081 (idle splits)", (1, 4, 4, 2081, 64, 65)),
+    ("kv_len 1, eight splits", (2, 8, 2, 1000, 64, 1)),
 ]
+# qwen's heads at a short S: kv_len on the last split edge on this card, and one past it
+DECODE_EDGE = (2, 16, 16, 600, 64)
+# decode_32k's length at qwen's heads, the batch cut from 128 to 4
+DECODE_LONG = (SERVE_BATCH, 16, 16, 32768, 64, 32768)
 KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas",
                      moe_gmm_impl="pallas")
 # ‖logits(kernel) − logits(plain)‖ / ‖logits(plain)‖ over the prefill and
@@ -1565,10 +1582,10 @@ def moe_layer_twin(torch, cfg, res):
 # ---------------------------------------------------------------- phases 20-22
 
 
-def decode_inputs(torch, case, qdtype, seed=0):
+def decode_inputs(torch, case, qdtype, seed=0, sdtype=None):
     """q (B, Hq, D) and an int8 cache of normal K/V in the model's layout
-    ((B, S, Hk, D) values, (B, S, Hk) bf16 scales), viewed as the kernel's
-    (B, Hk, S, D) and (B, Hk, S)."""
+    ((B, S, Hk, D) values, (B, S, Hk) bf16 scales, or widened to
+    ``sdtype``), viewed as the kernel's (B, Hk, S, D) and (B, Hk, S)."""
     from repro_torch.models.layers import quantize_kv
 
     b, hq, hk, s, d, _ = case
@@ -1576,18 +1593,28 @@ def decode_inputs(torch, case, qdtype, seed=0):
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(qdtype)
     kq, ks = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device="cuda"))
     vq, vs = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device="cuda"))
+    ks, vs = (t.to(sdtype or t.dtype) for t in (ks, vs))
     return q, kq.transpose(1, 2), vq.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
 
 
 def check_decode(torch, decode_ops, decode_ref):
     """The int8 decode kernel against its plain version on the card within
-    1e-5, the reference's tolerance (tests/test_kernels.py:192).  Returns
-    the largest error."""
+    1e-5, the reference's tolerance (tests/test_kernels.py:192), one launch
+    a call.  Returns the largest error."""
+    b, hq, hk, s, d = DECODE_EDGE
+    chunk = decode_ops.split_len(b, hk, s, decode_ops.cluster_fit(0, hq // hk, d))
+    edge = (-(-s // chunk) - 1) * chunk
+    assert edge > 0, chunk
+    cases = DECODE_CASES + [(f"qwen heads S={s}, kv_len {kv} (split edge{past})", (b, hq, hk, s, d, kv))
+                            for kv, past in ((edge, ""), (edge + 1, " + 1"))]
     worst = 0.0
-    for qdtype in (torch.float32, torch.bfloat16):
-        for name, case in DECODE_CASES:
-            args = decode_inputs(torch, case, qdtype)
+    for qdtype, sdtype in itertools.product((torch.float32, torch.bfloat16),
+                                            (torch.bfloat16, torch.float32)):
+        for name, case in cases:
+            args = decode_inputs(torch, case, qdtype, sdtype=sdtype)
+            before = decode_ops.LAUNCHES["flash_decode_int8"]
             got = decode_ops.flash_decode_int8(*args, kv_len=case[-1])
+            assert decode_ops.LAUNCHES["flash_decode_int8"] == before + 1, name
             want = decode_ref.flash_decode_int8_ref(*args, kv_len=case[-1])
             torch.cuda.synchronize()
             assert got.shape == want.shape and got.dtype == torch.float32, name
@@ -1595,7 +1622,8 @@ def check_decode(torch, decode_ops, decode_ref):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
                                        msg=lambda m_: f"flash_decode_int8 {name} {qdtype}: {m_}")
             worst = max(worst, err)
-            say(f"  q {str(qdtype)[6:]:>8} {name:<30} {str(case):<32} max|err| {err:.2e} (tol 1e-5)")
+            say(f"  q {str(qdtype)[6:]:>8} scales {str(sdtype)[6:]:>8} {name:<40} {str(case):<32} "
+                f"max|err| {err:.2e} (tol 1e-5)")
     return worst
 
 
@@ -1687,55 +1715,104 @@ def check_served_decode(torch, decode_ops, decode_ref, caps):
     return worst
 
 
+def decode_bound(b, hq, hk, kv_len, d):
+    """(bound ms, what bounds it, bytes): int8 K and V and their bf16 scales
+    up to kv_len, q in bf16, out in f32 at 3.35 TB/s, against q.k and p.v
+    with K and V dequantized at the f32 rate."""
+    io_bytes = 2 * b * hk * kv_len * d + 2 * 2 * b * hk * kv_len + 2 * b * hq * d + 4 * b * hq * d
+    flops = 4 * b * hq * kv_len * d + 2 * b * hk * kv_len * d
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", io_bytes
+
+
+def time_decode_calls(torch, decode_ops, decode_ref, caches, kv_len, reps, plain_reps):
+    """The kernel, its plain version and SDPA over the caches dequantized to
+    bf16 beforehand (not the same function: no single PyTorch call
+    dequantizes int8 and attends), each call on the next cache in turn, and
+    the wrapper's host time a call."""
+    (b, hq, d), hk = caches[0][0].shape, caches[0][1].shape[1]
+    turn = itertools.cycle(caches)
+
+    def kernel():
+        decode_ops.flash_decode_int8(*next(turn), kv_len=kv_len)
+
+    def plain():
+        decode_ref.flash_decode_int8_ref(*next(turn), kv_len=kv_len)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(len(caches)):
+        kernel()
+    host_ms = (time.perf_counter() - t0) / len(caches) * 1e3
+    row = {"ms": median_ms(torch, kernel, reps=reps, warm=2 * len(caches)), "host_ms": host_ms,
+           "plain_ms": median_ms(torch, plain, reps=plain_reps, warm=1), "library_ms": None}
+    deq = [(c[0][:, :, None, :],
+            *((t[:, :, :kv_len].float() * sc[:, :, :kv_len, None].float()).bfloat16()
+              for t, sc in ((c[1], c[3]), (c[2], c[4])))) for c in caches]
+    dturn = itertools.cycle(deq)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["sdpa_dequantized_ms"] = median_ms(torch, lambda: sdpa(*next(dturn), enable_gqa=hq != hk),
+                                           reps=reps, warm=2 * len(caches))
+    del deq
+    row["bound_ms"], row["bound_by"], io_bytes = decode_bound(b, hq, hk, kv_len, d)
+    row["tb_per_s"] = io_bytes / (row["ms"] * 1e-3) / 1e12
+    row["mbytes"] = io_bytes / 1e6
+    s = caches[0][1].shape[2]
+    chunk = decode_ops.split_len(b, hk, s, decode_ops.cluster_fit(0, hq // hk, d))
+    row["splits"] = -(-s // chunk)
+    row["shape"] = {"B": b, "Hq": hq, "Hk": hk, "S": s, "kv_len": kv_len, "D": d}
+    return row
+
+
+def say_decode_row(name, row):
+    sh = row["shape"]
+    say(f"  flash_decode_int8 {name}: B={sh['B']} Hq={sh['Hq']} Hk={sh['Hk']} S={sh['S']} "
+        f"kv_len={sh['kv_len']} D={sh['D']} (bf16 q and scales; {row['splits']} splits a cluster): "
+        f"{row['ms']:.4f} ms, {row['tb_per_s']:.3f} TB/s; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {row['mbytes']:.2f} MB at 3.35 TB/s), kernel / bound "
+        f"{row['ms'] / row['bound_ms']:.2f}; plain {row['plain_ms']:.4f} ms; library null (no single "
+        f"PyTorch call); SDPA over the cache dequantized to bf16 beforehand "
+        f"{row['sdpa_dequantized_ms']:.4f} ms; the wrapper's host time a call {row['host_ms']:.4f} ms")
+
+
 def time_decode(torch, decode_ops, decode_ref, caps):
     """The int8 decode kernel at qwen's last served decode step, each launch
     on the next layer's cache (24 x 17.6 MB, far past the 50 MB L2, as a
-    decode step finds them), beside its plain version, the least time the
-    card could take, and SDPA over the same cache dequantized to bf16
-    beforehand (not the same function: no single PyTorch call dequantizes
-    int8 and attends)."""
+    decode step finds them), beside the launch floor as this timing reads it
+    (an empty ``_sleep(0)`` and a one-element ``zero_``)."""
     last = max(c["pos"] for c in caps)
-    layers = [c for c in caps if c["pos"] == last]
-    kv_len = last + 1
-    (b, hq, d), hk = layers[0]["q"].shape, layers[0]["cache"][0].shape[1]
-    turn = itertools.cycle(layers)
+    layers = [(c["q"], *c["cache"]) for c in caps if c["pos"] == last]
+    z = torch.zeros(1, device="cuda")
+    floor = {"sleep0_ms": median_ms(torch, lambda: torch.cuda._sleep(0), reps=240, warm=24),
+             "zero_ms": median_ms(torch, z.zero_, reps=240, warm=24)}
+    row = time_decode_calls(torch, decode_ops, decode_ref, layers, last + 1, reps=240, plain_reps=24)
+    row["launch_floor_ms"] = floor
+    say(f"  launch floor in this timing: _sleep(0) {floor['sleep0_ms']:.4f} ms, one-element zero_ "
+        f"{floor['zero_ms']:.4f} ms")
+    say_decode_row("at the served decode", row)
+    return row
 
-    def kernel():
-        c = next(turn)
-        decode_ops.flash_decode_int8(c["q"], *c["cache"], kv_len=kv_len)
 
-    def plain():
-        c = next(turn)
-        decode_ref.flash_decode_int8_ref(c["q"], *c["cache"], kv_len=kv_len)
-
-    deq = itertools.cycle([
-        (c["q"][:, :, None, :],
-         *((t[:, :, :kv_len].float() * s[:, :, :kv_len, None].float()).bfloat16()
-           for t, s in ((c["cache"][0], c["cache"][2]), (c["cache"][1], c["cache"][3]))))
-        for c in layers])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(len(layers)):
-        kernel()
-    host_ms = (time.perf_counter() - t0) / len(layers) * 1e3
-    row = {"ms": median_ms(torch, kernel, reps=240, warm=24), "host_ms": host_ms,
-           "plain_ms": median_ms(torch, plain, reps=24, warm=2),
-           "sdpa_dequantized_ms": median_ms(
-               torch, lambda: sdpa(*next(deq), enable_gqa=hq != hk), reps=240,
-               warm=24),
-           "library_ms": None}
-    io_bytes = 2 * b * hk * kv_len * d + 2 * 2 * b * hk * kv_len + 2 * b * hq * d + 4 * b * hq * d
-    flops = 4 * b * hq * kv_len * d + 2 * b * hk * kv_len * d    # q.k and p.v, dequantizing K and V
-    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-    say(f"  flash_decode_int8 B={b} Hq={hq} Hk={hk} S={layers[0]['cache'][0].shape[2]} "
-        f"kv_len={kv_len} D={d} (q {str(layers[0]['q'].dtype)[6:]}, bf16 scales): {row['ms']:.4f} ms; "
-        f"plain {row['plain_ms']:.4f} ms; library null (no single PyTorch call); SDPA over the cache "
-        f"dequantized to bf16 beforehand {row['sdpa_dequantized_ms']:.4f} ms; the wrapper's host "
-        f"time a call {row['host_ms']:.4f} ms; bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {io_bytes / 1e6:.2f} MB at 3.35 TB/s, "
-        f"{flops / 1e6:.1f} MFLOP at the f32 rate); kernel / bound {row['ms'] / row['bound_ms']:.1f}")
+def time_decode_long(torch, decode_ops, decode_ref):
+    """The kernel at decode_32k's length (``DECODE_LONG``) on three random
+    caches in the model's layout, each first held against ``decode_ref``
+    (1e-5), then timed as ``time_decode`` times the served one."""
+    caches = [decode_inputs(torch, DECODE_LONG, torch.bfloat16, seed=10 + i) for i in range(3)]
+    kv_len = DECODE_LONG[-1]
+    worst = 0.0
+    for c in caches:
+        got = decode_ops.flash_decode_int8(*c, kv_len=kv_len)
+        want = decode_ref.flash_decode_int8_ref(*c, kv_len=kv_len)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst = max(worst, float((got - want).abs().max()))
+        del got, want
+    row = time_decode_calls(torch, decode_ops, decode_ref, caches, kv_len, reps=120, plain_reps=6)
+    row["max_abs_err"] = worst
+    say(f"  decode_32k length: three caches of {row['mbytes']:.1f} MB each held against decode_ref, "
+        f"max|err| {worst:.2e} (tol 1e-5)")
+    say_decode_row("at decode_32k's length", row)
+    del caches
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1797,8 +1874,9 @@ def main() -> int:
         f"{path}: " + ", ".join(f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(code, p, n)} B"
                                 for p, n in ((16, 32), (16, 128), (64, 32), (64, 64), (64, 128)))
         for path, code in ssd_ops.PATHS.items()))
-    say("  flash_decode_int8 dynamic shared memory a block: " + ", ".join(
-        f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B"
+    say("  flash_decode_int8 a block: " + "; ".join(
+        f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B dynamic "
+        f"shared memory, clusters that fit at once by size {decode_ops.cluster_fit(0, g, d)}"
         for g, d in ((1, 64), (1, 128), (16, 256))))
     counters = (ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES, lru_ops.LAUNCHES,
                 decode_ops.LAUNCHES)
@@ -1974,8 +2052,10 @@ def main() -> int:
         f"tests/test_elastic_kvquant.py holds 0.02 at reduced size in f32; not asserted here)")
     del res
 
-    say("PHASE 22 flash_decode_int8 timings at the served decode shape")
+    say("PHASE 22 flash_decode_int8 timings at the served decode shape and decode_32k's length")
     decode_row = time_decode(torch, decode_ops, decode_ref, caps)
+    del caps
+    decode_long = time_decode_long(torch, decode_ops, decode_ref)
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -2053,7 +2133,10 @@ def main() -> int:
                          "as the reference's does",
         "max_abs_err": worst["flash_decode_int8"],
         **{k: decode_row[k] for k in timing_keys},
-        "sdpa_dequantized_ms": decode_row["sdpa_dequantized_ms"],
+        **{k: decode_row[k] for k in ("sdpa_dequantized_ms", "tb_per_s", "host_ms", "splits",
+                                      "launch_floor_ms", "shape")},
+        "decode_32k": {k: decode_long[k] for k in (*timing_keys, "sdpa_dequantized_ms", "tb_per_s",
+                                                   "host_ms", "splits", "shape", "max_abs_err")},
     })
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

@@ -13,10 +13,15 @@ The tensor's device picks the implementation:
   falls back to the plain version;
 * a CPU tensor takes the plain version in ``decode_ref.py``.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel.  No model of the reference calls this kernel: its
-decode dequantizes the int8 cache and attends through the plain attention,
-and the port's does the same.
+The kernel is one launch a call and has one path for every shape it takes
+(``G * D <= 4096``): the positions are cut into 1, 2, 4 or 8 splits
+(``split_len``, from what the card's clusters hold: ``cluster_fit``), and
+the splits of one (batch, KV head) are one thread-block cluster that
+combines them in shared memory.  ``LAUNCHES`` counts kernel
+launches, so a run can show that its path went through the kernel.  No
+model of the reference calls this kernel: its decode dequantizes the int8
+cache and attends through the plain attention, and the port's does the
+same.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import Dict, Mapping
 
 import torch
 
@@ -36,12 +42,15 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode_int8.cu",)
 LAUNCHES = {"flash_decode_int8": 0}
 
 _FLOAT = (torch.float32, torch.bfloat16)
-_TK = 64                 # positions per tile: a split is a whole number of tiles
 _MAX_D = 256
-_MAX_GROUP_COLUMNS = 4096  # (Hq / Hk) * D: the (head, column) outputs a block keeps in registers
-_BLOCKS_PER_SM = 4       # splits are chosen so that B * Hk * splits fills the card this often
+_MAX_GROUP_COLUMNS = 4096  # (Hq / Hk) * D: the (head, column) outputs a block keeps
+#: cluster sizes the kernel takes: the splits of one (batch, KV head) form a
+#: cluster, and 8 is the portable cluster size
+CLUSTER_SIZES = (1, 2, 4, 8)
+_MIN_SPLIT = 64          # positions: no split is cut shorter
+_SPLIT_GRAIN = 32        # positions: a split is a multiple of this
 _MAX_GRID_YZ = 65535
-_INT32_MAX = 2 ** 31 - 1
+_MAX_POSITIONS = 2 ** 30    # the kernel's row counters run past S in int32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _Strides = ctypes.c_longlong * 14
@@ -51,24 +60,41 @@ _Strides = ctypes.c_longlong * 14
 def library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel's library."""
     lib = load_library("flash_decode_int8", SOURCES)
-    lib.repro_flash_decode_int8.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _Strides, _P]
+    lib.repro_flash_decode_int8.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _I, _I, _Strides, _P]
     lib.repro_flash_decode_int8.restype = _I
     lib.repro_flash_decode_int8_smem_bytes.argtypes = [_I, _I]
     lib.repro_flash_decode_int8_smem_bytes.restype = _I
+    lib.repro_flash_decode_int8_max_clusters.argtypes = [_I, _I, _I]
+    lib.repro_flash_decode_int8_max_clusters.restype = _I
     return lib
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def cluster_fit(index: int, group: int, d: int) -> Dict[int, int]:
+    """{cluster size: clusters of that many blocks that fit on card ``index``
+    at once} for ``group`` query heads a KV head at head size ``d``
+    (``cudaOccupancyMaxActiveClusters``: whole GPCs hold a cluster, so the
+    count can fall below SMs / size)."""
+    lib = library()
+    with torch.cuda.device(index):
+        fit = {c: lib.repro_flash_decode_int8_max_clusters(group, d, c) for c in CLUSTER_SIZES}
+    if any(n < 0 for n in fit.values()):
+        raise RuntimeError(f"flash_decode_int8: the cluster occupancy query failed: {fit}")
+    return fit
 
 
-def split_len(batch: int, kv_heads: int, s: int, sms: int) -> int:
-    """Positions per split: a multiple of the tile, so that batch * kv_heads
-    * splits is about ``_BLOCKS_PER_SM`` blocks for each of ``sms`` SMs."""
-    want = max(1, -(-_BLOCKS_PER_SM * sms // max(batch * kv_heads, 1)))
+def split_len(batch: int, kv_heads: int, s: int, clusters: Mapping[int, int]) -> int:
+    """Positions per split.  The splits of one (batch, KV head) form a
+    cluster, and their count is the largest of ``CLUSTER_SIZES`` with which
+    all ``batch * kv_heads`` clusters fit on the card at once: ``clusters``
+    maps a cluster size to how many fit (``cluster_fit``).  So one split
+    where ``batch * kv_heads`` alone fills the card.  A split is a multiple
+    of ``_SPLIT_GRAIN`` positions and no shorter than ``_MIN_SPLIT``; split
+    ``i`` holds positions ``[i * chunk, min((i + 1) * chunk, s))``."""
+    pairs = max(batch * kv_heads, 1)
+    want = max([c for c in CLUSTER_SIZES if pairs <= clusters.get(c, 0)], default=1)
     per_split = -(-s // want)
-    return max(_TK, -(-per_split // _TK) * _TK)
+    return max(_MIN_SPLIT, -(-per_split // _SPLIT_GRAIN) * _SPLIT_GRAIN)
 
 
 def _check(q, k_q, v_q, k_scale, v_scale) -> None:
@@ -95,7 +121,7 @@ def _check(q, k_q, v_q, k_scale, v_scale) -> None:
                          f"head is beyond the kernel (D <= {_MAX_D}, G * D <= {_MAX_GROUP_COLUMNS})")
     if any(t.stride(-1) != 1 for t in (q, k_q, v_q)):
         raise ValueError("flash_decode_int8: the head dimension must be unit-stride")
-    if s > _INT32_MAX or b > _MAX_GRID_YZ or hk > _MAX_GRID_YZ:
+    if s > _MAX_POSITIONS or b > _MAX_GRID_YZ or hk > _MAX_GRID_YZ:
         raise ValueError(f"flash_decode_int8: shapes exceed the kernel's grid: {tuple(k_q.shape)}")
     if q.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError("flash_decode_int8: the kernel has no backward (neither has "
@@ -127,18 +153,17 @@ def flash_decode_int8(
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    chunk = split_len(b, hk, s, _sm_count(q.device.index or 0))
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    chunk = split_len(b, hk, s, cluster_fit(index, hq // hk, d))
     splits = -(-s // chunk)
-    part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
     strides = _Strides(*q.stride()[:2], *k_q.stride()[:3], *v_q.stride()[:3],
                        *k_scale.stride(), *v_scale.stride())
     vec = int(d % 16 == 0 and _aligned(k_q) and _aligned(v_q))
     with torch.cuda.device(q.device):
         err = library().repro_flash_decode_int8(
             q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, hq, hk, s, d, kv_len,
-            chunk, splits, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+            out.data_ptr(), b, hq, hk, s, d, kv_len, chunk, splits, 1.0 / math.sqrt(d),
+            int(q.dtype == torch.bfloat16),
             int(k_scale.dtype == torch.bfloat16), vec, strides,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -755,7 +755,11 @@ def test_gmm_bf16_matches_plain_version_at_moe_splits(card, m, k, n, sizes):
 
 # flash_decode_int8: (b, hq, hk, s, d, kv_len) — the reference's cases
 # (tests/test_kernels.py:166-168), a ragged S with GQA, MQA at D = 256, a
-# head size off the 16-byte vectors, and a one-position context
+# head size off the 16-byte vectors, and a one-position context; then three
+# heads a KV head (one of a thread's four idle), eight (two warp teams),
+# 32 at D = 128 (each team two passes over the rows), kv_len = 65 of 2,081
+# (the cluster's last seven splits wholly past kv_len) and kv_len = 1 with
+# eight splits
 DECODE_CASES = [
     (1, 4, 4, 128, 32, 100),
     (2, 8, 2, 256, 64, 200),
@@ -764,31 +768,61 @@ DECODE_CASES = [
     (1, 16, 1, 300, 256, 290),
     (2, 4, 2, 70, 48, 33),
     (1, 2, 2, 40, 128, 1),
+    (1, 6, 2, 200, 64, 150),
+    (1, 8, 1, 333, 128, 300),
+    (1, 32, 1, 100, 128, 97),
+    (1, 4, 4, 2081, 64, 65),
+    (2, 8, 2, 1000, 64, 1),
 ]
 
 
-def _decode_inputs(case, card, qdtype, seed=0):
+def _decode_inputs(case, card, qdtype, seed=0, sdtype=torch.bfloat16):
     """q (B, Hq, D) and the model's int8 cache, (B, S, Hk, D) values and
-    (B, S, Hk) bf16 scales, viewed as (B, Hk, S, D) and (B, Hk, S)."""
+    (B, S, Hk) scales (bf16 as the model keeps them, or widened to
+    ``sdtype``), viewed as (B, Hk, S, D) and (B, Hk, S)."""
     b, hq, hk, s, d, _ = case
     gen = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn((b, hq, d), generator=gen, device=card).to(qdtype)
     kq, ks = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device=card))
     vq, vs = quantize_kv(torch.randn((b, s, hk, d), generator=gen, device=card))
-    return q, kq.transpose(1, 2), vq.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+    return (q, kq.transpose(1, 2), vq.transpose(1, 2), ks.to(sdtype).transpose(1, 2),
+            vs.to(sdtype).transpose(1, 2))
 
 
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", DECODE_CASES)
-def test_flash_decode_int8_matches_plain_version(card, case, qdtype):
-    args = _decode_inputs(case, card, getattr(torch, qdtype))
+def _check_decode(args, kv_len):
+    """One launch (counted) against ``decode_ref`` within 1e-5."""
     before = decode_ops.LAUNCHES["flash_decode_int8"]
-    got = decode_ops.flash_decode_int8(*args, kv_len=case[-1])
-    want = decode_ref.flash_decode_int8_ref(*args, kv_len=case[-1])
+    got = decode_ops.flash_decode_int8(*args, kv_len=kv_len)
+    want = decode_ref.flash_decode_int8_ref(*args, kv_len=kv_len)
     torch.cuda.synchronize()
     assert decode_ops.LAUNCHES["flash_decode_int8"] == before + 1
+    assert set(decode_ops.LAUNCHES) == {"flash_decode_int8"}
     assert got.dtype == torch.float32 and got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sdtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_int8_matches_plain_version(card, case, qdtype, sdtype):
+    _check_decode(_decode_inputs(case, card, getattr(torch, qdtype), sdtype=getattr(torch, sdtype)),
+                  case[-1])
+
+
+@pytest.mark.parametrize("past", [0, 1], ids=["on-the-edge", "one-past"])
+@pytest.mark.parametrize("sdtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_flash_decode_int8_at_a_split_edge(card, qdtype, sdtype, past):
+    """qwen1.5-0.5b's served heads (Hq = Hk = 16, D = 64) at a short S, with
+    kv_len ending the last split but one on this card, and one position
+    past it."""
+    b, hq, hk, s, d = 2, 16, 16, 600, 64
+    chunk = decode_ops.split_len(b, hk, s, decode_ops.cluster_fit(card.index or 0, hq // hk, d))
+    splits = -(-s // chunk)
+    assert splits >= 2, chunk
+    kv_len = (splits - 1) * chunk + past
+    _check_decode(_decode_inputs((b, hq, hk, s, d, kv_len), card, getattr(torch, qdtype),
+                                 sdtype=getattr(torch, sdtype)), kv_len)
 
 
 def test_flash_decode_int8_takes_f32_scales_and_contiguous_layouts(card):
@@ -798,6 +832,18 @@ def test_flash_decode_int8_takes_f32_scales_and_contiguous_layouts(card):
     got = decode_ops.flash_decode_int8(*args, kv_len=150)
     torch.testing.assert_close(got, decode_ref.flash_decode_int8_ref(*args, kv_len=150),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_flash_decode_int8_reads_unaligned_views(card):
+    """K and V rows one byte off the 16-byte grain (a view starting at
+    column 1 of a wider cache): the byte-at-a-time reads, at D = 64."""
+    b, hq, hk, s, d, kv_len = 2, 8, 2, 300, 64, 257
+    q, kq, vq, ks, vs = _decode_inputs((b, hq, hk, s, d, kv_len), card, torch.bfloat16, seed=2)
+    wide = torch.zeros((2, b, hk, s, d + 1), dtype=torch.int8, device=card)
+    wide[0, ..., 1:], wide[1, ..., 1:] = kq, vq
+    args = (q, wide[0, ..., 1:], wide[1, ..., 1:], ks, vs)
+    assert args[1].data_ptr() % 16 != 0
+    _check_decode(args, kv_len)
 
 
 def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
