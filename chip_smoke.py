@@ -144,7 +144,10 @@ Phases (any failure exits non-zero before the last line is printed):
              eight and 32 query heads a KV head, kv_len = 65 of 2,081 (the
              cluster's idle splits), kv_len = 1 with eight splits, qwen's
              heads at a short S with kv_len on the last split edge and one
-             past it; f32 and bf16 q, bf16 and f32 scales, within 1e-5;
+             past it, kv_len 0 and -1 (the reference's uniform softmax over
+             all S slots: the wrapper launches a zero query over them) and
+             S + 5 (every slot live); f32 and bf16 q, bf16 and f32 scales,
+             within 1e-5;
 21. serve  — qwen1.5-0.5b with an int8 KV cache at full width, profiled as
              phase 7 is; at the first and last decode steps
              ``flash_decode_int8`` runs on every layer's served cache and is
@@ -159,10 +162,30 @@ Phases (any failure exits non-zero before the last line is printed):
              one-element ``zero_``) and the wrapper's host time a call; then
              at decode_32k's length (S = kv_len = 32,768, batch 4, qwen's
              heads) on three random caches (831 MB, past the L2), with the
-             achieved TB/s beside the bound.
+             achieved TB/s beside the bound;
+23. clients — the paper's other client models at its widths through
+             ``FederatedTrainer`` on the card: Fig 8's CNN on CIFAR-10 (32 x 32
+             x 3, hidden 64, 2 conv layers, 10 classes) with and without the
+             personalization tower, Fig 9/10's residual CNN on FEMNIST (28 x
+             28 x 1, hidden 128, 2 blocks, 62 classes), Fig 6/7's LSTM on SST-2
+             (vocab 2,048, seq 64, hidden 64, 2 layers, 2 classes); 64 clients,
+             16 participants, 10 local steps, batch 32, so COLLECT is one dense
+             (vmapped) wave; momentum or adamw.  Two rounds each with walls by
+             phase and peak memory, one warm wave profiled (launches, card
+             busy share), and 4 clients of round 2's wave card against CPU
+             within TWIN_REL_TOL (the control, the CNN's ``fc`` fed
+             NCHW-flattened features, must fail it).  Then phase 3's ragged
+             MLP world one round each under adamw (weight decay 0.01),
+             adafactor, int8 and topk compression, ``gmm``/``tgmm`` launches
+             counted; the adafactor wave against its clients trained one by
+             one (TWIN_REL_TOL); the int8 payload made on the card equal to
+             the CPU's from the same delta and noise; ``comm_bytes`` equal to
+             the wire bytes uploaded.  Last, a CNN run checkpointed every
+             round, resumed by a new trainer after round 2, equal to an
+             uninterrupted 3-round run (params bit for bit).
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3 and 18, ``tgmm`` with those of phase 3, by path too, with worst
+of phases 3, 18 and 23, ``tgmm`` with those of phases 3 and 23, by path too, with worst
 errors and times by path and olmoe's wgmma times, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
@@ -183,6 +206,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -271,6 +295,9 @@ DECODE_CASES = [           # tests/test_kernels.py:166-168, the serve decode, MQ
     ("G=32, D=128 (two passes a team)", (1, 32, 1, 100, 128, 97)),
     ("kv_len 65 of 2081 (idle splits)", (1, 4, 4, 2081, 64, 65)),
     ("kv_len 1, eight splits", (2, 8, 2, 1000, 64, 1)),
+    ("kv_len 0: uniform over all S", (2, 8, 2, 261, 64, 0)),
+    ("kv_len -1: uniform over all S", (1, 4, 1, 512, 64, -1)),
+    ("kv_len S + 5: every slot live", (SERVE_BATCH, 16, 16, 2081, 64, 2086)),
 ]
 # qwen's heads at a short S: kv_len on the last split edge on this card, and one past it
 DECODE_EDGE = (2, 16, 16, 600, 64)
@@ -485,8 +512,35 @@ def build_world(mcfg, seed=0):
     return clients, test
 
 
+def run_rounds(torch, trainer, rounds, counts=None):
+    """``rounds`` rounds through the phase machine, synchronized after each
+    phase: per round its walls by phase, its record (losses finite), the
+    COLLECT wave's cids, the globals it started from (AGGREGATE replaces
+    params, never mutates them) and, given a launch-count dict ``counts``,
+    the launches its COLLECT made."""
+    from repro_torch.fed.trainer import RoundPhase
+
+    out = []
+    for _ in range(rounds):
+        start, st, walls, collect = trainer.params, trainer.begin_round(), {}, None
+        while st.phase is not RoundPhase.DONE:
+            phase, before = st.phase, dict(counts or {})
+            t0 = time.perf_counter()
+            trainer.step_round(st)
+            torch.cuda.synchronize()
+            walls[phase.value] = walls.get(phase.value, 0.0) + time.perf_counter() - t0
+            if phase is RoundPhase.COLLECT and counts is not None:
+                collect = {k: counts[k] - before[k] for k in before}
+        for k, v in st.rec.items():
+            if "loss" in k or k.endswith("_ce"):
+                assert math.isfinite(v), (k, v)
+        out.append({"walls": walls, "rec": st.rec, "start": start, "collect_launches": collect,
+                    "cids": [cid for cid, _ in st.finishers]})
+    return out
+
+
 def run_main_path(torch, ops, mcfg):
-    from repro_torch.fed.trainer import FedConfig, FederatedTrainer, RoundPhase
+    from repro_torch.fed.trainer import FedConfig, FederatedTrainer
 
     clients, test = build_world(mcfg)
     fed = FedConfig(rounds=3, participants_per_round=32, max_parallel=32,
@@ -495,26 +549,15 @@ def run_main_path(torch, ops, mcfg):
     for counts in (ops.LAUNCHES, ops.TGMM_PATH_LAUNCHES):
         for k in counts:
             counts[k] = 0
-    phase_s, collect_launches, waves, globals_r1 = [], [], [], None
     t_run = time.perf_counter()
-    for _ in range(fed.rounds):
-        st = trainer.begin_round()
-        walls = {}
-        while st.phase is not RoundPhase.DONE:
-            phase = st.phase
-            before = dict(ops.LAUNCHES)
-            t0 = time.perf_counter()
-            trainer.step_round(st)
-            torch.cuda.synchronize()
-            walls[phase.value] = walls.get(phase.value, 0.0) + time.perf_counter() - t0
-            if phase is RoundPhase.COLLECT:
-                collect_launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
-                waves.append([cid for cid, _ in st.finishers])
-        phase_s.append(walls)
-        if trainer.round == 1:
-            globals_r1 = trainer.params   # AGGREGATE replaces params, never mutates them
-        say("  round", json.dumps(st.rec))
+    rounds = run_rounds(torch, trainer, fed.rounds, ops.LAUNCHES)
     run_s = time.perf_counter() - t_run
+    for r in rounds:
+        say("  round", json.dumps(r["rec"]))
+    phase_s = [r["walls"] for r in rounds]
+    collect_launches = [r["collect_launches"] for r in rounds]
+    waves = [r["cids"] for r in rounds]
+    globals_r1 = rounds[1]["start"]
     launches = dict(ops.LAUNCHES)
     tgmm_paths = dict(ops.TGMM_PATH_LAUNCHES)
     hist = trainer.history
@@ -526,10 +569,6 @@ def run_main_path(torch, ops, mcfg):
     assert tgmm_paths == {"ffma": launches["tgmm"], "wgmma": 0}, tgmm_paths
     assert all(c["gmm"] > 0 and c["tgmm"] > 0 for c in collect_launches), collect_launches
     assert all(launches[k] > 0 for k in launches), launches
-    for rec in hist:
-        for k, v in rec.items():
-            if "loss" in k or k.endswith("_ce"):
-                assert math.isfinite(v), (k, v)
     assert hist[-1]["test_loss"] < hist[0]["test_loss"], [r["test_loss"] for r in hist]
     return trainer, launches, tgmm_paths, phase_s, waves, globals_r1, run_s
 
@@ -768,7 +807,8 @@ def device_rows(torch, prof):
 def profile_call(torch, what, fn, share_of=()):
     """Wall time of one warm call against the card's busy time in it (and
     the share of that time in kernels whose name holds each of ``share_of``
-    after no letter: ``gmm_ffma_kernel`` is not ``tgmm_ffma_kernel``)."""
+    after no letter: ``gmm_ffma_kernel`` is not ``tgmm_ffma_kernel``).
+    Returns the wall ms, busy ms and kernel launches."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -782,7 +822,7 @@ def profile_call(torch, what, fn, share_of=()):
     if busy_ms == 0:
         say(f"  {what}: wall {wall_ms:.2f} ms; card busy time not measured "
             f"(the profiler saw no device time)")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None, "launches": None}
     share = ""
     for name in share_of:
         ms = sum(r[0] for r in rows if re.search(r"(?<![A-Za-z_])" + re.escape(name), r[2]))
@@ -791,6 +831,7 @@ def profile_call(torch, what, fn, share_of=()):
         f"({100 * busy_ms / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches{share}")
     for ms, count, key in rows[:8]:
         say(f"    {ms:8.3f} ms  x{count:<5} {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": sum(r[1] for r in rows)}
 
 
 def run_serve(torch, cfg, counters, expected):
@@ -1816,6 +1857,286 @@ def time_decode_long(torch, decode_ops, decode_ref):
     return row
 
 
+# ---------------------------------------------------------------- phase 23
+
+# the paper's other client models at its widths: (name, SmallModelConfig
+# fields, dataset, optimizer, learning rate); Fig 8's CNN on CIFAR-10 with
+# and without the personalization tower, Fig 9/10's residual CNN on FEMNIST,
+# Fig 6/7's LSTM on SST-2 (its vocabulary, 2,048).  The residual CNN trains
+# with momentum: adamw's first update is lr * sign(g), so an element whose
+# gradient is rounding noise moves by 2 lr between two correct runs, and
+# its cuDNN FFT / Winograd convolutions round coarser than the CPU's, so
+# under adamw its twin can cross TWIN_REL_TOL (tools/torch_client_twin.py)
+CLIENT_MODELS = (
+    ("cnn", dict(kind="cnn", n_classes=10, hidden=64, n_layers=2, image_size=32, channels=3),
+     "cifar10", "momentum", 0.05),
+    ("cnn + local model", dict(kind="cnn", n_classes=10, hidden=64, n_layers=2, image_size=32,
+                               channels=3, extra_local_model=True), "cifar10", "momentum", 0.05),
+    ("resnet", dict(kind="resnet", n_classes=62, hidden=128, n_layers=2, image_size=28,
+                    channels=1), "femnist", "momentum", 0.05),
+    ("lstm", dict(kind="lstm", n_classes=2, hidden=64, n_layers=2, vocab_size=2048, seq_len=64,
+                  embed_dim=64), "sst2", "adamw", 1e-3),
+)
+CLIENTS_N, CLIENTS_PARTICIPANTS, CLIENTS_BATCH, CLIENTS_STEPS = 64, 16, 32, 10
+TWIN_CLIENTS = 4          # the clients of a round's wave held card against CPU
+# phase 3's MLP world, one round under each (optimizer, weight decay, compression)
+MLP_OPTIONS = (("adamw", 0.01, "none"), ("adafactor", 0.0, "none"), ("sgd", 0.0, "int8"),
+               ("sgd", 0.0, "topk"))
+
+
+def client_world(mcfg, dataset, n_clients=CLIENTS_N, seed=0):
+    from repro_torch.core.budget import fedscale_budget_distribution
+    from repro_torch.fed.trainer import build_fl_clients
+
+    return build_fl_clients(mcfg, fedscale_budget_distribution(n_clients, seed=seed), dataset,
+                            n_samples=4096, batch_size=CLIENTS_BATCH, n_batches=CLIENTS_STEPS,
+                            seed=seed)
+
+
+def use_optimizer(trainer, opt):
+    """Swap a trainer's update rule (``FedConfig`` has no weight decay)."""
+    from repro_torch.fed.client import make_small_step
+
+    trainer.opt = trainer.batch_exec.opt = opt
+    trainer.step_fn = make_small_step(trainer.mcfg, opt, trainer.fed.prox_mu)
+
+
+def kind_wave(torch, mcfg, dataset, opt, cids, params, dev):
+    """Each client's delta leaves (f32, on the host) after one dense wave of
+    ``cids`` from ``params`` on ``dev``, on a fresh twin world."""
+    from repro_torch.fed.batch_exec import BatchedExecutor
+    from repro_torch.tree import tree_leaves, tree_map
+
+    clients, _ = client_world(mcfg, dataset)
+    by_id = {c.client_id: c for c in clients}
+    ex = BatchedExecutor(mcfg, opt, device=dev)
+    res = ex.run_wave(tree_map(lambda t: t.to(dev), params), [by_id[c] for c in cids],
+                      CLIENTS_STEPS)
+    assert ex.last_wave["mode"] == "dense", ex.last_wave
+    return [[t.float().cpu() for t in tree_leaves(d)] for d, _, _ in res]
+
+
+def nchw_flatten(torch):
+    """The control: the CNN's ``fc`` fed features flattened in NCHW order
+    (the reference flattens NHWC)."""
+    from repro_torch.models import small
+
+    real = small._apply_single
+
+    def wrong(p, cfg, x):
+        if cfg.kind != "cnn":
+            return real(p, cfg, x)
+        h = x.permute(0, 3, 1, 2)
+        for conv in p["convs"]:
+            h = torch.nn.functional.max_pool2d(torch.relu(small._conv_nchw(conv, h)), 2, 2)
+        h = torch.relu(h.reshape(h.shape[0], -1) @ p["fc"]["w"] + p["fc"]["b"])
+        return h @ p["head"]["w"] + p["head"]["b"]
+
+    return mock.patch.object(small, "_apply_single", wrong)
+
+
+def run_client_model(torch, name, fields, dataset, opt_name, lr):
+    """Two rounds of ``name`` through the trainer on the card (MeasuredRuntime),
+    one warm wave profiled, and the twin: TWIN_CLIENTS clients of round 2's
+    wave on the card against the CPU from round 2's globals (the CNN with
+    NCHW-flattened features as the control).  Returns the row PERF.md reads."""
+    from repro_torch.fed.batch_exec import BatchedExecutor
+    from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+    from repro_torch.models.small import SmallModelConfig
+
+    mcfg = SmallModelConfig(**fields)
+    clients, test = client_world(mcfg, dataset)
+    fed = FedConfig(rounds=2, participants_per_round=CLIENTS_PARTICIPANTS,
+                    max_parallel=CLIENTS_PARTICIPANTS, local_steps=CLIENTS_STEPS,
+                    client_batching="wave", optimizer=opt_name, learning_rate=lr)
+    trainer = FederatedTrainer(mcfg, clients, fed, test_batch=test)   # the card, MeasuredRuntime
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    rounds = run_rounds(torch, trainer, fed.rounds)
+    peak = torch.cuda.max_memory_allocated() - base
+    stats = trainer.batch_exec.stats
+    assert stats.dense_clients == stats.clients == fed.rounds * CLIENTS_PARTICIPANTS, stats
+    for i, r in enumerate(rounds, 1):
+        say(f"  {name} round {i}: " + json.dumps(r["rec"]))
+        say(f"  {name} round {i} phase wall s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["walls"].items()))
+    last = rounds[-1]
+    fresh, _ = client_world(mcfg, dataset)
+    by_id = {c.client_id: c for c in fresh}
+    ex = BatchedExecutor(mcfg, trainer.opt, device="cuda")
+    prof = profile_call(torch, f"{name}: one warm dense wave ({len(last['cids'])} clients x "
+                               f"{CLIENTS_STEPS} steps x batch {CLIENTS_BATCH})",
+                        lambda: ex.run_wave(last["start"], [by_id[c] for c in last["cids"]],
+                                            CLIENTS_STEPS))
+    cids = last["cids"][:TWIN_CLIENTS]
+    want = kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cpu")
+    sound = wave_gap(kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cuda"), want)
+    line = (f"  {name} twin, {len(cids)} clients x {CLIENTS_STEPS} steps, card against CPU: "
+            f"relative {sound[0]:.3e}, max abs {sound[1]:.3e}")
+    wrong = None
+    if mcfg.kind == "cnn" and not mcfg.extra_local_model:
+        with nchw_flatten(torch):
+            wrong = wave_gap(kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"],
+                                       "cuda"), want)
+        line += f"; fc fed NCHW-flattened features: relative {wrong[0]:.3e}"
+    say(line + f" (limit relative {TWIN_REL_TOL:g})")
+    assert sound[0] < TWIN_REL_TOL, sound
+    assert wrong is None or wrong[0] > TWIN_REL_TOL, wrong
+    say(f"  {name}: peak memory of the rounds {peak / 1e9:.2f} GB; test loss {rounds[0]['rec']['test_loss']:.4f}"
+        f" -> {last['rec']['test_loss']:.4f}")
+    return {"walls": [r["walls"] for r in rounds], "profile": prof, "peak_gb": peak / 1e9,
+            "twin": sound, "control": wrong}
+
+
+def uniform_noise(seed, index, shape):
+    """int8 rounding noise from numpy, the same on the card and the CPU."""
+    import numpy as np
+
+    return np.random.default_rng((seed, index)).random(shape, dtype=np.float32)
+
+
+def check_int8_on_card(torch, mcfg, opt, cids, params):
+    """The int8 payload of every client's delta from one ragged wave, made
+    on the card and on the CPU from the same delta and noise: q and scale
+    equal bit for bit.  Returns the leaves compared."""
+    import numpy as np
+
+    from repro_torch.fed.batch_exec import BatchedExecutor
+    from repro_torch.fed.compression import compress_tree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    clients, _ = build_world(mcfg)
+    by_id = {c.client_id: c for c in clients}
+    res = BatchedExecutor(mcfg, opt, device="cuda").run_wave(
+        params, [by_id[c] for c in cids], 10, round_idx=0)
+    leaves = 0
+    for cid, (delta, _, _) in zip(cids, res):
+        on_card = tree_leaves(compress_tree(delta, "int8", seed=cid, noise=uniform_noise))
+        on_cpu = tree_leaves(compress_tree(tree_map(lambda t: t.cpu(), delta), "int8", seed=cid,
+                                           noise=uniform_noise))
+        for a, b in zip(on_card, on_cpu):
+            assert np.array_equal(a.q, b.q) and a.scale == b.scale, cid
+            leaves += 1
+    return leaves
+
+
+def run_mlp_options(torch, ops, mcfg):
+    """Phase 3's MLP world, one round under each of MLP_OPTIONS, with the
+    counts zeroed before each round and read after it; the adafactor wave
+    against its clients trained one by one; int8 on the card against the
+    CPU; comm_bytes against the wire bytes of what was uploaded."""
+    from repro_torch.fed.client import make_small_step
+    from repro_torch.fed.compression import compress_tree, tree_wire_bytes
+    from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    launches, rows = {"gmm": 0, "tgmm": 0, "tgmm_by_path": dict.fromkeys(ops.TGMM_PATHS, 0)}, {}
+    for opt_name, wd, comp in MLP_OPTIONS:
+        key = f"{opt_name}{f' (weight decay {wd:g})' if wd else ''}, compression {comp}"
+        clients, test = build_world(mcfg)
+        fed = FedConfig(rounds=1, participants_per_round=32, max_parallel=32, local_steps=10,
+                        client_batching="wave", optimizer=opt_name, compression=comp)
+        trainer = FederatedTrainer(mcfg, clients, fed, test_batch=test)
+        if wd:
+            use_optimizer(trainer, make_optimizer(opt_name, fed.learning_rate, wd))
+        for counts in (ops.LAUNCHES, ops.TGMM_PATH_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        [r] = run_rounds(torch, trainer, 1)
+        got = dict(ops.LAUNCHES)
+        assert got["gmm"] > 0 and got["tgmm"] > 0, (key, got)
+        # the FL path runs f32: every weight gradient on tgmm's ffma path
+        assert ops.TGMM_PATH_LAUNCHES["ffma"] == got["tgmm"], ops.TGMM_PATH_LAUNCHES
+        assert trainer.batch_exec.stats.ragged_clients == len(r["cids"]) > 0, key
+        for k in ("gmm", "tgmm"):
+            launches[k] += got[k]
+        for k, v in ops.TGMM_PATH_LAUNCHES.items():
+            launches["tgmm_by_path"][k] += v
+        row = {"walls": r["walls"], "launches": got, "completed": r["rec"]["completed"]}
+        if comp != "none":
+            per_client = tree_wire_bytes(compress_tree(tree_map(torch.zeros_like, trainer.params),
+                                                       comp))
+            assert trainer.comm_bytes == per_client * r["rec"]["completed"], (
+                trainer.comm_bytes, per_client)
+            row["comm_bytes"] = trainer.comm_bytes
+        if opt_name == "adafactor":
+            wave = wave_deltas(torch, mcfg, trainer.opt, r["cids"], r["start"], "cuda")
+            seq_clients, _ = build_world(mcfg)
+            by_id = {c.client_id: c for c in seq_clients}
+            step = make_small_step(mcfg, trainer.opt)
+            seq = [[t.float().cpu() for t in tree_leaves(by_id[c].train_local(
+                r["start"], step, trainer.opt, n_steps=10)[0])] for c in r["cids"]]
+            row["wave_vs_seq"] = wave_gap(wave, seq)
+            say(f"  adafactor wave against its {len(seq)} clients trained one by one on the card: "
+                f"relative {row['wave_vs_seq'][0]:.3e}, max abs {row['wave_vs_seq'][1]:.3e} "
+                f"(limit relative {TWIN_REL_TOL:g})")
+            assert row["wave_vs_seq"][0] < TWIN_REL_TOL, row["wave_vs_seq"]
+        if comp == "int8":
+            row["int8_leaves_equal"] = check_int8_on_card(torch, mcfg, trainer.opt, r["cids"],
+                                                          r["start"])
+            say(f"  int8 payload made on the card equals the CPU's, bit for bit: "
+                f"{row['int8_leaves_equal']} leaves of {len(r['cids'])} clients")
+        say(f"  MLP round, {key}: launches {got}; " + json.dumps(r["rec"]))
+        say("    phase wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in r["walls"].items()))
+        rows[key] = row
+    return launches, rows
+
+
+def check_resume(torch, directory):
+    """Two CNN rounds checkpointed every round, then a new trainer over the
+    same clients restores them and runs round 3, against an uninterrupted
+    3-round run: params bit for bit after the restore and after round 3,
+    round, sim_clock, comm_bytes and history equal.  All 16 clients take part
+    in every round and none fails (the sampling RNG is not checkpointed, as
+    in the reference); FixedRuntime makes the timeline reproducible."""
+    import dataclasses
+
+    from repro_torch.core.runtime import FixedRuntime
+    from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+    from repro_torch.models.small import SmallModelConfig
+    from repro_torch.tree import tree_leaves
+
+    _, fields, dataset, opt_name, lr = CLIENT_MODELS[0]
+    mcfg = SmallModelConfig(**fields)
+    fed = FedConfig(rounds=3, participants_per_round=16, max_parallel=16,
+                    local_steps=CLIENTS_STEPS, client_batching="wave", optimizer=opt_name,
+                    learning_rate=lr, compression="int8")
+    ckpt_fed = dataclasses.replace(fed, ckpt_dir=directory, ckpt_every=1)
+
+    def trainer(clients, test, cfg):
+        return FederatedTrainer(mcfg, clients, cfg, test_batch=test, runtime=FixedRuntime(2.0, 1.0))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # one convolution algorithm in both runs
+    try:
+        full = trainer(*client_world(mcfg, dataset, n_clients=16), fed)
+        full.run_round()
+        full.run_round()
+        after_two = full.params
+        full.run_round()
+        clients, test = client_world(mcfg, dataset, n_clients=16)
+        trainer(clients, test, ckpt_fed).run(2)
+        saved = sorted(os.listdir(directory))
+        resumed = trainer(clients, test, ckpt_fed)
+        assert resumed.maybe_restore() and resumed.round == 2
+        assert same(resumed.params, after_two), "restored params differ from the run's"
+        resumed.run_round()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert (resumed.round, resumed.sim_clock, resumed.comm_bytes) == (
+        full.round, full.sim_clock, full.comm_bytes)
+    assert resumed.history == full.history
+    assert same(resumed.params, full.params), "round 3 after the restore differs"
+    say(f"  resumed at round 2 from {saved[-2:]}: round 3's params, "
+        f"round, sim_clock {resumed.sim_clock:.4f}, comm_bytes {resumed.comm_bytes} and the "
+        f"{len(resumed.history)} history records equal the uninterrupted run's (params bit for bit)")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2056,6 +2377,20 @@ def main() -> int:
     decode_row = time_decode(torch, decode_ops, decode_ref, caps)
     del caps
     decode_long = time_decode_long(torch, decode_ops, decode_ref)
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+
+    say(f"PHASE 23 clients: the paper's other client models at its widths, {CLIENTS_N} clients, "
+        f"{CLIENTS_PARTICIPANTS} participants, {CLIENTS_STEPS} local steps, batch {CLIENTS_BATCH} "
+        f"(one dense wave a round); then the MLP world under other optimizers and compression; "
+        f"then a checkpointed run resumed")
+    say(f"  card: {smi}")
+    client_rows = {name: run_client_model(torch, name, fields, dataset, opt_name, lr)
+                   for name, fields, dataset, opt_name, lr in CLIENT_MODELS}
+    option_launches, option_rows = run_mlp_options(torch, ops, mcfg)
+    with tempfile.TemporaryDirectory() as directory:
+        check_resume(torch, directory)
+    say(json.dumps({"clients": {"card": smi, "models": client_rows, "mlp options": option_rows,
+                                "mlp options launches": option_launches}}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -2072,8 +2407,13 @@ def main() -> int:
             "library_ms": r["library_ms"], "dtype": "float32", "bfloat16": r["bfloat16"],
         })
     kernels[1].update({
+        "launches": launches["tgmm"] + option_launches["tgmm"],
+        "launches_by_path": {"femnist-mlp rounds": launches["tgmm"],
+                             "femnist-mlp rounds, other options": option_launches["tgmm"]},
         "path": rows[1]["path"], "wrapper_ms": rows[1]["wrapper_ms"],
-        "launches_by_kernel_path": tgmm_paths, "max_abs_err_by_path": tgmm_errs,
+        "launches_by_kernel_path": {p: tgmm_paths[p] + option_launches["tgmm_by_path"][p]
+                                    for p in tgmm_paths},
+        "max_abs_err_by_path": tgmm_errs,
         "by_path": {r["layer"]: {"float32": r["by_path"], "bfloat16": r["bfloat16"]["by_path"]}
                     for r in rows if r["name"] == "tgmm"},
         "layers": {r["layer"]: {**{k: r[k] for k in (*timing_keys, "path", "wrapper_ms")},
@@ -2083,9 +2423,10 @@ def main() -> int:
                      for key, r in moe_tgmm_rows.items()},
     })
     kernels[0].update({
-        "launches": launches["gmm"] + olmoe_launches["gmm"],
+        "launches": launches["gmm"] + olmoe_launches["gmm"] + option_launches["gmm"],
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
-                             OLMOE_ARCH: olmoe_launches["gmm"]},
+                             OLMOE_ARCH: olmoe_launches["gmm"],
+                             "femnist-mlp rounds, other options": option_launches["gmm"]},
         "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
         OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
                      for (name, prod), r in moe_rows.items()},

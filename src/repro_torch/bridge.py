@@ -25,7 +25,8 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)  # a copy: never a view of the caller's buffer
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy (bf16 widened to f32, exactly)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -40,12 +41,12 @@ def params_from_numpy(tree: Tree, device: DeviceLike = None) -> Tree:
 
 def params_to_numpy(tree: Tree) -> Tree:
     """Tree of tensors -> the same tree of numpy arrays (bf16 widened)."""
-    return tree_map(_to_numpy, tree)
+    return tree_map(to_numpy, tree)
 
 
 def flatten(tree: Tree) -> Dict[str, np.ndarray]:
     """``{path: numpy leaf}`` with the checkpoint's path keys."""
-    return {path: (_to_numpy(leaf) if isinstance(leaf, torch.Tensor)
+    return {path: (to_numpy(leaf) if isinstance(leaf, torch.Tensor)
                    else np.asarray(leaf))
             for path, leaf in tree_flatten_with_path(tree)}
 

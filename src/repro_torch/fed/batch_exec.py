@@ -4,26 +4,35 @@ The port of ``repro.fed.batch_exec.BatchedExecutor``.  A *wave* of clients'
 local training runs as one program over a stacked parameter tree whose
 leaves carry a leading client axis:
 
-* **dense** — every client in the wave has the same batch shape: the wave's
-  rows form one block of ``C`` equal segments, and every dense layer is one
-  batched matmul (``torch.bmm``) over the client axis.
-* **ragged** — clients have *different* per-step batch sizes (MLP kind):
-  each step's examples are concatenated into one row block sorted by
-  client, and every dense layer is a grouped matmul with clients as the
-  groups (``repro_torch.kernels.grouped_matmul``: the Hopper kernels on a
-  CUDA device).  Group sizes and row→client segment ids stay on the device,
-  so one program serves every wave with the same (clients, steps, rows,
+* **dense** — every client in the wave has the same batch shape.  For the
+  MLP (without the local tower) the wave's rows form one block of ``C``
+  equal segments and every dense layer is one batched matmul
+  (``torch.bmm``) over the client axis.  Every other model (``cnn``,
+  ``resnet``, ``lstm``, the MLP with its local tower) maps the per-client
+  step of ``repro_torch.fed.client.build_step_fn`` over the client axis
+  with ``torch.func.vmap``, on per-client inputs that keep their shape
+  (``(C, B, H, W, Ch)`` images, ``(C, B, S)`` tokens), as the reference
+  vmaps its step.
+* **ragged** — clients have *different* per-step batch sizes (MLP kind
+  without the local tower, as in the reference): each step's examples are
+  concatenated into one row block sorted by client, and every dense layer
+  is a grouped matmul with clients as the groups
+  (``repro_torch.kernels.grouped_matmul``: the Hopper kernels on a CUDA
+  device).  Group sizes and row→client segment ids stay on the device, so
+  one program serves every wave with the same (clients, steps, rows,
   width) envelope regardless of how the rows split.  Zero-row clients are
   legal (their loss, metrics and delta are exactly zero).
 * **seq** — single-client waves (identical to ``FLClient.train_local`` by
   construction) and waves whose batch geometry varies run the cached
   ``make_small_step`` per client.
 
-In both batched modes the loss is the sum of the per-client losses, so the
-gradient of the stacked tree is every client's own gradient; per-client CE
-and accuracy come from segment sums (``index_add``), the clip is per client
-(reduced over every axis but the client axis), and the optimizer's
-elementwise update is the per-client update.
+In the two MLP programs the loss is the sum of the per-client losses, so
+the gradient of the stacked tree is every client's own gradient; per-client
+CE and accuracy come from segment sums (``index_add``).  In every batched
+program the clip and the optimizer run client by client through
+``torch.func.vmap`` (``opt.init``, ``opt.update``), as in the reference:
+an update rule may reduce over a whole leaf (``adafactor``'s RMS clip), so
+a rule applied to the stacked tree would mix clients.
 
 Batches are pulled from each client's ``ClientDataset`` *in client order
 before execution*, which advances the per-client shuffling RNG exactly as
@@ -46,10 +55,11 @@ import torch
 
 from repro_torch.core.aggregation import tree_sub
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.fed.client import CLIP_NORM, batch_to, host_to, make_small_step
+from repro_torch.fed.client import (
+    CLIP_NORM, batch_to, build_step_fn, host_to, make_small_step)
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.models.small import SmallModelConfig, cross_entropy_rows
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
@@ -61,7 +71,7 @@ class WaveStats:
 
     waves: int = 0            # run_wave calls
     clients: int = 0          # clients that entered any wave
-    dense_clients: int = 0    # trained through the batched-matmul path
+    dense_clients: int = 0    # trained through a dense (bmm or vmap) program
     ragged_clients: int = 0   # trained through the grouped_matmul path
     seq_clients: int = 0      # fell back to the sequential path
     compiles: int = 0         # distinct wave envelopes seen
@@ -80,13 +90,8 @@ def _dense_matmul(h: torch.Tensor, w: torch.Tensor, _gs) -> torch.Tensor:
     return torch.bmm(h.to(dtype).reshape(c, -1, k), w.to(dtype)).reshape(-1, n)
 
 
-def _clip_per_client(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """``clip_by_global_norm`` of each client's slice of the stacked grads."""
-    sq = sum(torch.sum(torch.square(g.float()), dim=tuple(range(1, g.dim())))
-             for g in grads)
-    scale = torch.clamp(max_norm / torch.clamp(torch.sqrt(sq), min=1e-9), max=1.0)
-    return [(g.float() * scale.view(-1, *([1] * (g.dim() - 1)))).to(g.dtype)
-            for g in grads]
+def _clip(grads: PyTree) -> PyTree:
+    return clip_by_global_norm(grads, CLIP_NORM)[0]
 
 
 class BatchedExecutor:
@@ -112,6 +117,8 @@ class BatchedExecutor:
         self.stats = WaveStats()
         self._envelopes: Set[tuple] = set()
         self.last_wave: Dict[str, Any] = {}
+        # the MLP without its local tower has the bmm/gmm formulation
+        self._stacked_mlp = mcfg.kind == "mlp" and not mcfg.extra_local_model
 
     # ------------------------------------------------------------------
     # public API
@@ -142,7 +149,9 @@ class BatchedExecutor:
                           "cache_hit": None}
         if mode == "dense":
             self.stats.dense_clients += len(clients)
-            return self._run_stacked(mode, global_params, pulled)
+            if self._stacked_mlp:
+                return self._run_stacked(mode, global_params, pulled)
+            return self._run_vmapped(global_params, pulled)
         if mode == "ragged":
             self.stats.ragged_clients += len(clients)
             return self._run_stacked(mode, global_params, pulled)
@@ -167,7 +176,7 @@ class BatchedExecutor:
             return "dense"
         # ragged: MLP rows flatten to one feature width; clients become
         # grouped_matmul groups
-        if self.mcfg.kind == "mlp" and not self.mcfg.extra_local_model:
+        if self._stacked_mlp:
             widths = {int(np.prod(bl[0]["x"].shape[1:])) for bl in pulled}
             dtypes = {str(np.asarray(bl[0]["x"]).dtype) for bl in pulled}
             if len(widths) == 1 and len(dtypes) == 1:
@@ -232,10 +241,12 @@ class BatchedExecutor:
             # per-client grads (client c's slice only sees client c's rows)
             return torch.sum(loss_c), {"ce": ce_c, "acc": acc_c, "loss": loss_c}
 
+        init, clip, update = (torch.func.vmap(f) for f in (opt.init, _clip, opt.update))
+
         def wave(anchor, xs, ys, gs, seg):
             denom = torch.clamp(gs, min=1).float()
             sp = tree_map(lambda g: g.expand(C, *g.shape).clone(), anchor)
-            ost = opt.init(sp)
+            ost = init(sp)
             metrics: Dict[str, torch.Tensor] = {}
             for x, y in zip(xs, ys):
                 sp = tree_map(torch.Tensor.requires_grad_, sp)
@@ -243,8 +254,8 @@ class BatchedExecutor:
                     total, metrics = loss_fn(sp, anchor, x, y, gs, seg, denom)
                     grads = torch.autograd.grad(total, tree_leaves(sp))
                 with torch.no_grad():
-                    grads = tree_unflatten(sp, _clip_per_client(grads, CLIP_NORM))
-                    sp, ost = opt.update(grads, ost, tree_map(torch.Tensor.detach, sp))
+                    grads = clip(tree_unflatten(sp, grads))
+                    sp, ost = update(grads, ost, tree_map(torch.Tensor.detach, sp))
             delta = tree_map(lambda p, g: p - g[None].to(p.dtype), sp, anchor)
             return delta, {k: v.detach() for k, v in metrics.items()}
 
@@ -274,6 +285,34 @@ class BatchedExecutor:
         seg = torch.from_numpy(np.repeat(np.arange(C), sizes)).to(dev)
         deltas, metrics = fn(global_params, host_to(xs, dev),
                              host_to(ys, dev).long(), gs, seg)
+        return self._split(deltas, metrics, pulled)
+
+    # ------------------------------------------------------------------
+    # the vmapped dense program (every model but the stacked MLP)
+    # ------------------------------------------------------------------
+
+    def _run_vmapped(self, global_params, pulled):
+        """Every client's step of ``build_step_fn`` at once through
+        ``torch.func.vmap``: params, optimizer state and batches carry the
+        client axis; the anchor (the globals) is shared."""
+        xs = np.stack([np.stack([np.asarray(b["x"]) for b in bl])
+                       for bl in pulled])                       # (C, S, B, ...)
+        ys = np.stack([np.stack([np.asarray(b["y"]) for b in bl])
+                       for bl in pulled])                       # (C, S, B)
+        C = len(pulled)
+        self._note_envelope(("dense", C, xs.shape[1:], str(xs.dtype),
+                             ys.shape[2:], str(ys.dtype)))
+        step = torch.func.vmap(build_step_fn(self.mcfg, self.opt, self.prox_mu),
+                               in_dims=(0, 0, 0, None))
+        dev = self.device
+        xs, ys = host_to(xs, dev), host_to(ys, dev)
+        sp = tree_map(lambda g: g.expand(C, *g.shape), global_params)
+        ost = torch.func.vmap(self.opt.init)(sp)
+        metrics: Dict[str, torch.Tensor] = {}
+        for s in range(xs.shape[1]):
+            sp, ost, metrics = step(sp, ost, {"x": xs[:, s], "y": ys[:, s]},
+                                    global_params)
+        deltas = tree_map(lambda p, g: p - g[None].to(p.dtype), sp, global_params)
         return self._split(deltas, metrics, pulled)
 
     # ------------------------------------------------------------------

@@ -19,7 +19,7 @@ from repro_torch.core.budget import WorkloadSpec
 from repro_torch.data.pipeline import ClientDataset
 from repro_torch.models.small import SmallModelConfig, small_loss
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves
 
 PyTree = Any
 
@@ -47,27 +47,30 @@ def build_step_fn(
     (params, opt_state, metrics), with ``batch`` a dict of tensors on the
     params' device.  Value and grad of the loss (+ FedProx term), the
     gradient clipped to global norm ``CLIP_NORM``, then the optimizer
-    update.  Returns fresh tensors and leaves its inputs untouched."""
+    update.  Returns fresh tensors and leaves its inputs untouched.
+
+    The gradient is ``torch.func.grad_and_value``'s, so the step composes
+    with ``torch.func.vmap``: ``repro_torch.fed.batch_exec`` maps this same
+    step over a wave's client axis, as the reference vmaps its step."""
+
+    def loss_fn(params, batch, anchor):
+        loss, metrics = small_loss(params, mcfg, batch)
+        if prox_mu > 0.0:
+            sq = sum(
+                torch.sum(torch.square(p.float() - a.float()))
+                for p, a in zip(tree_leaves(params), tree_leaves(anchor))
+            )
+            loss = loss + 0.5 * prox_mu * sq
+        return loss, metrics
+
+    grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
 
     def step(params, opt_state, batch, anchor):
-        params = tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss, metrics = small_loss(params, mcfg, batch)
-            if prox_mu > 0.0:
-                sq = sum(
-                    torch.sum(torch.square(p.float() - a.float()))
-                    for p, a in zip(tree_leaves(params), tree_leaves(anchor))
-                )
-                loss = loss + 0.5 * prox_mu * sq
-            leaves = tree_leaves(params)
-            grads = torch.autograd.grad(loss, leaves)
-        grads = tree_unflatten(params, grads)
+        grads, (loss, metrics) = grad_fn(params, batch, anchor)
         with torch.no_grad():
             grads, _ = clip_by_global_norm(grads, CLIP_NORM)
-            params, opt_state = opt.update(grads, opt_state,
-                                           tree_map(torch.Tensor.detach, params))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, dict(metrics, loss=loss.detach())
+            params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, dict(metrics, loss=loss)
 
     return step
 

@@ -15,17 +15,19 @@ state machine (:class:`RoundPhase`):
                 or with ``client_batching="wave"`` every finisher in one
                 :class:`~repro_torch.fed.batch_exec.BatchedExecutor` wave;
   ``AGGREGATE`` sync weighted FedAvg, or FedBuff-style async ordered by
-                simulated completion times;
-  ``REPORT``    evaluate and record history.
+                simulated completion times, with optional uplink
+                compression (int8 / topk);
+  ``REPORT``    evaluate, record history, checkpoint (atomic, keep-k,
+                resumable: ``maybe_restore``).
 
 ``run_round()`` loops :meth:`FederatedTrainer.step_round` until the round
 is ``DONE``.  The simulated clock is the x-axis of the convergence figures
 (Fig 8/9d); failure injection + deadline + over-selection exercise the
 fault-tolerance path (clients that die are simply absent from aggregation).
 
-Still to port: uplink compression, remote dispatch, checkpoints, the
-observability plane and fabric-driven rounds (``submit_round`` and the
-eager-collect steps).  Asking for any of them raises.
+Still to port: remote dispatch, the observability plane and fabric-driven
+rounds (``submit_round`` and the eager-collect steps).  Asking for any of
+them raises.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import params_from_numpy
+from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.core.aggregation import AsyncAggregator, apply_deltas, tree_nbytes
 from repro_torch.core.budget import ClientBudget, WorkloadSpec
 from repro_torch.core.campaign import CampaignEngine
@@ -49,6 +53,7 @@ from repro_torch.data.synthetic import make_dataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.batch_exec import BatchedExecutor
 from repro_torch.fed.client import FLClient, batch_to, make_small_step
+from repro_torch.fed.compression import Noise, compress_tree, decompress_tree, tree_wire_bytes
 from repro_torch.models.small import SmallModelConfig, init_small, small_loss
 from repro_torch.obs.metrics import Counter
 from repro_torch.optim.optimizers import make_optimizer
@@ -71,13 +76,14 @@ class FedConfig:
     prox_mu: float = 0.0
     optimizer: str = "sgd"
     learning_rate: float = 0.05
-    compression: str = "none"           # only "none" is ported
+    compression: str = "none"           # none | int8 | topk
     client_batching: str = "off"        # off | wave (batched COLLECT)
     over_select_frac: float = 0.0       # fault tolerance: sample extra clients
     deadline_frac: Optional[float] = None  # deadline = frac × slowest expected
     failure_rate: float = 0.0           # P(client dies mid-round)
     seed: int = 0
-    ckpt_dir: Optional[str] = None      # checkpoints are not ported yet
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 5
 
 
 class RoundPhase(Enum):
@@ -89,7 +95,7 @@ class RoundPhase(Enum):
     DISPATCH = "dispatch"      # wall clock: finisher pick
     COLLECT = "collect"        # wall clock: real local training
     AGGREGATE = "aggregate"    # wall clock: FedAvg / async apply
-    REPORT = "report"          # wall clock: eval, history
+    REPORT = "report"          # wall clock: eval, history, checkpoint
     DONE = "done"
 
 
@@ -114,7 +120,7 @@ class RoundState:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: fed/trainer.py, what slice 1 left out)")
+        f"{what} is not ported yet (ROADMAP.md, queue 1: the rest of the trainer)")
 
 
 class FederatedTrainer:
@@ -127,17 +133,16 @@ class FederatedTrainer:
         runtime=None,
         *,
         device: DeviceLike = None,
+        noise: Optional[Noise] = None,
         dispatcher=None,
         obs=None,
     ):
         """``runtime`` (optional) overrides the framework-provided runtime
         backend (default: ``MeasuredRuntime`` on ``device``; inject
         ``FixedRuntime`` to make the simulated timeline reproducible across
-        hosts).  ``device`` defaults to the CUDA card."""
-        if fed.compression != "none":
-            raise _not_ported(f"compression={fed.compression!r}")
-        if fed.ckpt_dir is not None:
-            raise _not_ported("checkpointing (ckpt_dir)")
+        hosts).  ``device`` defaults to the CUDA card.  ``noise`` is int8
+        compression's rounding noise (``repro_torch.fed.compression``;
+        default: a ``torch.Generator`` on the device)."""
         if dispatcher is not None:
             raise _not_ported("remote dispatch")
         if obs is not None:
@@ -152,6 +157,7 @@ class FederatedTrainer:
                            if test_batch is not None else None)
         self.rng = np.random.default_rng(fed.seed)
         self.runtime = runtime if runtime is not None else MeasuredRuntime(self.device)
+        self.noise = noise
         self.opt = make_optimizer(fed.optimizer, fed.learning_rate)
         self.step_fn = make_small_step(mcfg, self.opt, fed.prox_mu)
         self.params = init_small(fed.seed, mcfg, device=self.device)
@@ -180,10 +186,17 @@ class FederatedTrainer:
             BatchedExecutor(mcfg, self.opt, fed.prox_mu, device=self.device)
             if fed.client_batching == "wave" else None
         )
+        self.ckpt = (
+            CheckpointManager(fed.ckpt_dir, keep=3) if fed.ckpt_dir else None
+        )
 
     @property
     def comm_bytes(self) -> int:
         return int(self._comm.value)
+
+    @comm_bytes.setter
+    def comm_bytes(self, v: int) -> None:
+        self._comm.reset(int(v))
 
     # ------------------------------------------------------------------
     def _client_work_seconds(self, client: FLClient, opt_state) -> float:
@@ -262,10 +275,18 @@ class FederatedTrainer:
         )[:self.fed.participants_per_round]
         st.phase = RoundPhase.COLLECT
 
-    def _ingest_delta(self, st: RoundState, delta, n_seen, m) -> None:
-        """Comm accounting + delta bookkeeping for one collected client —
-        shared by the per-client and batched-wave paths."""
-        self._comm.inc(tree_nbytes(delta))
+    def _ingest_delta(self, st: RoundState, cid: int, delta, n_seen, m) -> None:
+        """Compression + comm accounting + delta bookkeeping for one
+        collected client — shared by the per-client and batched-wave paths,
+        with the reference's per-client compression seeds."""
+        fed = self.fed
+        if fed.compression != "none":
+            wire = compress_tree(delta, fed.compression,
+                                 seed=self.round * 1000 + cid, noise=self.noise)
+            self._comm.inc(tree_wire_bytes(wire))
+            delta = params_from_numpy(decompress_tree(wire), self.device)
+        else:
+            self._comm.inc(tree_nbytes(delta))
         st.deltas.append((delta, float(n_seen)))
         st.train_metrics = m
         st.collect_idx += 1
@@ -278,8 +299,8 @@ class FederatedTrainer:
             self.params, [st.by_id[c] for c in cids],
             self.fed.local_steps, self.round,
         )
-        for delta, n_seen, m in results:
-            self._ingest_delta(st, delta, n_seen, m)
+        for cid, (delta, n_seen, m) in zip(cids, results):
+            self._ingest_delta(st, cid, delta, n_seen, m)
 
     def _step_collect(self, st: RoundState) -> None:
         if st.collect_idx < len(st.finishers):
@@ -288,8 +309,8 @@ class FederatedTrainer:
                 self._collect_wave(
                     st, [cid for cid, _ in st.finishers[st.collect_idx:]])
             else:
-                client = st.by_id[st.finishers[st.collect_idx][0]]
-                self._ingest_delta(st, *client.train_local(
+                cid = st.finishers[st.collect_idx][0]
+                self._ingest_delta(st, cid, *st.by_id[cid].train_local(
                     self.params, self.step_fn, self.opt,
                     n_steps=self.fed.local_steps))
         if st.collect_idx >= len(st.finishers):
@@ -329,8 +350,21 @@ class FederatedTrainer:
             rec["test_loss"] = float(loss)
             rec["test_acc"] = float(m["acc"])
         self.history.append(rec)
+        if self.ckpt and self.round % self.fed.ckpt_every == 0:
+            meta = {
+                "sim_clock": self.sim_clock,
+                "comm_bytes": self.comm_bytes,
+                "history": list(self.history),
+            }
+            self.ckpt.save(self.round, self.params, meta)
         st.rec = rec
         st.phase = RoundPhase.DONE
+
+    def _fabric_not_ported(self, *args, **kwargs):
+        raise _not_ported("fabric-driven rounds")
+
+    submit_round = complete_simulate = _fabric_not_ported
+    collect_eager = collect_wave_eager = _fabric_not_ported
 
     _PHASE_STEPS: Dict[RoundPhase, Callable] = {
         RoundPhase.SAMPLE: _step_sample,
@@ -349,7 +383,29 @@ class FederatedTrainer:
             self.step_round(st)
         return st.rec
 
+    def maybe_restore(self) -> bool:
+        """Resume from the latest checkpoint if one exists: params, round,
+        and the simulated clock, history and comm counter, so the
+        convergence x-axis (Fig 8/9d) continues instead of restarting at
+        t=0.  As in the reference, the sampling RNG, the clients' data
+        streams and the engine's pool are not in the checkpoint.  Returns
+        True when a checkpoint was restored."""
+        if not self.ckpt:
+            return False
+        step, params, meta = self.ckpt.restore_latest_with_meta(self.params)
+        if step is None:
+            return False
+        self.params = params
+        self.round = step
+        self.sim_clock = float(meta.get("sim_clock", 0.0))
+        self.comm_bytes = int(meta.get("comm_bytes", 0))
+        self.history = list(meta.get("history", []))
+        # continue the campaign clock
+        self.engine.now = max(self.engine.now, self.sim_clock)
+        return True
+
     def run(self, rounds: Optional[int] = None) -> List[dict]:
+        self.maybe_restore()
         n = self.fed.rounds if rounds is None else rounds
         for _ in range(n):
             self.run_round()

@@ -141,14 +141,24 @@ def flash_decode_int8(
     *,
     kv_len: int,
 ) -> torch.Tensor:
-    """o (B, Hq, D) in f32: q attends to the first ``kv_len`` positions."""
+    """o (B, Hq, D) in f32: q attends to the first ``kv_len`` positions.
+
+    ``kv_len`` outside ``[1, S]`` gives the reference's values: past S every
+    slot is live (``kv_len = S``); at ``kv_len <= 0`` every score is masked
+    alike, so the softmax is uniform and o is the mean of the dequantized V
+    over all S slots.  On a CUDA tensor the kernel computes that mean too:
+    the wrapper launches it over all S slots with a zero query, whose
+    scores are all equal, so its weights are the same uniform weights."""
     s = k_q.shape[2]
-    if not 1 <= int(kv_len) <= s:
-        raise ValueError(f"flash_decode_int8: kv_len {kv_len} outside [1, {s}]")
+    if s < 1:
+        raise ValueError("flash_decode_int8: the cache holds no position")
     kv_len = int(kv_len)
     if q.device.type == "cpu":
         return decode_ref.flash_decode_int8_ref(q, k_q, v_q, k_scale, v_scale, kv_len=kv_len)
     _check(q, k_q, v_q, k_scale, v_scale)
+    if kv_len <= 0:
+        q = torch.zeros_like(q)
+    kv_len = s if kv_len <= 0 else min(kv_len, s)
     (b, hq, d), hk = q.shape, k_q.shape[1]
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:

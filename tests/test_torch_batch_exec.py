@@ -6,7 +6,10 @@ same shards and shuffle seeds built once per package) and bridged params.
   tests/test_batch_exec.py:128);
 * dense and seq waves and ``train_local`` against the reference's;
 * the port's own invariants: zero-row clients, the envelope cache, the
-  seq wave identical to ``train_local``.
+  seq wave identical to ``train_local``;
+* dense waves of the cnn, resnet, lstm and the MLP with its local tower
+  (``torch.func.vmap`` of the step), ragged MLP waves under adamw and
+  adafactor, and an adafactor wave against its clients trained one by one.
 """
 import jax
 import numpy as np
@@ -22,7 +25,7 @@ from repro_torch.fed.batch_exec import BatchedExecutor
 from repro_torch.fed.client import make_small_step
 from repro_torch.optim.optimizers import make_optimizer
 
-from _torch_worlds import MCFG, REF_MCFG, max_tree_diff, twin_clients
+from _torch_worlds import MCFG, REF_MCFG, kind_cfgs, max_tree_diff, twin_clients
 
 LR = 0.1
 OPT, REF_OPT = make_optimizer("sgd", LR), ref_make_optimizer("sgd", LR)
@@ -142,3 +145,64 @@ def test_empty_wave_returns_empty():
     _, params = _params(0)
     assert ex.run_wave(params, [], 3) == []
     assert ex.stats.waves == 0
+
+
+# ------------------------------ the other client models and optimizers -------
+
+
+def _kind_wave_pair(kind, kw, batch_sizes, seed, steps, opt_name, lr=0.05, wd=0.0,
+                    **ref_kw):
+    ref_mcfg, mcfg = kind_cfgs(kind, **kw)
+    ref_cl, port_cl = twin_clients(batch_sizes, seed=seed, mcfg=mcfg)
+    ref_p = jax.device_get(ref_init_small(jax.random.PRNGKey(seed), ref_mcfg))
+    ref_ex = RefBatchedExecutor(ref_mcfg, ref_make_optimizer(opt_name, lr, wd), **ref_kw)
+    port_ex = BatchedExecutor(mcfg, make_optimizer(opt_name, lr, wd), device="cpu")
+    ref_res = ref_ex.run_wave(ref_p, ref_cl, steps, round_idx=1)
+    port_res = port_ex.run_wave(params_from_numpy(ref_p, "cpu"), port_cl, steps, round_idx=1)
+    return ref_ex, port_ex, ref_res, port_res
+
+
+DENSE_KINDS = [("cnn", {}, "sgd"), ("resnet", {}, "momentum"), ("lstm", {}, "sgd"),
+               ("lstm", {}, "adafactor"), ("mlp", {"extra_local_model": True}, "momentum"),
+               ("cnn", {"extra_local_model": True}, "sgd")]
+
+
+@pytest.mark.parametrize("kind,kw,opt_name", DENSE_KINDS,
+                         ids=[f"{k}{'+local' if kw else ''}-{o}" for k, kw, o in DENSE_KINDS])
+def test_dense_wave_of_each_client_model_matches_reference(kind, kw, opt_name):
+    """The vmapped dense program (``build_step_fn`` mapped over the client
+    axis) against the reference's vmapped wave."""
+    ref_ex, port_ex, ref_res, port_res = _kind_wave_pair(kind, kw, [4] * 3, seed=6, steps=3,
+                                                         opt_name=opt_name)
+    assert ref_ex.last_wave["mode"] == port_ex.last_wave["mode"] == "dense"
+    assert port_ex.stats.dense_clients == 3
+    _compare(ref_res, port_res, 1e-5)
+
+
+@pytest.mark.parametrize("opt_name,wd", [("adamw", 0.01), ("adafactor", 0.0)])
+def test_ragged_wave_with_other_optimizers_matches_reference(opt_name, wd):
+    ref_ex, port_ex, ref_res, port_res = _kind_wave_pair(
+        "mlp", {}, [2, 4, 6, 8], seed=7, steps=3, opt_name=opt_name, wd=wd, gmm_impl="pallas")
+    assert ref_ex.last_wave["mode"] == port_ex.last_wave["mode"] == "ragged"
+    _compare(ref_res, port_res, 1e-5)
+
+
+@pytest.mark.parametrize("batch_sizes", [[4, 4, 4], [2, 4, 6]], ids=["dense", "ragged"])
+def test_adafactor_wave_updates_each_client_alone(batch_sizes):
+    """An adafactor wave against the same clients trained one by one.  The
+    clients' inputs differ in scale by 400x, so their update RMS differ and
+    an RMS clip shared over the client axis (the rule applied to the stacked
+    tree) would move every client's delta."""
+    scales = [0.05, 1.0, 20.0]
+    opt = make_optimizer("adafactor", 0.5)
+    _, port_cl = twin_clients(batch_sizes, seed=12, scales=scales)
+    _, params = _params(12)
+    ex = BatchedExecutor(MCFG, opt, device="cpu")
+    res = ex.run_wave(params, port_cl, 3)
+    assert ex.last_wave["mode"] == ("dense" if len(set(batch_sizes)) == 1 else "ragged")
+    _, seq_cl = twin_clients(batch_sizes, seed=12, scales=scales)
+    step = make_small_step(MCFG, opt)
+    for i, c in enumerate(seq_cl):
+        d, n, m = c.train_local(params, step, opt, n_steps=3)
+        assert n == res[i][1]
+        assert max_tree_diff(flatten(d), flatten(res[i][0])) < 1e-5

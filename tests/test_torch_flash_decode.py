@@ -97,12 +97,30 @@ def test_wrapper_reads_the_model_cache_in_place(b, hq, hk, s, d, kv_len):
     assert float(np.abs(got.numpy() - np.asarray(want_fp[:, 0])).max()) < 0.05
 
 
-@pytest.mark.parametrize("kv_len", [0, -1, 38])
+@pytest.mark.parametrize("kv_len", [0, -1, 38, 42])
 def test_wrapper_refuses_kv_len_outside_the_cache(kv_len):
-    q, kq, vq, ks, vs = (_torch(a) for a in _quantized(1, 2, 1, 37, 16, seed=0))
-    with pytest.raises(ValueError, match="kv_len"):
-        decode_ops.flash_decode_int8(q, kq.transpose(1, 2), vq.transpose(1, 2),
-                                     ks.transpose(1, 2), vs.transpose(1, 2), kv_len=kv_len)
+    """``kv_len`` outside ``[1, S]`` is no longer refused: the wrapper gives
+    the interpreted Pallas kernel's values.  At ``kv_len <= 0`` every score
+    is masked alike (a uniform softmax: the mean of the dequantized V over
+    all S slots); past S every slot is live.  A cache with no position is
+    still refused."""
+    b, hq, hk, s, d = 1, 2, 1, 37, 16
+    q, kq, vq, ks, vs = _quantized(b, hq, hk, s, d, seed=0)
+    want = ref_decode(jnp.asarray(q), *(jnp.asarray(a).transpose(0, 2, 1, 3) for a in (kq, vq)),
+                      *(jnp.asarray(a).transpose(0, 2, 1) for a in (ks, vs)),
+                      kv_len=kv_len, interpret=True)
+    got = decode_ops.flash_decode_int8(_torch(q), *(_torch(a).transpose(1, 2) for a in (kq, vq)),
+                                       *(_torch(a).transpose(1, 2) for a in (ks, vs)),
+                                       kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if kv_len <= 0:
+        v = _torch(vq).float() * _torch(vs).float()[..., None]       # (B, S, Hk, D)
+        np.testing.assert_allclose(got.numpy(), v.mean(1).repeat_interleave(hq // hk, 1).numpy(),
+                                   **TOL)
+    empty = torch.empty((b, hk, 0, d), dtype=torch.int8)
+    with pytest.raises(ValueError, match="no position"):
+        decode_ops.flash_decode_int8(_torch(q), empty, empty, torch.empty((b, hk, 0)),
+                                     torch.empty((b, hk, 0)), kv_len=kv_len)
 
 
 # clusters of 1, 2, 4 and 8 of the kernel's 512-thread blocks that fit on an

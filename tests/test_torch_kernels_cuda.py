@@ -759,7 +759,8 @@ def test_gmm_bf16_matches_plain_version_at_moe_splits(card, m, k, n, sizes):
 # heads a KV head (one of a thread's four idle), eight (two warp teams),
 # 32 at D = 128 (each team two passes over the rows), kv_len = 65 of 2,081
 # (the cluster's last seven splits wholly past kv_len) and kv_len = 1 with
-# eight splits
+# eight splits; kv_len 0 and -1 (a uniform softmax over all S slots, run as
+# a zero query over all of them) and S + 5 (every slot live)
 DECODE_CASES = [
     (1, 4, 4, 128, 32, 100),
     (2, 8, 2, 256, 64, 200),
@@ -773,6 +774,9 @@ DECODE_CASES = [
     (1, 32, 1, 100, 128, 97),
     (1, 4, 4, 2081, 64, 65),
     (2, 8, 2, 1000, 64, 1),
+    (2, 8, 2, 261, 64, 0),
+    (1, 4, 1, 512, 64, -1),
+    (2, 8, 2, 261, 64, 266),
 ]
 
 
@@ -848,8 +852,12 @@ def test_flash_decode_int8_reads_unaligned_views(card):
 
 def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
     q, kq, vq, ks, vs = _decode_inputs((1, 4, 2, 64, 32, 64), card, torch.float32)
+    # past the cache every slot is live, as in the reference: no refusal
+    assert torch.equal(decode_ops.flash_decode_int8(q, kq, vq, ks, vs, kv_len=65),
+                       decode_ops.flash_decode_int8(q, kq, vq, ks, vs, kv_len=64))
     with pytest.raises(ValueError):
-        decode_ops.flash_decode_int8(q, kq, vq, ks, vs, kv_len=65)             # past the cache
+        decode_ops.flash_decode_int8(q, kq[:, :, :0], vq[:, :, :0], ks[:, :, :0], vs[:, :, :0],
+                                     kv_len=8)                                 # no position
     with pytest.raises(TypeError):
         decode_ops.flash_decode_int8(q.half(), kq, vq, ks, vs, kv_len=8)
     with pytest.raises(TypeError):

@@ -4,51 +4,26 @@ reference trainer's own initial params.  Engine-derived history fields must
 be EQUAL (the engine is a pure-Python copy fed identical works); losses and
 params agree within 1e-5.  The reference runs with its control-plane mirror
 on (its default), the port without one: the mirror replays transitions and
-does not feed the timeline."""
+does not feed the timeline.  Also: the engine copy's timelines, and what
+the trainer still refuses (a dispatcher, an obs plane, fabric-driven
+rounds).  Compression, checkpoints and the other client models are in
+tests/test_torch_trainer_options.py."""
 import jax
 import numpy as np
 import pytest
 
 from repro.ckpt.checkpoint import _flatten as ref_flatten
 from repro.core.campaign import CampaignEngine as RefCampaignEngine
-from repro.core.runtime import FixedRuntime as RefFixedRuntime
 from repro.core.scheduler import SCHEDULERS as REF_SCHEDULERS
 from repro.core.simulator import SimClient as RefSimClient
-from repro.fed.trainer import FedConfig as RefFedConfig
-from repro.fed.trainer import FederatedTrainer as RefFederatedTrainer
-from repro_torch.bridge import flatten, params_from_numpy
+from repro_torch.bridge import flatten
 from repro_torch.core.campaign import CampaignEngine
-from repro_torch.core.runtime import FixedRuntime
 from repro_torch.core.scheduler import SCHEDULERS
 from repro_torch.core.simulator import SimClient
 from repro_torch.fed.trainer import FedConfig, FederatedTrainer
 
-from _torch_worlds import MCFG, REF_MCFG, max_tree_diff, twin_clients
-
-BATCH_SIZES = [2, 4, 6, 8, 3, 5]
-BUDGETS = [10.0, 25.0, 40.0, 55.0, 70.0, 30.0]
-EQUAL_FIELDS = ("round", "duration", "sim_clock", "completed", "mode", "failed",
-                "avg_parallelism", "utilization", "comm_bytes", "test_acc")
-
-
-def _test_batch(seed=99, n=64):
-    rng = np.random.default_rng(seed)
-    return {"x": rng.normal(size=(n, 8, 8, 1)).astype(np.float32),
-            "y": rng.integers(0, 10, size=n).astype(np.int32)}
-
-
-def _twin_trainers(**fed_kw):
-    ref_cl, port_cl = twin_clients(BATCH_SIZES, seed=4, budgets=BUDGETS)
-    kw = dict(rounds=3, participants_per_round=4, local_steps=2,
-              learning_rate=0.2, client_batching="wave")
-    kw.update(fed_kw)
-    ref = RefFederatedTrainer(REF_MCFG, ref_cl, RefFedConfig(**kw),
-                              test_batch=_test_batch(),
-                              runtime=RefFixedRuntime(2.0, 1.0))
-    port = FederatedTrainer(MCFG, port_cl, FedConfig(**kw), test_batch=_test_batch(),
-                            runtime=FixedRuntime(2.0, 1.0), device="cpu")
-    port.params = params_from_numpy(jax.device_get(ref.params), "cpu")
-    return ref, port
+from _torch_worlds import (
+    MCFG, assert_histories_match, max_tree_diff, twin_clients, twin_trainers)
 
 
 @pytest.mark.parametrize("fed_kw", [
@@ -60,16 +35,10 @@ def _twin_trainers(**fed_kw):
      "deadline_frac": 0.9},
 ], ids=["fedavg", "per_client", "async", "faults"])
 def test_three_rounds_match_reference(fed_kw):
-    ref, port = _twin_trainers(**fed_kw)
+    ref, port = twin_trainers(**fed_kw)
     ref_hist, port_hist = ref.run(), port.run()
-    assert len(ref_hist) == len(port_hist) == 3
-    for r, p in zip(ref_hist, port_hist):
-        assert r.keys() == p.keys()
-        for k in EQUAL_FIELDS:
-            assert p[k] == r[k], (k, p[k], r[k])
-        for k in r:
-            if k.startswith("train_") or k == "test_loss":
-                assert p[k] == pytest.approx(r[k], abs=1e-5), k
+    assert len(port_hist) == 3
+    assert_histories_match(ref_hist, port_hist)
     if port.batch_exec is not None:
         assert port.batch_exec.stats.ragged_clients > 0
     assert port.comm_bytes == ref.comm_bytes
@@ -143,10 +112,13 @@ def test_engine_copy_reproduces_reference_timelines(scenario):
     assert out[1][2] > 0
 
 
-@pytest.mark.parametrize("fed_kw", [{"compression": "int8"}, {"ckpt_dir": "ckpt"}])
-def test_unported_trainer_options_raise(fed_kw):
+@pytest.mark.parametrize("what", ["dispatcher", "obs", "submit_round", "collect_eager"])
+def test_unported_trainer_options_raise(what):
     _, port_cl = twin_clients([2], seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedTrainer(MCFG, port_cl, FedConfig(**fed_kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu", obs=object())
+    if what in ("dispatcher", "obs"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu", **{what: object()})
+    else:
+        trainer = FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(trainer, what)(trainer.begin_round())
