@@ -183,9 +183,35 @@ Phases (any failure exits non-zero before the last line is printed):
              the wire bytes uploaded.  Last, a CNN run checkpointed every
              round, resumed by a new trainer after round 2, equal to an
              uninterrupted 3-round run (params bit for bit).
+24. fabric — two FL tenants share one pool: ``PoolFabric`` (16 slots,
+             capacity 100, lease TTL 2 s, a traced ``ObsPlane``) drives two
+             trainers of phase 3's world (A weight 3, B weight 1; 3 rounds,
+             32 participants, 10 local steps) through ``run_trainers``.  A
+             batches (``FixedRuntime(2.0, 0.0)``: every client the same work,
+             so clients of one budget admitted together finish together and
+             each eager wave is ragged, a single client, or of one batch
+             size), so its eager waves run the grouped-matmul kernels; B trains
+             client by client under ``AnalyticalRuntime``.  Gates: each
+             tenant's history on the simulated clock equal to a CPU run of
+             the same world, params card against CPU within TWIN_REL_TOL,
+             ``exec.spawns``/``fed.comm_bytes``/``client.batch_waves`` equal
+             to the CPU's; the Perfetto export on both clocks parses, each
+             tenant's track holds its ``client.exec`` spans, A's its
+             ``client.batch_wave`` and B's its ``client.train`` wall spans;
+             the ``gmm``/``tgmm`` launches equal what A's ragged waves imply
+             (``tgmm`` all on ffma); A alone on a 32-slot pool against
+             ``run_round``: simulated fields equal, losses and params within
+             the reference's f32 allclose (2e-5).  Then the world as first
+             specified, A on ``FixedRuntime(2.0, 1.0)`` (the work differs by
+             batch size, so eager waves are mostly single clients): the same
+             CPU-twin gates and launches equal to what its ragged waves
+             imply.  Printed only: waves per round and their sizes, COLLECT
+             wall (both worlds), the run's wall traced and untraced and
+             against the tenants one after the other, and the analytical
+             against the measured seconds of one client step.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3, 18 and 23, ``tgmm`` with those of phases 3 and 23, by path too, with worst
+of phases 3, 18, 23 and 24, ``tgmm`` with those of phases 3, 23 and 24, by path too, with worst
 errors and times by path and olmoe's wgmma times, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
@@ -2137,6 +2163,353 @@ def check_resume(torch, directory):
         f"{len(resumed.history)} history records equal the uninterrupted run's (params bit for bit)")
 
 
+# ---------------------------------------------------------------- phase 24
+
+FABRIC_SLOTS = 16
+FABRIC_TTL = 2.0
+FABRIC_ROUNDS = 3
+FABRIC_STEPS = 10
+#: (tenant, weight, client_batching, world seed): A collects its eager waves
+#: through the grouped-matmul kernels, B trains its clients one at a time
+#: under the analytical runtime
+FABRIC_TENANTS = (("A", 3.0, "wave", 0), ("B", 1.0, "off", 1))
+FABRIC_ENGINE_KW = dict(record_campaign_timeline=False, record_events=False)
+#: the history's fields on the simulated clock
+SIM_FIELDS = ("round", "duration", "sim_clock", "completed", "mode", "failed",
+              "avg_parallelism", "utilization", "comm_bytes")
+FABRIC_COUNTERS = ("exec.spawns", "fed.comm_bytes", "client.batch_waves")
+#: the reference's f32 tolerance (allclose: rtol and atol), for the single
+#: tenant's parameters and losses against run_round's
+SINGLE_TENANT_TOL = 2e-5
+#: tenant A's FixedRuntime spread: 0 in the gated world (every client the
+#: same work), 1 in the world as first specified (the work differs by batch
+#: size)
+FABRIC_SPREADS = (0.0, 1.0)
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fabric_trainer(mcfg, tid, batching, seed, device, engine=None, obs=None, spread=0.0):
+    """Phase 3's FEMNIST-MLP world (world seed ``seed``) as tenant ``tid``:
+    B on the port's AnalyticalRuntime, A on FixedRuntime(2.0, spread).  At
+    spread 0 every client has the same work: clients of one budget admitted
+    together then finish together and are collected as one ragged wave.
+    With a spread the work differs by batch size, so clients that finish
+    together share one: an eager wave is one client (the sequential step)
+    or one batch size (bmm), and seldom reaches gmm."""
+    from repro_torch.core.runtime import AnalyticalRuntime, FixedRuntime
+    from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+
+    clients, test = build_world(mcfg, seed=seed)
+    fed = FedConfig(rounds=FABRIC_ROUNDS, participants_per_round=32, max_parallel=32,
+                    local_steps=FABRIC_STEPS, client_batching=batching, seed=seed)
+    runtime = FixedRuntime(2.0, spread) if tid == "A" else AnalyticalRuntime()
+    return FederatedTrainer(mcfg, clients, fed, test_batch=test, engine=engine, obs=obs,
+                            runtime=runtime, device=device)
+
+
+def run_fabric(torch, ops, mcfg, device, tenants=FABRIC_TENANTS, trace=True,
+               slots=FABRIC_SLOTS, spread=FABRIC_SPREADS[0]):
+    """One ``PoolFabric`` over ``tenants`` driven by ``run_trainers``: the
+    trainers, histories, obs plane, wall seconds, the simulated makespan,
+    and the ``gmm``/``tgmm`` launches (``tgmm``'s by path) of the run."""
+    from repro_torch.core.fabric import PoolFabric
+    from repro_torch.obs import ObsPlane
+
+    obs = ObsPlane(trace=trace)
+    fab = PoolFabric(total_slots=slots, capacity=100.0, lease_ttl=FABRIC_TTL, obs=obs)
+    trainers = {tid: fabric_trainer(mcfg, tid, batching, seed, device, obs=obs, spread=spread,
+                                    engine=fab.add_tenant(tid, weight=w, **FABRIC_ENGINE_KW))
+                for tid, w, batching, seed in tenants}
+    for counts in (ops.LAUNCHES, ops.TGMM_PATH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    sync(torch, device)
+    t0 = time.perf_counter()
+    hists = fab.run_trainers(trainers)
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    for tid, hist in hists.items():
+        assert len(hist) == FABRIC_ROUNDS, (tid, len(hist))
+        for rec in hist:
+            for k, v in rec.items():
+                if "loss" in k or k.endswith("_ce"):
+                    assert math.isfinite(v), (tid, k, v)
+    return {"trainers": trainers, "hists": hists, "obs": obs, "wall": wall,
+            "makespan": max(t.engine.now for t in trainers.values()),
+            "launches": dict(ops.LAUNCHES), "tgmm_paths": dict(ops.TGMM_PATH_LAUNCHES)}
+
+
+def wall_spans(obs, tid, name):
+    """``name``'s wall spans on tenant ``tid``'s track: (seconds, args)."""
+    from repro_torch.obs.trace import resolve_args
+
+    obs.tracer.flush()
+    return [(ev[8], resolve_args(ev[1], ev[9])) for ev in obs.tracer.events
+            if ev[1] == name and ev[3] == tid and ev[7] is not None]
+
+
+def fabric_waves(res, tid):
+    """Tenant ``tid``'s collection by round: the waves (clients, mode) and
+    the COLLECT wall (the sum of its wall spans, eager and after the close)."""
+    out = {}
+    for name in ("client.batch_wave", "client.train"):
+        for dur, args in wall_spans(res["obs"], tid, name):
+            r = out.setdefault(args["round"], {"waves": [], "wall_s": 0.0})
+            r["waves"].append((args.get("clients", 1), args.get("mode", "one")))
+            r["wall_s"] += dur
+    return out
+
+
+def params_gap(torch, a, b):
+    """Largest per-leaf ‖a − b‖ / ‖b‖ over two parameter trees (b's device)."""
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.to(y.device) - y).norm() / y.norm())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def check_fabric_trace(res, directory):
+    """The traced run exported on both clocks must parse and validate; each
+    tenant's track holds its ``client.exec`` sim spans, A's its
+    ``client.batch_wave`` wall spans, B's its ``client.train``."""
+    from repro_torch.obs.export import validate_chrome_trace
+
+    tracks = {}
+    for clock in ("sim", "wall"):
+        path = os.path.join(directory, f"fabric_{clock}.json")
+        res["obs"].save_trace(path, clock=clock)
+        with open(path) as f:
+            chrome = json.load(f)
+        assert validate_chrome_trace(chrome) == [], (clock, validate_chrome_trace(chrome)[:5])
+        pids = {e["pid"]: e["args"]["name"] for e in chrome["traceEvents"]
+                if e["ph"] == "M" and e["name"] == "process_name"}
+        for e in chrome["traceEvents"]:
+            if e["ph"] != "M":
+                key = (clock, pids[e["pid"]], e["name"])
+                tracks[key] = tracks.get(key, 0) + 1
+        say(f"  {clock}-clock trace: {len(chrome['traceEvents'])} events, "
+            f"{os.path.getsize(path)} bytes, tracks {sorted(set(pids.values()))}")
+    for tid, _, batching, _ in FABRIC_TENANTS:
+        assert tracks.get(("sim", tid, "client.exec"), 0) > 0, (tid, tracks)
+        wall_name = "client.batch_wave" if batching == "wave" else "client.train"
+        assert tracks.get(("wall", tid, wall_name), 0) > 0, (tid, wall_name, tracks)
+    say("  events by (clock, tenant, name): " + json.dumps(
+        {f"{c} {t} {n}": v for (c, t, n), v in sorted(tracks.items())}))
+
+
+def runtime_rows(torch, trainer):
+    """Seconds at full capacity of one client step at each batch size:
+    the port's AnalyticalRuntime (the card's roofline, counted on meta
+    tensors) against MeasuredRuntime (the step timed on the card)."""
+    from repro_torch.core.runtime import AnalyticalRuntime, MeasuredRuntime
+    from repro_torch.fed.client import batch_to
+
+    dev = trainer.device
+    opt_state = trainer.opt.init(trainer.params)
+    fn = lambda p, o, b: trainer.step_fn(p, o, batch_to(b, dev), p)[0]   # noqa: E731
+    rows = {}
+    for bs in CLIENT_BATCH_SIZES:
+        client = next(c for c in trainer.clients if c.data.batch_size == bs)
+        batch = client.data.next_batch()
+        args = (trainer.params, opt_state, batch)
+        rows[bs] = {"analytical": AnalyticalRuntime().seconds_at_full(("mlp", bs), fn, args),
+                    "measured": MeasuredRuntime(dev).seconds_at_full(("mlp", bs), fn, args,
+                                                                     repeats=20)}
+        say(f"  batch {bs}: analytical {rows[bs]['analytical'] * 1e6:.3f} us, measured "
+            f"{rows[bs]['measured'] * 1e6:.3f} us a step")
+    return rows
+
+
+def offset_bits(torch, ops):
+    """Does a group's result depend on where its rows sit in a wave?  At each
+    FEMNIST-MLP layer shape, every client's rows (batch sizes 16/32/48/64) as
+    the only group of a call, against the same rows among the others: gmm's
+    output rows and tgmm's dw, compared bit for bit (measured, f32, ffma)."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    sizes = list(CLIENT_BATCH_SIZES)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    one = torch.empty(1, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, k, n in LAYERS:
+        x = torch.randn(sum(sizes), k, device="cuda", generator=g)
+        dy = torch.randn(sum(sizes), n, device="cuda", generator=g)
+        w = torch.randn(len(sizes), k, n, device="cuda", generator=g)
+        y_all, dw_all = ops.gmm(x, w, gs), ops.tgmm(x, dy, gs, len(sizes))
+        same, worst, start = True, 0.0, 0
+        for i, rows in enumerate(sizes):
+            one.fill_(rows)
+            sl = slice(start, start + rows)
+            y1 = ops.gmm(x[sl].contiguous(), w[i:i + 1].contiguous(), one)
+            dw1 = ops.tgmm(x[sl].contiguous(), dy[sl].contiguous(), one, 1)[0]
+            same = same and torch.equal(y1, y_all[sl]) and torch.equal(dw1, dw_all[i])
+            worst = max(worst, float((y1 - y_all[sl]).abs().max()),
+                        float((dw1 - dw_all[i]).abs().max()))
+            start += rows
+        out[name] = {"bit_identical": same, "max_abs": worst}
+    say("  a client's rows alone against the same rows inside a 4-client call: " + "; ".join(
+        f"{name} " + ("bit-identical" if r["bit_identical"] else f"differ, max |Δ| {r['max_abs']:.3e}")
+        for name, r in out.items()))
+    return out
+
+
+def fabric_wave_launches(res, mcfg, label):
+    """Prints each tenant's waves by round and returns (waves by tenant,
+    ragged waves of A, the gmm/tgmm launches they imply).  Every ragged wave
+    of A runs each local step's layers through the kernels: 2L + 1 gmm
+    (L + 1 forward, L dx past the first layer) and L + 1 tgmm."""
+    waves = {tid: fabric_waves(res, tid) for tid, *_ in FABRIC_TENANTS}
+    for tid, by_round in waves.items():
+        for r, w in sorted(by_round.items()):
+            sizes = [c for c, _ in w["waves"]]
+            say(f"  {label} {tid} round {r}: {len(sizes)} waves, clients a wave {sizes}, modes "
+                f"{sorted(set(m for _, m in w['waves']))}, COLLECT wall {w['wall_s']:.4f} s")
+    ragged = sum(1 for w in waves["A"].values() for _, m in w["waves"] if m == "ragged")
+    layers = mcfg.n_layers
+    implied = {"gmm": ragged * FABRIC_STEPS * (2 * layers + 1),
+               "tgmm": ragged * FABRIC_STEPS * (layers + 1)}
+    say(f"  {label} A: {ragged} ragged waves imply {implied}; counted {res['launches']}, "
+        f"tgmm by path {res['tgmm_paths']}")
+    assert res["launches"] == implied, (res["launches"], implied)
+    assert res["tgmm_paths"] == {"ffma": implied["tgmm"], "wgmma": 0}, res["tgmm_paths"]
+    return waves, ragged
+
+
+def fabric_twin_gates(torch, ops, mcfg, res, spread):
+    """The same two tenants on the CPU: per tenant, the history's simulated
+    fields equal, the counters equal and the params within TWIN_REL_TOL.
+    Returns the params gaps."""
+    t0 = time.perf_counter()
+    cpu = run_fabric(torch, ops, mcfg, "cpu", trace=False, spread=spread)
+    say(f"  CPU run {time.perf_counter() - t0:.2f} s")
+    gaps = {}
+    for tid, *_ in FABRIC_TENANTS:
+        for got, want in zip(res["hists"][tid], cpu["hists"][tid]):
+            diff = {k: (got[k], want[k]) for k in SIM_FIELDS if got[k] != want[k]}
+            assert not diff, (tid, diff)
+        gaps[tid] = params_gap(torch, res["trainers"][tid].params, cpu["trainers"][tid].params)
+        card_c = {k: res["obs"].registry.counters_snapshot().get(k, {}).get(tid)
+                  for k in FABRIC_COUNTERS}
+        cpu_c = {k: cpu["obs"].registry.counters_snapshot().get(k, {}).get(tid)
+                 for k in FABRIC_COUNTERS}
+        say(f"  {tid}: simulated fields equal the CPU's over {FABRIC_ROUNDS} rounds "
+            f"(sim_clock {res['hists'][tid][-1]['sim_clock']!r}, utilization "
+            f"{[h['utilization'] for h in res['hists'][tid]]}); params card against CPU "
+            f"{gaps[tid]:.3e} (limit {TWIN_REL_TOL:g}); counters {card_c}")
+        assert gaps[tid] < TWIN_REL_TOL, (tid, gaps[tid])
+        assert card_c == cpu_c, (tid, card_c, cpu_c)
+    for tid, hist in res["hists"].items():
+        say(f"  {tid} history: " + json.dumps(hist))
+    return gaps
+
+
+def run_fabric_phase(torch, ops, mcfg, smi):
+    """Phase 24: two FL tenants share one pool through ``PoolFabric``."""
+    from repro_torch.tree import tree_leaves
+
+    say(f"  card: {smi}")
+    gated, issued = FABRIC_SPREADS
+    res = run_fabric(torch, ops, mcfg, "cuda", spread=gated)
+    launches, tgmm_paths = res["launches"], res["tgmm_paths"]
+    say(f"  two tenants, A at spread {gated:g}, traced: wall {res['wall']:.3f} s, simulated "
+        f"makespan {res['makespan']:.4f} s")
+    waves, ragged = fabric_wave_launches(res, mcfg, f"spread {gated:g}:")
+    assert ragged > 0, waves["A"]
+
+    with tempfile.TemporaryDirectory() as directory:
+        check_fabric_trace(res, directory)
+    aggregate_s = {tid: [dur for dur, _ in wall_spans(res["obs"], tid, "round.aggregate")]
+                   for tid, *_ in FABRIC_TENANTS}
+    say("  round.aggregate wall spans (the card synchronized before each closes): " +
+        "; ".join(f"{tid} {[round(d * 1e3, 4) for d in ds]} ms" for tid, ds in aggregate_s.items()))
+
+    say("  the same two tenants on the CPU (the twin):")
+    gaps = fabric_twin_gates(torch, ops, mcfg, res, gated)
+
+    say(f"  the world as first specified, A on FixedRuntime(2.0, {issued:g}), traced, then its "
+        "CPU twin:")
+    spread_res = run_fabric(torch, ops, mcfg, "cuda", spread=issued)
+    say(f"  two tenants, A at spread {issued:g}: wall {spread_res['wall']:.3f} s, simulated "
+        f"makespan {spread_res['makespan']:.4f} s")
+    spread_waves, _ = fabric_wave_launches(spread_res, mcfg, f"spread {issued:g}:")
+    spread_gaps = fabric_twin_gates(torch, ops, mcfg, spread_res, issued)
+    for r in sorted(waves["A"]):
+        a, b = waves["A"][r], spread_waves["A"].get(r, {"waves": [], "wall_s": 0.0})
+        say(f"  A round {r}: spread {gated:g} {len(a['waves'])} waves, COLLECT "
+            f"{a['wall_s']:.4f} s; spread {issued:g} {len(b['waves'])} waves, COLLECT "
+            f"{b['wall_s']:.4f} s")
+
+    say("  the fabric untraced (obs without a tracer) and traced in turns, then each tenant "
+        "alone on the pool:")
+    turns = [run_fabric(torch, ops, mcfg, "cuda", trace=t) for t in (False, True, True, False)]
+    walls = {t: sorted(r["wall"] for r in turns if r["obs"].tracing == t) for t in (False, True)}
+    off = turns[0]
+    alone = {t[0]: run_fabric(torch, ops, mcfg, "cuda", tenants=(t,), trace=False)
+             for t in FABRIC_TENANTS}
+    serial_wall = sum(r["wall"] for r in alone.values())
+    serial_makespan = sum(r["makespan"] for r in alone.values())
+    off_s, on_s = statistics.mean(walls[False]), statistics.mean(walls[True])
+    say(f"  wall: two tenants untraced {walls[False]} s, traced {walls[True]} s (trace "
+        f"{100 * (on_s / off_s - 1):+.1f} % on the means; the gated traced run, the first, "
+        f"{res['wall']:.3f} s); one after the other {serial_wall:.3f} s ("
+        f"{', '.join(f'{t} {r['wall']:.3f}' for t, r in alone.items())}): serial / shared "
+        f"{serial_wall / off_s:.3f}x")
+    say(f"  simulated makespan: shared {off['makespan']:.4f} s, one after the other "
+        f"{serial_makespan:.4f} s: {serial_makespan / off['makespan']:.3f}x")
+
+    say("  A's world as the only tenant of a 32-slot pool against run_round on the card:")
+    solo = run_fabric(torch, ops, mcfg, "cuda", tenants=FABRIC_TENANTS[:1], trace=False,
+                      slots=32)
+    tid, _, batching, seed = FABRIC_TENANTS[0]
+    plain = fabric_trainer(mcfg, tid, batching, seed, "cuda")
+    plain.run()
+    torch.cuda.synchronize()
+    fab_hist, run_hist = solo["hists"]["A"], plain.history
+    tol = SINGLE_TENANT_TOL
+    for got, want in zip(fab_hist, run_hist):
+        diff = {k: (got[k], want[k]) for k in SIM_FIELDS if got[k] != want[k]}
+        assert not diff, diff
+        for k in want:
+            if k not in SIM_FIELDS:
+                assert abs(got[k] - want[k]) <= tol + tol * abs(want[k]), (k, got[k], want[k])
+    pairs = list(zip(tree_leaves(solo["trainers"]["A"].params), tree_leaves(plain.params)))
+    gap = params_gap(torch, solo["trainers"]["A"].params, plain.params)
+    max_abs = max(float((x - y).abs().max()) for x, y in pairs)
+    same = all(torch.equal(x, y) for x, y in pairs)
+    say(f"  history's simulated fields equal, losses within {tol:g}; params max |Δ| "
+        f"{max_abs:.3e} (allclose rtol = atol = {tol:g}), largest per-leaf relative norm "
+        f"{gap:.3e}; bit-identical: {same and fab_hist == run_hist} (params {same}, history "
+        f"{fab_hist == run_hist}); waves {solo['trainers']['A'].batch_exec.stats.as_dict()} "
+        f"against run_round's {plain.batch_exec.stats.as_dict()}")
+    assert all(torch.allclose(x, y, rtol=tol, atol=tol) for x, y in pairs), max_abs
+
+    offsets = offset_bits(torch, ops)
+    say("  seconds at full capacity of one client step, B's analytical runtime against the "
+        "measured one:")
+    rt_rows = runtime_rows(torch, res["trainers"]["B"])
+    return launches, tgmm_paths, {
+        "card": smi, "wall_s": {"first_traced": res["wall"], "traced": walls[True],
+                                "untraced": walls[False], "serial": serial_wall},
+        "makespan_s": {"shared": off["makespan"], "serial": serial_makespan},
+        "waves": {tid: {r: w["waves"] for r, w in by.items()} for tid, by in waves.items()},
+        "collect_wall_s": {tid: {r: w["wall_s"] for r, w in by.items()}
+                           for tid, by in waves.items()},
+        "params_gap_card_cpu": gaps, "aggregate_wall_s": aggregate_s,
+        "as_specified": {"wall_s": spread_res["wall"], "launches": spread_res["launches"],
+                     "waves": {r: w["waves"] for r, w in spread_waves["A"].items()},
+                     "collect_wall_s": {tid: {r: w["wall_s"] for r, w in by.items()}
+                                        for tid, by in spread_waves.items()},
+                     "params_gap_card_cpu": spread_gaps},
+        "single_tenant_params_max_abs": max_abs,
+        "single_tenant_params_gap": gap,
+        "single_tenant_bit_identical": same and fab_hist == run_hist,
+        "group_offset_bits": offsets,
+        "step_seconds": rt_rows}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2391,6 +2764,14 @@ def main() -> int:
         check_resume(torch, directory)
     say(json.dumps({"clients": {"card": smi, "models": client_rows, "mlp options": option_rows,
                                 "mlp options launches": option_launches}}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+
+    say(f"PHASE 24 fabric: two tenants of phase 3's world share a {FABRIC_SLOTS}-slot pool through "
+        f"PoolFabric (weights 3:1, lease TTL {FABRIC_TTL:g} s), {FABRIC_ROUNDS} rounds each through "
+        f"run_trainers, every round traced; A collects eagerly in ragged waves, B client by client "
+        f"under the analytical runtime")
+    fabric_launches, fabric_tgmm_paths, fabric_row = run_fabric_phase(torch, ops, mcfg, smi)
+    say(json.dumps({"fabric": fabric_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -2407,12 +2788,13 @@ def main() -> int:
             "library_ms": r["library_ms"], "dtype": "float32", "bfloat16": r["bfloat16"],
         })
     kernels[1].update({
-        "launches": launches["tgmm"] + option_launches["tgmm"],
+        "launches": launches["tgmm"] + option_launches["tgmm"] + fabric_launches["tgmm"],
         "launches_by_path": {"femnist-mlp rounds": launches["tgmm"],
-                             "femnist-mlp rounds, other options": option_launches["tgmm"]},
+                             "femnist-mlp rounds, other options": option_launches["tgmm"],
+                             "femnist-mlp fabric, tenant A": fabric_launches["tgmm"]},
         "path": rows[1]["path"], "wrapper_ms": rows[1]["wrapper_ms"],
         "launches_by_kernel_path": {p: tgmm_paths[p] + option_launches["tgmm_by_path"][p]
-                                    for p in tgmm_paths},
+                                    + fabric_tgmm_paths[p] for p in tgmm_paths},
         "max_abs_err_by_path": tgmm_errs,
         "by_path": {r["layer"]: {"float32": r["by_path"], "bfloat16": r["bfloat16"]["by_path"]}
                     for r in rows if r["name"] == "tgmm"},
@@ -2423,10 +2805,12 @@ def main() -> int:
                      for key, r in moe_tgmm_rows.items()},
     })
     kernels[0].update({
-        "launches": launches["gmm"] + olmoe_launches["gmm"] + option_launches["gmm"],
+        "launches": (launches["gmm"] + olmoe_launches["gmm"] + option_launches["gmm"]
+                     + fabric_launches["gmm"]),
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
                              OLMOE_ARCH: olmoe_launches["gmm"],
-                             "femnist-mlp rounds, other options": option_launches["gmm"]},
+                             "femnist-mlp rounds, other options": option_launches["gmm"],
+                             "femnist-mlp fabric, tenant A": fabric_launches["gmm"]},
         "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
         OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
                      for (name, prod), r in moe_rows.items()},

@@ -8,10 +8,20 @@ the admitted-budget total and granted-rate total incrementally and stores
 completions in a lazy-deletion heap keyed by absolute completion time, so
 a campaign is O(events·log).
 
-Left out of this copy: the control-plane mirror (``ControlPlaneMirror``
-replays each simulated transition through the ``FLServer`` protocol and
-does not feed the timeline), the observability hooks, and the fabric
-tenancy hooks (slot leases, preemption, round-boundary callbacks).
+Fabric tenancy, as in the reference: an engine can draw its executor slots
+from a shared ``repro_torch.core.fabric.ResourceArbiter`` lease
+(``slot_source``), be stepped one event at a time (``peek_time``/``step``/
+``advance_to``) so N concurrent campaigns interleave under one merged
+clock, lose a slot to a lease revocation (``preempt_slot``), and notify
+subscribers of client completions and round closes (``on_client_done``,
+``on_round_complete``).  With ``obs=`` it counts on the metrics registry
+and traces on the simulated clock, scoped by ``tenant``.
+
+Left out of this copy: the control-plane mirror (the reference's
+``ControlPlaneMirror`` replays each simulated transition through the
+``FLServer`` protocol and does not feed the timeline).  The engine takes
+its parameters (``mirror``, ``server``, ``mirror_delta_provider``,
+``mirror_compression``) and raises where a caller asks for a mirror.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import bisect
 import heapq
 import itertools
 import random
+import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Type, Union
 
@@ -28,7 +39,7 @@ from repro_torch.core.scheduler import FedHCScheduler, SchedulerBase
 from repro_torch.core.sharing import compute_rates
 
 # --------------------------------------------------------------------------
-# Result dataclasses
+# Result dataclasses (``repro_torch.core.simulator`` re-exports them)
 # --------------------------------------------------------------------------
 
 
@@ -116,7 +127,7 @@ class CapacityEvent:
 
     ``theta`` optionally rescales the admission threshold with the pool
     (the elastic facade passes ``theta_frac × capacity``); ``None`` leaves
-    θ untouched (the physical share changes, not admission).
+    θ untouched (a fabric grant changes physical share, not admission).
     """
 
     time: float
@@ -269,6 +280,33 @@ class _Round:
         )
 
 
+# executor-lifecycle outcomes, encoded as doubles in the deferred
+# client.exec trace buffer (see CampaignEngine._exec_span)
+_EXEC_STATUS = ("ok", "fail", "evict", "shed", "preempt")
+_EXEC_STATUS_CODE = {s: float(i) for i, s in enumerate(_EXEC_STATUS)}
+# one packed record per client.exec span:
+# (t0, end, slot, cid, round, budget, status_code)
+_EXEC_REC = struct.Struct("=7d")
+
+
+class _EngineMetrics:
+    """The engine's slice of the metrics registry, resolved once at
+    construction so hot-path emission is attribute access, not dict
+    lookups.  Scoped by tenant name (one engine = one tenant)."""
+
+    __slots__ = ("completed", "failed", "evicted", "rounds", "round_latency",
+                 "preemptions", "capacity_events")
+
+    def __init__(self, registry, scope: str):
+        self.completed = registry.counter("campaign.clients_completed", scope)
+        self.failed = registry.counter("campaign.clients_failed", scope)
+        self.evicted = registry.counter("campaign.clients_evicted", scope)
+        self.rounds = registry.counter("campaign.rounds_completed", scope)
+        self.round_latency = registry.histogram("campaign.round_latency", scope)
+        self.preemptions = registry.counter("fabric.preemptions", scope)
+        self.capacity_events = registry.counter("fabric.capacity_events", scope)
+
+
 # event heap priorities: completion before failure (a client finishing at
 # the same instant it would die counts as finished, like RoundSimulator's
 # strict `rel < dt`), capacity changes next (a completion landing exactly
@@ -291,12 +329,23 @@ class CampaignEngine:
         max_parallel: int = 64,
         availability: Optional[AvailabilityTrace] = None,
         async_rounds: bool = False,
+        mirror: bool = False,
+        server=None,
         record_timeline: bool = True,
         record_campaign_timeline: Optional[bool] = None,
         record_events: bool = True,
         start_clock: float = 0.0,
+        slot_source=None,
         capacity_events: Sequence[CapacityEvent] = (),
+        mirror_delta_provider=None,
+        mirror_compression: str = "none",
+        obs=None,
+        tenant: str = "campaign",
     ):
+        if mirror or server is not None or mirror_delta_provider is not None:
+            raise NotImplementedError(
+                "the control-plane mirror is not ported yet (ROADMAP.md, "
+                "queue 1 row 6: multihost)")
         self.scheduler_cls = scheduler_cls
         self.theta = theta
         self.capacity = capacity
@@ -311,8 +360,36 @@ class CampaignEngine:
             if record_campaign_timeline is None
             else record_campaign_timeline
         )
+        # observability plane: the tracer reference is cached as None when
+        # tracing is off, so the disabled-mode hot-path cost is one load
+        # and a branch
+        self.obs = obs
+        self.tenant = str(tenant)
+        self._trace = obs.tracer if obs is not None and obs.tracer.enabled \
+            else None
+        self._slot_tids: List[str] = []   # interned "slot N" track names
+        # deferred client.exec records, packed as raw _EXEC_REC doubles —
+        # see _exec_span for why this is a bytearray and not a list
+        self._exec_pending = bytearray()
+        if self._trace is not None:
+            self._trace.add_flush(self._flush_exec_spans)
+        self._mx = _EngineMetrics(obs.registry, self.tenant) \
+            if obs is not None else None
+        if obs is not None:
+            # pull-mode gauges: evaluated when read (snapshot/report), so
+            # the admission sweep never pays to keep them current
+            obs.registry.gauge("campaign.queue_depth", self.tenant).bind(
+                lambda: sum(r.sched.queue_depth() for r in self._open))
+            obs.registry.gauge("campaign.slot_utilization", self.tenant).bind(
+                lambda: (min(self.total_rate, self.capacity) / self.capacity
+                         if self.capacity > 0 else 0.0))
         self.mgr = ProcessManager(mode=manager_mode, max_parallel=max_parallel,
-                                  record_events=record_events)
+                                  record_events=record_events,
+                                  avail=slot_source,
+                                  spawn_counter=(
+                                      obs.registry.counter("exec.spawns",
+                                                           self.tenant)
+                                      if obs is not None else None))
 
         self.now = float(start_clock)
         self.active: Dict[int, _Active] = {}     # eid -> record
@@ -322,12 +399,18 @@ class CampaignEngine:
         self.timeline: List[TimelineSeg] = []    # campaign-global
         self.churn_evictions = 0
         self.capacity_evictions = 0              # capacity-shed evictions
+        self.preemptions = 0                     # arbiter lease revocations
         self.events_processed = 0
 
         self._rounds: List[Optional[_Round]] = []  # closed slots become None
         self._n_clients_total = 0
         self._next_to_open = 0
         self._open: List[_Round] = []
+        # round-boundary callbacks, fired from the stepping API so a
+        # subscriber (a fabric-driven trainer) reacts to simulated progress
+        # instead of polling run_round() synchronously
+        self._on_round_complete: List = []
+        self._on_client_done: List = []
         self._fresh: List[_Active] = []          # spawned since last reconcile
         self._heap: List[tuple] = []
         self._seq = itertools.count()
@@ -367,12 +450,36 @@ class CampaignEngine:
             events_processed=self.events_processed,
         )
 
+    def enqueue_rounds(
+        self, rounds: Sequence[Union[RoundSpec, Sequence[SimClient]]]
+    ) -> List[_Round]:
+        """Queue global rounds without driving the clock (the fabric drives
+        the merged event loop itself via ``peek_time``/``step``)."""
+        return [self._enqueue(RoundSpec.coerce(spec)) for spec in rounds]
+
     def post_capacity_event(self, ev: CapacityEvent) -> None:
         """Schedule a pool-capacity change as a first-class heap event."""
         heapq.heappush(self._heap, (
             float(ev.time), _P_CAPACITY, next(self._seq), "capacity",
             float(ev.capacity), ev.theta,
         ))
+
+    # -- round-boundary subscriptions --------------------------------------
+
+    def on_round_complete(self, cb) -> None:
+        """Subscribe ``cb(round_idx, RoundResult)``, fired (from ``step``)
+        the instant a round closes — all clients completed/failed or the
+        deadline hit.  This is how a fabric-driven trainer learns its
+        simulated round finished without owning the event loop."""
+        self._on_round_complete.append(cb)
+
+    def on_client_done(self, cb) -> None:
+        """Subscribe ``cb(client_id, round_idx)``, fired on each simulated
+        client COMPLETE.  Completions arrive in nondecreasing span-end
+        order (the event heap), so a subscriber that trains eagerly on
+        each callback processes clients in exactly the order the trainer's
+        post-hoc ``sorted(spans, key=end)`` finisher selection would."""
+        self._on_client_done.append(cb)
 
     # -- round lifecycle ---------------------------------------------------
 
@@ -413,10 +520,21 @@ class CampaignEngine:
     def _close(self, rnd: _Round) -> None:
         rnd.closed = True
         rnd.end = self.now
+        if self._mx is not None:
+            self._mx.rounds.inc()
+            self._mx.round_latency.observe(rnd.end - rnd.start)
+        if self._trace is not None:
+            self._trace.span("round", rnd.start, rnd.end, self.tenant,
+                             "rounds",
+                             args={"round": rnd.idx,
+                                   "completed": len(rnd.spans),
+                                   "failed": len(rnd.failed)})
         self._open.remove(rnd)
         # release the engine's reference — results belong to the caller, and
         # a lifelong engine (the trainer's) must not grow per round
         self._rounds[rnd.idx] = None
+        for cb in self._on_round_complete:
+            cb(rnd.idx, rnd.result())
 
     # -- availability ------------------------------------------------------
 
@@ -508,15 +626,65 @@ class CampaignEngine:
             self.total_rate = 0.0
         return rnd
 
+    def _exec_span(self, rec: _Active, status: str) -> None:
+        # THE trace hot path (one record per executor lifecycle, ~500k on
+        # the scalability bench): append one struct-packed raw record and
+        # defer event materialization to _flush_exec_spans (run via
+        # tracer.flush() at read/export time, outside the timed campaign)
+        # — the reference's <=5% tracing-overhead budget rides on this.
+        # The buffer is a bytearray of packed doubles because the cycle GC
+        # cannot see it: buffering 500k Python records raises the
+        # net allocation count enough to force extra gen2 collections
+        # (each a full-heap scan), which measurably slowed *unrelated*
+        # engine code; and it beats array('d').extend by ~2x (one C pack
+        # call vs per-element conversion).  The slot is snapshotted here
+        # because executors are recycled after _remove.
+        self._exec_pending += _EXEC_REC.pack(
+            rec.started, self.now, rec.ex.slot, rec.cid, rec.round_idx,
+            rec.budget, _EXEC_STATUS_CODE[status])
+
+    def _flush_exec_spans(self) -> None:
+        # idempotent: drains the pending buffer; called by Tracer.flush()
+        pending, self._exec_pending = self._exec_pending, bytearray()
+        if not pending:
+            return
+        tr = self._trace
+        ev, tids, tenant = tr.events, self._slot_tids, self.tenant
+        left = len(pending) // _EXEC_REC.size
+        for t0, end, slot, cid, rnd, budget, code in \
+                _EXEC_REC.iter_unpack(pending):
+            if len(ev) >= tr.max_events:
+                tr.drops += left
+                return
+            left -= 1
+            slot = int(slot)
+            while slot >= len(tids):
+                tids.append(f"slot {len(tids)}")
+            ev.append(
+                ("X", "client.exec", "sim", tenant, tids[slot],
+                 t0, end - t0, None, None,
+                 (int(cid), int(rnd), budget, _EXEC_STATUS[int(code)])))
+
     def _complete(self, rec: _Active) -> None:
         rnd = self._remove(rec)
         rnd.spans[rec.cid] = Span(rec.started, self.now, rec.budget)
         self.mgr.complete(rec.ex, self.now)
+        if self._mx is not None:
+            self._mx.completed.value += 1
+        if self._trace is not None:
+            self._exec_span(rec, "ok")
+        if self._on_client_done:  # hot path: one load + branch when unused
+            for cb in self._on_client_done:
+                cb(rec.cid, rec.round_idx)
 
     def _fail(self, rec: _Active) -> None:
         rnd = self._remove(rec)
         rnd.failed.append(rec.cid)
         self.mgr.fail(rec.ex, self.now)
+        if self._mx is not None:
+            self._mx.failed.value += 1
+        if self._trace is not None:
+            self._exec_span(rec, "fail")
 
     def _evict(self, rec: _Active) -> None:
         """Availability churn: the client left mid-execution — fail the
@@ -526,12 +694,17 @@ class CampaignEngine:
         self.mgr.fail(rec.ex, self.now)
         rnd.sched.requeue(rec.cid)
         self.churn_evictions += 1
+        if self._mx is not None:
+            self._mx.evicted.value += 1
+        if self._trace is not None:
+            self._exec_span(rec, "evict")
 
     # -- capacity ----------------------------------------------------------
 
     def _apply_capacity(self, capacity: float, theta: Optional[float] = None,
                         *, shed: bool = False) -> None:
-        """The pool's physical capacity changed (elastic event).  Rates re-waterfill at the next reconcile; with ``shed``
+        """The pool's physical capacity changed (elastic event or fabric
+        re-grant).  Rates re-waterfill at the next reconcile; with ``shed``
         (elastic semantics) the largest-budget executors are evicted until
         the admitted budget fits, each client requeued into its round's
         pending set — with a degraded slice when its budget no longer fits
@@ -539,6 +712,13 @@ class CampaignEngine:
         instead of starving it.  Callers must follow with an admission
         sweep (``step``/``sweep`` do)."""
         self.capacity = float(capacity)
+        if self._mx is not None:
+            self._mx.capacity_events.inc()
+        if self._trace is not None:
+            self._trace.instant("capacity.change", self.now, self.tenant,
+                                "rounds",
+                                args={"capacity": float(capacity),
+                                      "theta": theta})
         if theta is not None:
             self.theta = float(theta)
             for rnd in self._rounds:
@@ -560,10 +740,38 @@ class CampaignEngine:
                     ),
                 )
                 self.capacity_evictions += 1
+                if self._mx is not None:
+                    self._mx.evicted.value += 1
+                if self._trace is not None:
+                    self._exec_span(victim, "shed")
         # force the next reconcile through the slow path: it settles against
         # the old rates, re-waterfills against the new capacity, and re-keys
         # every completion entry
         self.contended = True
+
+    def preempt_slot(self, slot: int) -> Optional[int]:
+        """A fabric lease on ``slot`` was revoked: evict the executor that
+        occupies it and requeue its client (it re-runs its local work when
+        re-admitted, like availability churn).  Returns the client id, or
+        None when no live executor holds the slot."""
+        for rec in self.active.values():
+            if rec.ex.slot == slot:
+                if self.contended:
+                    self._settle_all()
+                rnd = self._remove(rec)
+                self.mgr.fail(rec.ex, self.now)
+                rnd.sched.requeue(rec.cid)
+                self.preemptions += 1
+                if self._mx is not None:
+                    self._mx.preemptions.inc()
+                    self._mx.evicted.value += 1
+                if self._trace is not None:
+                    self._exec_span(rec, "preempt")
+                    self._trace.instant("lease.preempt", self.now,
+                                        self.tenant, f"slot {slot}",
+                                        args={"cid": rec.cid, "slot": slot})
+                return rec.cid
+        return None
 
     # -- admission ---------------------------------------------------------
 
@@ -602,12 +810,23 @@ class CampaignEngine:
         for rnd in self._open:
             rnd.timeline.append(seg)
 
-    # -- stepping API --------------------------------------------------------
+    # -- stepping API (the fabric drives N engines under one clock) --------
 
     def pending(self) -> bool:
         """Rounds still open or queued (heap leftovers alone don't count:
         trailing capacity events after the last round must not fire)."""
         return bool(self._open) or self._next_to_open < len(self._rounds)
+
+    def wants_slots(self) -> bool:
+        """Does any open round hold admissible candidates right now?  The
+        arbiter uses this to age out stale starvation flags — a tenant
+        only blocks others' work-conserving borrowing while it genuinely
+        has clients waiting for an executor."""
+        return any(
+            not rnd.deadline_hit and not rnd.sched.done
+            and rnd.sched.pending_live()
+            for rnd in self._open
+        )
 
     def _stale(self, entry: tuple) -> bool:
         _t, _prio, _seq, kind, a, b = entry
@@ -632,7 +851,10 @@ class CampaignEngine:
 
         Lazily discards stale heap entries (completions of evicted
         executors, edges of closed rounds, …) while peeking, so the
-        returned time is always actionable."""
+        returned time is always actionable.  The fabric compares each
+        tenant's ``peek_time`` to pick the globally next event; ``None``
+        with ``pending()`` True means this engine is waiting on someone
+        else's event (e.g. a slot another tenant must free)."""
         while self._heap:
             if self._stale(self._heap[0]):
                 heapq.heappop(self._heap)
@@ -640,10 +862,20 @@ class CampaignEngine:
             return self._heap[0][0]
         return None
 
+    def advance_to(self, t: float) -> None:
+        """Move the clock to ``t`` without dispatching an event of our own
+        (another fabric tenant acted at ``t``): closes the running timeline
+        segment so utilization accounting stays exact, then sets ``now``.
+        Monotonic — a ``t`` at or before the current clock is a no-op."""
+        if t > self.now:
+            self._segment(t)
+            self.now = t
+
     def sweep(self) -> None:
         """Admit every admissible client at the current instant (opening
         due rounds first), reconcile rates, and close drained rounds.
-        Idempotent."""
+        Idempotent; the fabric calls it after every arbitration pass so
+        freshly freed/granted slots are taken immediately."""
         self._admit_sweep()
         self._close_drained()
 
@@ -651,8 +883,8 @@ class CampaignEngine:
         """Force-close the open rounds when no event can ever progress
         them (every remaining client parked forever — e.g. its availability
         trace never comes back): the rounds end at the current clock and
-        the next queued rounds open.  Never called while live executors
-        exist."""
+        the next queued rounds open.  The fabric's stall-breaker; never
+        called while live executors exist."""
         for rnd in list(self._open):
             self._close(rnd)
         self.sweep()
@@ -662,7 +894,8 @@ class CampaignEngine:
         capacity change, availability edge, or deadline — advancing the
         clock to it, then run the admission sweep that event enables.
         Returns False (and does nothing) when the heap holds no live
-        event.  ``run_round``/``run_campaign`` are loops over ``step``."""
+        event.  ``run_round``/``run_campaign`` are loops over ``step``;
+        the fabric interleaves steps of N engines on one merged clock."""
         if self.peek_time() is None:
             return False
         t, _prio, _seq, kind, a, b = heapq.heappop(self._heap)

@@ -75,7 +75,8 @@ class ProcessManager:
     ``max_parallel`` (dynamic mode) or stays at a fixed pool size."""
 
     def __init__(self, mode: str = "dynamic", max_parallel: int = 64,
-                 record_events: bool = True):
+                 record_events: bool = True, avail=None,
+                 spawn_counter=None):
         if mode not in ("dynamic", "fixed"):
             raise ValueError(f"unknown manager mode {mode!r}")
         self.mode = mode
@@ -84,11 +85,18 @@ class ProcessManager:
         # with hundreds of thousands of executor lifecycles: no event
         # history, terminated executors dropped
         self.record_events = record_events
+        # optional obs counter (``exec.spawns``); None keeps the spawn hot
+        # path free of even a no-op call
+        self._spawns = spawn_counter
         self.table = RecordTable()
         self.executors: Dict[int, Executor] = {}
         self._ids = itertools.count()
         # Available "slots" presented to the scheduler as the AvailE queue.
-        self.avail: Deque[int] = deque(range(max_parallel))
+        # An injected source (a fabric ``TenantSlots`` lease adapter) must
+        # provide the same popleft/append/bool/len surface as the deque.
+        self.avail: Deque[int] = (
+            deque(range(max_parallel)) if avail is None else avail
+        )
 
     # -- lifecycle ---------------------------------------------------------
     def spawn(self, slot: int, client_id: int, budget: float, now: float) -> Executor:
@@ -96,6 +104,8 @@ class ProcessManager:
         ex = Executor(eid=eid, budget=budget, client_id=client_id, spawned_at=now,
                       slot=slot)
         self.executors[eid] = ex
+        if self._spawns is not None:
+            self._spawns.value += 1
         if self.record_events:
             self.table.push(Event(now, eid, EventKind.SPAWN, client_id,
                                   {"budget": budget, "slot": slot}))

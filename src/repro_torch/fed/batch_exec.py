@@ -43,7 +43,9 @@ tolerance, not bit for bit.
 Eager PyTorch compiles nothing, so the wave function is built afresh for
 every wave; :class:`WaveStats` still counts wave *envelopes* as the JAX
 package counts its compiled programs: ``compiles`` is the number of
-distinct envelopes and ``cache_hits`` the waves that reuse one.
+distinct envelopes and ``cache_hits`` the waves that reuse one.  Waves,
+clients, envelopes and fallbacks are mirrored onto an observability plane
+(``obs=``) as the ``client.batch_*`` counters, scoped by ``tenant``.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from repro_torch.fed.client import (
     CLIP_NORM, batch_to, build_step_fn, host_to, make_small_step)
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.models.small import SmallModelConfig, cross_entropy_rows
+from repro_torch.obs.metrics import Counter
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -109,6 +112,8 @@ class BatchedExecutor:
         prox_mu: float = 0.0,
         *,
         device: DeviceLike = None,
+        obs=None,
+        tenant: str = "batch",
     ):
         self.device = resolve_device(device)
         self.mcfg = mcfg
@@ -117,6 +122,11 @@ class BatchedExecutor:
         self.stats = WaveStats()
         self._envelopes: Set[tuple] = set()
         self.last_wave: Dict[str, Any] = {}
+        reg = obs.registry if obs is not None else None
+        self._c_waves = reg.counter("client.batch_waves", tenant) if reg else Counter()
+        self._c_clients = reg.counter("client.batch_clients", tenant) if reg else Counter()
+        self._c_compiles = reg.counter("client.batch_compiles", tenant) if reg else Counter()
+        self._c_fallbacks = reg.counter("client.batch_fallbacks", tenant) if reg else Counter()
         # the MLP without its local tower has the bmm/gmm formulation
         self._stacked_mlp = mcfg.kind == "mlp" and not mcfg.extra_local_model
 
@@ -139,7 +149,9 @@ class BatchedExecutor:
         if not clients:
             return []
         self.stats.waves += 1
+        self._c_waves.inc()
         self.stats.clients += len(clients)
+        self._c_clients.inc(len(clients))
         # pull every client's batches up front, in client order — consumes
         # each ClientDataset's shuffle RNG exactly as the sequential loop
         pulled = [list(c.data.batches(n_steps)) for c in clients]
@@ -156,6 +168,7 @@ class BatchedExecutor:
             self.stats.ragged_clients += len(clients)
             return self._run_stacked(mode, global_params, pulled)
         self.stats.seq_clients += len(clients)
+        self._c_fallbacks.inc(len(clients))
         return [self._run_sequential(global_params, c, bl)
                 for c, bl in zip(clients, pulled)]
 
@@ -208,6 +221,8 @@ class BatchedExecutor:
         self._envelopes.add(key)
         self.stats.cache_hits += hit
         self.stats.compiles += not hit
+        if not hit:
+            self._c_compiles.inc()
         self.last_wave["cache_hit"] = hit
 
     # ------------------------------------------------------------------

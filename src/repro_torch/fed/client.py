@@ -36,8 +36,10 @@ def host_to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def batch_to(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A numpy batch from ``ClientDataset`` as tensors on ``device``."""
-    return {k: host_to(np.asarray(v), device) for k, v in batch.items()}
+    """A numpy batch from ``ClientDataset`` as tensors on ``device`` (a
+    tensor, as ``AnalyticalRuntime``'s meta batch, is moved as it is)."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else host_to(np.asarray(v), device)
+            for k, v in batch.items()}
 
 
 def build_step_fn(

@@ -108,19 +108,23 @@ def eval_batch(seed=99, n=64, mcfg=MCFG):
 
 
 def twin_trainers(ref_mcfg=REF_MCFG, mcfg=MCFG, batch_sizes=BATCH_SIZES, ref_kw=(),
-                   port_kw=(), clients=None, **fed_kw):
+                   port_kw=(), clients=None, ref_ctor=(), port_ctor=(), **fed_kw):
     """(reference trainer, port trainer) on twin worlds from the same initial
     params; ``ref_kw`` / ``port_kw`` are one package's own FedConfig fields,
-    ``clients`` a (reference, port) pair of client lists to reuse."""
+    ``clients`` a (reference, port) pair of client lists to reuse, and
+    ``ref_ctor`` / ``port_ctor`` more constructor arguments (``engine``,
+    ``obs``)."""
     ref_cl, port_cl = clients or twin_clients(batch_sizes, seed=4, budgets=BUDGETS, mcfg=mcfg)
     kw = dict(rounds=3, participants_per_round=4, local_steps=2,
               learning_rate=0.2, client_batching="wave")
     kw.update(fed_kw)
     test = eval_batch(mcfg=mcfg)
     ref = RefFederatedTrainer(ref_mcfg, ref_cl, RefFedConfig(**kw, **dict(ref_kw)),
-                              test_batch=test, runtime=RefFixedRuntime(2.0, 1.0))
+                              test_batch=test, runtime=RefFixedRuntime(2.0, 1.0),
+                              **dict(ref_ctor))
     port = FederatedTrainer(mcfg, port_cl, FedConfig(**kw, **dict(port_kw)), test_batch=test,
-                            runtime=FixedRuntime(2.0, 1.0), device="cpu", noise=ref_noise)
+                            runtime=FixedRuntime(2.0, 1.0), device="cpu", noise=ref_noise,
+                            **dict(port_ctor))
     port.params = params_from_numpy(jax.device_get(ref.params), "cpu")
     return ref, port
 
@@ -134,3 +138,57 @@ def assert_histories_match(ref_hist, port_hist, tol=1e-5):
         for k in r:
             if k.startswith("train_") or k == "test_loss":
                 assert p[k] == pytest.approx(r[k], abs=tol), k
+
+
+def round_digest(r):
+    """Everything a ``RoundResult`` holds, and its derived statistics."""
+    return (r.duration, r.start, r.completed, list(r.failed), r.mode,
+            {c: (s.start, s.end, s.budget) for c, s in r.spans.items()},
+            [(g.t0, g.t1, g.total_budget, g.total_rate, g.parallelism) for g in r.timeline],
+            r.utilization(), r.avg_parallelism(), r.avg_admitted_budget())
+
+
+def campaign_digest(res):
+    """Everything a ``CampaignResult`` holds, round by round."""
+    return (res.duration, res.total_completed, res.total_failed, res.churn_evictions,
+            res.events_processed, res.utilization(), [round_digest(r) for r in res.rounds])
+
+
+def engine_digest(eng):
+    """The engine's clock, counters and executor event history."""
+    return (eng.now, eng.capacity, eng.events_processed, eng.churn_evictions,
+            eng.capacity_evictions, eng.preemptions,
+            [(e.time, e.executor_id, e.kind.value, e.client_id)
+             for e in eng.mgr.table.history])
+
+
+def twin_fabric_trainers(obs=False, **fed_kw):
+    """The same two-tenant fabric in each package, run by ``run_trainers``:
+    A (weight 3) batches its waves, B (weight 1) trains clients one at a
+    time with another seed and world.  The reference tenants carry their
+    control-plane mirror, as its tests do; it does not feed the timeline.
+    Returns ({tenant: (ref trainer, port trainer)}, ref histories, port
+    histories, ref obs plane, port obs plane)."""
+    from repro.core.fabric import PoolFabric as RefPoolFabric
+    from repro.obs import ObsPlane as RefObsPlane
+    from repro_torch.core.fabric import PoolFabric
+    from repro_torch.obs import ObsPlane
+
+    lean = dict(record_campaign_timeline=False, record_events=False)
+    ref_obs, port_obs = (RefObsPlane(trace=True), ObsPlane(trace=True)) if obs else (None, None)
+    ref_fab = RefPoolFabric(total_slots=8, capacity=100.0, lease_ttl=2.0, obs=ref_obs)
+    port_fab = PoolFabric(total_slots=8, capacity=100.0, lease_ttl=2.0, obs=port_obs)
+    pairs = {}
+    for tid, weight, kw in (("A", 3.0, dict(client_batching="wave")),
+                            ("B", 1.0, dict(client_batching="off", seed=7))):
+        clients = twin_clients(BATCH_SIZES, seed=4 + int(weight), budgets=BUDGETS[::-1])
+        pairs[tid] = twin_trainers(
+            clients=clients,
+            ref_ctor=dict(engine=ref_fab.add_tenant(tid, weight=weight, mirror=True, **lean),
+                          obs=ref_obs),
+            port_ctor=dict(engine=port_fab.add_tenant(tid, weight=weight, **lean),
+                           obs=port_obs),
+            **dict(kw, **fed_kw))
+    ref_hist = ref_fab.run_trainers({t: p[0] for t, p in pairs.items()})
+    port_hist = port_fab.run_trainers({t: p[1] for t, p in pairs.items()})
+    return pairs, ref_hist, port_hist, ref_obs, port_obs

@@ -5,9 +5,10 @@ be EQUAL (the engine is a pure-Python copy fed identical works); losses and
 params agree within 1e-5.  The reference runs with its control-plane mirror
 on (its default), the port without one: the mirror replays transitions and
 does not feed the timeline.  Also: the engine copy's timelines, and what
-the trainer still refuses (a dispatcher, an obs plane, fabric-driven
-rounds).  Compression, checkpoints and the other client models are in
-tests/test_torch_trainer_options.py."""
+the port still refuses (a dispatcher, the control-plane mirror).
+Compression, checkpoints and the other client models are in
+tests/test_torch_trainer_options.py; fabric-driven rounds in
+tests/test_torch_trainer_fabric.py."""
 import jax
 import numpy as np
 import pytest
@@ -112,13 +113,13 @@ def test_engine_copy_reproduces_reference_timelines(scenario):
     assert out[1][2] > 0
 
 
-@pytest.mark.parametrize("what", ["dispatcher", "obs", "submit_round", "collect_eager"])
+@pytest.mark.parametrize("what", ["dispatcher", "mirror"])
 def test_unported_trainer_options_raise(what):
+    """What is still to port raises, naming the multihost row of ROADMAP.md:
+    the trainer's remote dispatch and the engine's control-plane mirror."""
     _, port_cl = twin_clients([2], seed=0)
-    if what in ("dispatcher", "obs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu", **{what: object()})
-    else:
-        trainer = FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(trainer, what)(trainer.begin_round())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 row 6"):
+        if what == "dispatcher":
+            FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu", dispatcher=object())
+        else:
+            CampaignEngine(SCHEDULERS["fedhc"], mirror=True)
