@@ -209,9 +209,37 @@ Phases (any failure exits non-zero before the last line is printed):
              wall (both worlds), the run's wall traced and untraced and
              against the tenants one after the other, and the analytical
              against the measured seconds of one client step.
+25. multihost — the flat deployment of ``repro_torch.launch.multihost``:
+             its world (8 clients, 3 rounds, 8 participants, 2 local steps of
+             batch 8) at the repo's MLP width (hidden 128), every process on
+             the card.  Gates: (a) ``run_multihost`` — the FLServer here and 8
+             spawned worker processes over loopback TCP, codec v2 — against
+             ``run_local_inline`` (the same workers in this process over a
+             LocalTransport): params bit for bit, 8 completed every round,
+             ``wire_bytes`` above 0 and monotone; (b) the same with int8
+             uplink compression (``QuantizedTensor`` as a native v2 segment):
+             params bit for bit, every upload the server received int8
+             ``QuantizedTensor`` leaves and ``comm_bytes`` equal to their
+             ``tree_wire_bytes``, fewer payload bytes on the wire than (a);
+             (c) 4 clients × 2 rounds through a ``ChaosProxy`` that kills
+             every worker's connection once and sends every third client
+             frame twice: each worker killed once and resumed, ``completed``
+             [4, 4], params bit for bit against the fault-free inline run;
+             (d) (a)'s history on the simulated clock equal to a CPU inline
+             run of the same world, the params' change over the campaign
+             (final less initial) within MH_UPDATE_REL_TOL of the CPU's, leaf
+             by leaf, and the control (the card's inline run with one
+             client's delta zeroed each round) outside it.  No kernel is
+             on this path (a worker trains client by client): every count is
+             0 around each run of this process.  Printed only: each round's
+             wall by phase on the server (DISPATCH holds the broadcast, the
+             workers' steps and the uploads), the workers' ``train_s`` from
+             their stats blobs, the time from the spawn to the first
+             REGISTER, the wire bytes by share per round, inline against
+             socket wall.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3, 18, 23 and 24, ``tgmm`` with those of phases 3, 23 and 24, by path too, with worst
+of phases 3, 18, 23, 24 and 25, ``tgmm`` with those of phases 3, 23, 24 and 25, by path too, with worst
 errors and times by path and olmoe's wgmma times, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
@@ -2510,6 +2538,312 @@ def run_fabric_phase(torch, ops, mcfg, smi):
         "step_seconds": rt_rows}
 
 
+# ---------------------------------------------------------------- phase 25
+
+#: phase 25's world: repro_torch.launch.multihost's deployment world (8
+#: clients, 3 rounds, 8 participants, 2 local steps, batch 8) at the repo's
+#: MLP width (SmallModelConfig's default hidden, 128; WorldSpec's is 16)
+MH_HIDDEN = 128
+MH_ROUND_TIMEOUT = 300.0
+#: the fault-injection world and plan: every worker's connection killed
+#: once after two frames, every third client frame sent twice
+MH_CHAOS_WORLD = dict(n_clients=4, rounds=2, participants_per_round=4)
+MH_CHAOS_PLAN = dict(kill_after_frames=2, kill_times=1, duplicate_every=3)
+#: (d)'s limit: the largest per-leaf ‖Δcard − Δcpu‖ / ‖Δcpu‖ of the params'
+#: change over the campaign (Δ = final − initial params); read 4.5e-6 on an
+#: H100, the zeroed-delta control 0.39
+MH_UPDATE_REL_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def phase_walls(torch, walls):
+    """Every ``FederatedTrainer`` round's wall seconds by phase, appended to
+    ``walls`` (one dict a round; the card synchronized after each phase).
+    Under a dispatcher DISPATCH holds the remote training: the broadcast,
+    the workers' steps and the uploads over the wire."""
+    from repro_torch.fed.trainer import FederatedTrainer, RoundPhase
+
+    step_round = FederatedTrainer.step_round
+
+    def timed(self, st):
+        phase = st.phase
+        if phase is RoundPhase.SAMPLE:
+            walls.append({})
+        t0 = time.perf_counter()
+        out = step_round(self, st)
+        sync(torch, self.device)
+        walls[-1][phase.value] = walls[-1].get(phase.value, 0.0) + time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(FederatedTrainer, "step_round", timed):
+        yield
+
+
+def zero_launches(counters):
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def multihost_run(torch, counters, label, run, device=None):
+    """One deployment run with every kernel count set to 0 just before it
+    and read just after (the parent process's: a worker's launches are its
+    own process's, and a worker trains client by client, with no kernel on
+    its path): the trainer, its phase walls, the wall and the launches."""
+    walls = []
+    zero_launches(counters)
+    sync(torch, device or "cuda")
+    t0 = time.perf_counter()
+    with phase_walls(torch, walls):
+        trainer = run()
+    sync(torch, device or "cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    hist = trainer.history
+    for rec in hist:
+        for k, v in rec.items():
+            if "loss" in k or k.endswith("_ce"):
+                assert math.isfinite(v), (label, k, v)
+    say(f"  {label}: wall {wall:.3f} s, completed {[r['completed'] for r in hist]}, "
+        f"kernel launches in this process {launches}")
+    for i, w in enumerate(walls, 1):
+        say(f"    round {i} phase wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in w.items()))
+    return {"trainer": trainer, "walls": walls, "wall": wall, "launches": launches}
+
+
+def same_bits(torch, a, b):
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def say_bit_gap(torch, a, b):
+    """Where two parameter trees differ: each leaf's max |Δ| and how many
+    elements differ (printed before a bit-identity gate fails)."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    for (path, x), (_, y) in zip(tree_flatten_with_path(a), tree_flatten_with_path(b)):
+        x, y = x.cpu(), y.cpu()
+        say(f"    {path}: max |Δ| {float((x - y).abs().max()):.3e}, "
+            f"{int((x != y).sum())} of {x.numel()} elements differ")
+
+
+def socket_run(torch, counters, label, spec, chaos=None, device=None):
+    """``run_multihost`` over a server transport that notes its first
+    frame: 8 (or 4) spawned workers on the card over loopback TCP; with
+    ``chaos`` the workers dial a ``ChaosProxy``.  Adds the time from the
+    spawn to the first REGISTER, the server's per-session wire stats (the
+    workers' stats blobs) and the proxy."""
+    from repro_torch.fed.net import ChaosProxy, FaultPlan, SocketServerTransport
+    from repro_torch.launch.multihost import run_multihost
+
+    class FirstFrame(SocketServerTransport):
+        first_at = None
+
+        def _ingest(self, sess, body):
+            if self.first_at is None:
+                self.first_at = time.perf_counter()
+            super()._ingest(sess, body)
+
+    transport = FirstFrame(spec.host, spec.port, protocol_version=spec.wire_version)
+    proxy = (ChaosProxy(transport.host, transport.port, FaultPlan(**chaos))
+             if chaos is not None else None)
+    connect = (proxy.host, proxy.port) if proxy is not None else None
+    t_spawn = time.perf_counter()
+    try:
+        res = multihost_run(torch, counters, label, lambda: run_multihost(
+            spec, transport=transport, connect=connect, round_timeout=MH_ROUND_TIMEOUT,
+            device=device), device)
+    finally:
+        if proxy is not None:
+            proxy.close()
+    res.update(transport=transport, proxy=proxy, stats=transport.session_stats(),
+               first_register_s=transport.first_at - t_spawn)
+    peers = {cid: s.get("peer", {}) for cid, s in sorted(res["stats"].items())}
+    say(f"    spawn to the first REGISTER {res['first_register_s']:.3f} s; the workers' "
+        f"last train_s " + ", ".join(f"{c}: {p.get('train_s')}" for c, p in peers.items())
+        + "; train_s_total " + ", ".join(f"{c}: {p.get('train_s_total')}"
+                                         for c, p in peers.items()))
+    for rec in res["trainer"].history:
+        say(f"    round {rec['round']}: wire_bytes {rec['wire_bytes']}, wire_payload_bytes "
+            f"{rec['wire_payload_bytes']}, wire_header_bytes {rec['wire_header_bytes']}, "
+            f"comm_bytes {rec['comm_bytes']}")
+    return res
+
+
+@contextlib.contextmanager
+def dispatched_uploads(uploads, zero_first=False):
+    """Every round's uploads as ``ControlPlaneDispatcher.train_round`` hands
+    them to the trainer, one list a round, appended to ``uploads``.  With
+    ``zero_first`` (the control of gate (d)) the first reporting client's
+    delta reaches the trainer as zeros, its weight kept."""
+    import numpy as np
+
+    from repro_torch.launch.multihost import ControlPlaneDispatcher
+    from repro_torch.tree import tree_map
+
+    train_round = ControlPlaneDispatcher.train_round
+
+    def wrapped(self, *a, **kw):
+        out = train_round(self, *a, **kw)
+        if zero_first:
+            (delta, n, metrics), rest = out[0], out[1:]
+            out = [(tree_map(np.zeros_like, delta), n, metrics)] + rest
+        uploads.append([delta for delta, _n, _m in out])
+        return out
+
+    with mock.patch.object(ControlPlaneDispatcher, "train_round", wrapped):
+        yield
+
+
+def update_gap(torch, a, b, init):
+    """Largest per-leaf ‖(a − init) − (b − init)‖ / ‖b − init‖: two runs'
+    parameter changes over a campaign from the same initial params."""
+    from repro_torch.tree import tree_leaves
+
+    gap = 0.0
+    for x, y, z in zip(tree_leaves(a), tree_leaves(b), tree_leaves(init)):
+        dx, dy = x.cpu().double() - z.double(), y.cpu().double() - z.double()
+        gap = max(gap, float((dx - dy).norm() / dy.norm()))
+    return gap
+
+
+def run_multihost_phase(torch, counters, smi, device=None):
+    """Phase 25: the flat multihost deployment on the card (``device``
+    None: every process resolves the card), four gates."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.fed.compression import QuantizedTensor, is_compressed_tree, tree_wire_bytes
+    from repro_torch.launch.multihost import WorldSpec, build_world, run_local_inline
+    from repro_torch.models.small import init_small
+    from repro_torch.tree import tree_leaves
+
+    say(f"  card: {smi}")
+    spec = WorldSpec(hidden=MH_HIDDEN)
+    say(f"  world: {spec}")
+    row = {"card": smi}
+
+    say("  (a) 8 worker processes over loopback TCP (codec v2) against the inline run on the card:")
+    inline = multihost_run(torch, counters, "inline, LocalTransport", lambda: run_local_inline(spec, device), device)
+    sock = socket_run(torch, counters, "socket, 8 spawned workers", spec, device=device)
+    a_hist = sock["trainer"].history
+    a_same = same_bits(torch, inline["trainer"].params, sock["trainer"].params)
+    wires = [r["wire_bytes"] for r in a_hist]
+    say(f"  (a) params bit for bit: {a_same}; completed {[r['completed'] for r in a_hist]}; "
+        f"wire_bytes {wires}; inline wall {inline['wall']:.3f} s against socket "
+        f"{sock['wall']:.3f} s ({sock['wall'] / inline['wall']:.2f}x)")
+    if not a_same:
+        say_bit_gap(torch, inline["trainer"].params, sock["trainer"].params)
+    assert a_same
+    assert all(r["completed"] == spec.participants_per_round for r in a_hist), a_hist
+    assert wires[0] > 0 and wires == sorted(wires), wires
+    assert [r["mode"] for r in a_hist] == ["FULL"] * spec.rounds
+
+    say("  (b) the same with int8 uplink compression (QuantizedTensor as a native v2 segment):")
+    spec_b = dataclasses.replace(spec, compression="int8")
+    inline_b = multihost_run(torch, counters, "inline, int8", lambda: run_local_inline(spec_b, device), device)
+    uploads = []
+    with dispatched_uploads(uploads):
+        sock_b = socket_run(torch, counters, "socket, int8", spec_b, device=device)
+    b_hist = sock_b["trainer"].history
+    b_same = same_bits(torch, inline_b["trainer"].params, sock_b["trainer"].params)
+    assert len(uploads) == spec.rounds and all(
+        is_compressed_tree(u) and all(isinstance(q, QuantizedTensor) and q.q.dtype == np.int8
+                                      for q in tree_leaves(u))
+        for ups in uploads for u in ups), "an upload did not arrive as int8 QuantizedTensors"
+    expect = list(itertools.accumulate(sum(tree_wire_bytes(u) for u in ups) for ups in uploads))
+    comm = [r["comm_bytes"] for r in b_hist]
+    say(f"  (b) params bit for bit: {b_same}; comm_bytes {comm} against tree_wire_bytes of the "
+        f"uploads the server received {expect}; inline comm_bytes "
+        f"{[r['comm_bytes'] for r in inline_b['trainer'].history]}; "
+        f"wire_payload_bytes int8 {b_hist[-1]['wire_payload_bytes']} against f32 "
+        f"{a_hist[-1]['wire_payload_bytes']}")
+    if not b_same:
+        say_bit_gap(torch, inline_b["trainer"].params, sock_b["trainer"].params)
+    assert b_same
+    assert comm == expect, (comm, expect)
+    assert all(r["completed"] == spec.participants_per_round for r in b_hist), b_hist
+    assert b_hist[-1]["wire_payload_bytes"] < a_hist[-1]["wire_payload_bytes"]
+
+    say(f"  (c) fault injection: {MH_CHAOS_WORLD} through a ChaosProxy {MH_CHAOS_PLAN}:")
+    spec_c = dataclasses.replace(spec, **MH_CHAOS_WORLD)
+    inline_c = multihost_run(torch, counters, "inline, fault-free", lambda: run_local_inline(spec_c, device), device)
+    sock_c = socket_run(torch, counters, "socket through the proxy", spec_c, chaos=MH_CHAOS_PLAN,
+                        device=device)
+    proxy, transport = sock_c["proxy"], sock_c["transport"]
+    c_same = same_bits(torch, inline_c["trainer"].params, sock_c["trainer"].params)
+    c_completed = [r["completed"] for r in sock_c["trainer"].history]
+    say(f"  (c) connections killed {proxy.connections_killed}, frames duplicated "
+        f"{proxy.frames_duplicated}, forwarded {proxy.frames_forwarded}; server reconnects "
+        f"{transport.reconnects}, duplicates dropped {transport.duplicates_dropped}, "
+        f"retransmits {transport.retransmits}; completed {c_completed}; params bit for bit "
+        f"against the fault-free inline run: {c_same}")
+    if not c_same:
+        say_bit_gap(torch, inline_c["trainer"].params, sock_c["trainer"].params)
+    assert proxy.connections_killed == spec_c.n_clients, proxy.connections_killed
+    assert transport.reconnects >= spec_c.n_clients, transport.reconnects
+    assert c_completed == [spec_c.participants_per_round] * spec_c.rounds, c_completed
+    assert c_same
+
+    say("  (d) the card against the CPU: the inline run of (a)'s world on the CPU:")
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    cpu = run_local_inline(spec, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    diff = {k: [(g[k], w[k]) for g, w in zip(a_hist, cpu.history) if g[k] != w[k]]
+            for k in SIM_FIELDS}
+    diff = {k: v for k, v in diff.items() if v}
+    mcfg, _clients, _test, fed = build_world(spec)
+    init = init_small(fed.seed, mcfg, device="cpu")
+    gap = update_gap(torch, sock["trainer"].params, cpu.params, init)
+    params_rel = params_gap(torch, sock["trainer"].params, cpu.params)
+    zeroed = []
+    with dispatched_uploads(zeroed, zero_first=True):
+        control = run_local_inline(spec, device)
+    control_gap = update_gap(torch, control.params, cpu.params, init)
+    control_rel = params_gap(torch, control.params, cpu.params)
+    say(f"  (d) CPU inline wall {cpu_wall:.3f} s; simulated fields equal: {not diff}; the params' "
+        f"change over the campaign, card (socket) against CPU, largest per-leaf relative norm "
+        f"{gap:.3e} (limit {MH_UPDATE_REL_TOL:g}; the params themselves {params_rel:.3e}); the "
+        f"control, the card's inline run with one client's delta zeroed each round: {control_gap:.3e} "
+        f"(the params themselves {control_rel:.3e}); test_acc card {[r['test_acc'] for r in a_hist]}, "
+        f"CPU {[r['test_acc'] for r in cpu.history]}")
+    assert not diff, diff
+    assert gap <= MH_UPDATE_REL_TOL, gap
+    assert len(zeroed) == spec.rounds and control_gap > MH_UPDATE_REL_TOL, control_gap
+    launches = {name: sum(r["launches"].get(name, 0) for r in
+                          (inline, sock, inline_b, sock_b, inline_c, sock_c))
+                for name in ("gmm", "tgmm")}
+    assert all(v == 0 for r in (inline, sock, inline_b, sock_b, inline_c, sock_c)
+               for v in r["launches"].values()), "a kernel launched on the multihost path"
+
+    def summary(res):
+        return {"wall_s": res["wall"], "phase_wall_s": res["walls"]}
+
+    def sock_summary(res):
+        return {**summary(res), "first_register_s": res["first_register_s"],
+                "worker_train_s_total": {c: s.get("peer", {}).get("train_s_total")
+                                         for c, s in res["stats"].items()},
+                "wire": [{k: r[k] for k in ("wire_bytes", "wire_payload_bytes",
+                                            "wire_header_bytes", "comm_bytes")}
+                         for r in res["trainer"].history]}
+
+    row.update({
+        "a": {"inline": summary(inline), "socket": sock_summary(sock), "bit_identical": a_same},
+        "b_int8": {"inline": summary(inline_b), "socket": sock_summary(sock_b),
+                   "bit_identical": b_same, "comm_bytes": comm},
+        "c_chaos": {"inline": summary(inline_c), "socket": sock_summary(sock_c),
+                    "bit_identical": c_same, "killed": proxy.connections_killed,
+                    "reconnects": transport.reconnects},
+        "d_cpu": {"wall_s": cpu_wall, "update_gap": gap, "params_gap": params_rel,
+                  "control_update_gap": control_gap, "control_params_gap": control_rel},
+    })
+    return launches, row
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2772,6 +3106,13 @@ def main() -> int:
         f"under the analytical runtime")
     fabric_launches, fabric_tgmm_paths, fabric_row = run_fabric_phase(torch, ops, mcfg, smi)
     say(json.dumps({"fabric": fabric_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+
+    say(f"PHASE 25 multihost: the flat deployment of repro_torch.launch.multihost at hidden "
+        f"{MH_HIDDEN}: the FLServer and 8 spawned worker processes on the card over loopback "
+        f"TCP, against the inline run; int8 uplink; a ChaosProxy; the card against the CPU")
+    multihost_launches, multihost_row = run_multihost_phase(torch, counters, smi)
+    say(json.dumps({"multihost": multihost_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -2791,7 +3132,9 @@ def main() -> int:
         "launches": launches["tgmm"] + option_launches["tgmm"] + fabric_launches["tgmm"],
         "launches_by_path": {"femnist-mlp rounds": launches["tgmm"],
                              "femnist-mlp rounds, other options": option_launches["tgmm"],
-                             "femnist-mlp fabric, tenant A": fabric_launches["tgmm"]},
+                             "femnist-mlp fabric, tenant A": fabric_launches["tgmm"],
+                             "femnist-mlp multihost (server process)":
+                                 multihost_launches["tgmm"]},
         "path": rows[1]["path"], "wrapper_ms": rows[1]["wrapper_ms"],
         "launches_by_kernel_path": {p: tgmm_paths[p] + option_launches["tgmm_by_path"][p]
                                     + fabric_tgmm_paths[p] for p in tgmm_paths},
@@ -2810,7 +3153,9 @@ def main() -> int:
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
                              OLMOE_ARCH: olmoe_launches["gmm"],
                              "femnist-mlp rounds, other options": option_launches["gmm"],
-                             "femnist-mlp fabric, tenant A": fabric_launches["gmm"]},
+                             "femnist-mlp fabric, tenant A": fabric_launches["gmm"],
+                             "femnist-mlp multihost (server process)":
+                                 multihost_launches["gmm"]},
         "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
         OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
                      for (name, prod), r in moe_rows.items()},

@@ -1,6 +1,5 @@
 """FedHC core: the paper's contribution as composable modules (the port of
-``repro.core``, with the reference's exports but ``ControlPlaneMirror``,
-which comes with the multihost slice).
+``repro.core``, with the reference's exports).
 
 * budgets (system heterogeneity)          -> repro_torch.core.budget
 * framework-provided runtime (workload)   -> repro_torch.core.runtime
@@ -19,6 +18,7 @@ from repro_torch.core.campaign import (
     CampaignEngine,
     CampaignResult,
     CapacityEvent,
+    ControlPlaneMirror,
     RoundSpec,
 )
 from repro_torch.core.fabric import PoolFabric, ResourceArbiter, TenantSlots

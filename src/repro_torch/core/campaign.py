@@ -17,11 +17,12 @@ subscribers of client completions and round closes (``on_client_done``,
 ``on_round_complete``).  With ``obs=`` it counts on the metrics registry
 and traces on the simulated clock, scoped by ``tenant``.
 
-Left out of this copy: the control-plane mirror (the reference's
-``ControlPlaneMirror`` replays each simulated transition through the
-``FLServer`` protocol and does not feed the timeline).  The engine takes
-its parameters (``mirror``, ``server``, ``mirror_delta_provider``,
-``mirror_compression``) and raises where a caller asks for a mirror.
+Control-plane coupling, as in the reference: with ``mirror=True`` (or a
+``server`` or ``mirror_delta_provider``) every simulated SPAWN/COMPLETE/FAIL
+is replayed as the paper's message sequence through the ``FLServer``'s
+``StatusMonitor`` (:class:`ControlPlaneMirror`); the mirror does not feed
+the timeline.  ``mirror_noise`` (port only) is int8's rounding-noise seam
+for a compressing mirror, as ``FederatedTrainer``'s ``noise``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.core.budget import ClientBudget
 from repro_torch.core.executor import ProcessManager
 from repro_torch.core.scheduler import FedHCScheduler, SchedulerBase
 from repro_torch.core.sharing import compute_rates
+from repro_torch.obs.metrics import Counter
 
 # --------------------------------------------------------------------------
 # Result dataclasses (``repro_torch.core.simulator`` re-exports them)
@@ -210,6 +212,124 @@ class AvailabilityTrace:
 
 
 # --------------------------------------------------------------------------
+# Control-plane mirror
+# --------------------------------------------------------------------------
+
+
+class ControlPlaneMirror:
+    """Mirrors simulated executor lifecycle transitions into the FLServer's
+    message protocol, so the StatusMonitor's per-client state machine and
+    the record table track exactly what the timing engine simulated.
+
+    With a ``delta_provider`` the UPLOAD payloads carry *real* parameter
+    deltas — ``provider(cid)`` returns a delta tree of numpy arrays (wire
+    payloads are numpy at the seams) or a ``(delta, n)`` pair — optionally
+    squeezed through ``repro_torch.fed.compression``: the payload then
+    carries the *compressed* wire-native tree (int8 + scale / topk pairs,
+    which wire codec v2 transmits without re-inflation) and ``comm_bytes``
+    accumulates the compressed wire size; receivers dequantize with
+    ``repro_torch.fed.compression.decompress_tree``.  ``noise`` is int8's
+    rounding-noise seam (``repro_torch.fed.compression.Noise``).  Without a
+    provider the payloads stay empty (pure control-plane coupling).
+
+    The StatusMonitor keys its state machine by client id, so when async
+    round boundaries give the same client two concurrently running
+    executors (a round-r straggler plus its round-r+1 re-admission), the
+    mirror *serializes* them on the wire: one session is open whenever the
+    client has any live executor, each simulated outcome is delivered on
+    that open session (COMPLETE -> TRAIN_DONE/UPLOAD, FAIL -> ABORT), and
+    a fresh session is registered immediately if executors remain.  The
+    session-to-executor binding is nominal under overlap, but the counts
+    and final per-client state always match the timing authority.
+    """
+
+    def __init__(self, server=None, *, delta_provider=None,
+                 compression: str = "none", comm_counter: Optional[Counter] = None,
+                 noise=None):
+        from repro_torch.fed.server import FLServer  # lazy: keep core light
+
+        self.server = server if server is not None else FLServer()
+        self.delta_provider = delta_provider
+        self.compression = compression
+        self.noise = noise
+        # byte accounting on the shared counter primitive; an injected
+        # counter lets the engine alias it into a metrics registry
+        self._comm = comm_counter if comm_counter is not None else Counter()
+        self._live: Dict[int, int] = {}   # cid -> live simulated executors
+        self._uploads: Dict[int, int] = {}  # cid -> upload count (comp. seed)
+
+    @property
+    def comm_bytes(self) -> int:
+        return int(self._comm.value)
+
+    @comm_bytes.setter
+    def comm_bytes(self, v: int) -> None:
+        self._comm.reset(int(v))
+
+    def _roundtrip(self, kind, cid, payload=None):
+        from repro_torch.fed.server import Message
+
+        t = self.server.transport
+        t.send_to_server(Message(kind, cid, payload or {}))
+        self.server.step()
+        return t.poll_client(cid)
+
+    def _register(self, cid: int) -> None:
+        from repro_torch.fed.server import MsgType
+
+        self._roundtrip(MsgType.REGISTER, cid)          # -> WAIT
+        self._roundtrip(MsgType.READY, cid)             # -> TRAIN
+
+    def on_spawn(self, cid: int) -> None:
+        n = self._live.get(cid, 0)
+        self._live[cid] = n + 1
+        if n == 0:
+            self._register(cid)  # overlapped spawns wait for the session
+
+    def _closed(self, cid: int) -> None:
+        n = self._live.get(cid, 1) - 1
+        if n:
+            self._live[cid] = n
+            self._register(cid)  # next overlapped executor takes the wire
+        else:
+            self._live.pop(cid, None)
+
+    def _upload_payload(self, cid: int) -> dict:
+        if self.delta_provider is None:
+            return {}
+        from repro_torch.fed.compression import compress_tree, tree_wire_bytes
+        from repro_torch.fed.transport import check_numpy_tree
+
+        out = self.delta_provider(cid)
+        delta, n = out if isinstance(out, tuple) else (out, 1.0)
+        check_numpy_tree(delta, "the mirror's delta provider")
+        if self.compression != "none":
+            seq = self._uploads.get(cid, 0)
+            self._uploads[cid] = seq + 1
+            # the payload carries the *compressed* delta (int8 + scale /
+            # topk pairs are native wire dtypes — codec v2 transmits them
+            # without re-inflation); consumers dequantize via
+            # decompress_tree, which is an identity on uncompressed payloads
+            delta = compress_tree(delta, self.compression,
+                                  seed=cid + 100_003 * seq, noise=self.noise)
+        self._comm.inc(tree_wire_bytes(delta))
+        return {"delta": delta, "n": n}
+
+    def on_complete(self, cid: int) -> None:
+        from repro_torch.fed.server import MsgType
+
+        self._roundtrip(MsgType.TRAIN_DONE, cid)        # -> SEND_UPDATE
+        self._roundtrip(MsgType.UPLOAD, cid, self._upload_payload(cid))
+        self._closed(cid)
+
+    def on_fail(self, cid: int) -> None:
+        from repro_torch.fed.server import MsgType
+
+        self._roundtrip(MsgType.ABORT, cid)             # -> TERMINATE
+        self._closed(cid)
+
+
+# --------------------------------------------------------------------------
 # Engine internals
 # --------------------------------------------------------------------------
 
@@ -341,11 +461,8 @@ class CampaignEngine:
         mirror_compression: str = "none",
         obs=None,
         tenant: str = "campaign",
+        mirror_noise=None,
     ):
-        if mirror or server is not None or mirror_delta_provider is not None:
-            raise NotImplementedError(
-                "the control-plane mirror is not ported yet (ROADMAP.md, "
-                "queue 1 row 6: multihost)")
         self.scheduler_cls = scheduler_cls
         self.theta = theta
         self.capacity = capacity
@@ -390,6 +507,18 @@ class CampaignEngine:
                                       obs.registry.counter("exec.spawns",
                                                            self.tenant)
                                       if obs is not None else None))
+        self.mirror = (
+            ControlPlaneMirror(server, delta_provider=mirror_delta_provider,
+                               compression=mirror_compression,
+                               comm_counter=(
+                                   obs.registry.counter("fed.comm_bytes",
+                                                        self.tenant)
+                                   if obs is not None else None),
+                               noise=mirror_noise)
+            if (mirror or server is not None or mirror_delta_provider is not None)
+            else None
+        )
+        self.server = self.mirror.server if self.mirror else None
 
         self.now = float(start_clock)
         self.active: Dict[int, _Active] = {}     # eid -> record
@@ -613,6 +742,8 @@ class CampaignEngine:
             heapq.heappush(self._heap, (
                 self.now + ft, _P_FAIL, next(self._seq), "fail", ex.eid, 0,
             ))
+        if self.mirror:
+            self.mirror.on_spawn(entry.client_id)
 
     def _remove(self, rec: _Active) -> _Round:
         rnd = self._rounds[rec.round_idx]
@@ -673,6 +804,8 @@ class CampaignEngine:
             self._mx.completed.value += 1
         if self._trace is not None:
             self._exec_span(rec, "ok")
+        if self.mirror:
+            self.mirror.on_complete(rec.cid)
         if self._on_client_done:  # hot path: one load + branch when unused
             for cb in self._on_client_done:
                 cb(rec.cid, rec.round_idx)
@@ -685,6 +818,8 @@ class CampaignEngine:
             self._mx.failed.value += 1
         if self._trace is not None:
             self._exec_span(rec, "fail")
+        if self.mirror:
+            self.mirror.on_fail(rec.cid)
 
     def _evict(self, rec: _Active) -> None:
         """Availability churn: the client left mid-execution — fail the
@@ -698,6 +833,8 @@ class CampaignEngine:
             self._mx.evicted.value += 1
         if self._trace is not None:
             self._exec_span(rec, "evict")
+        if self.mirror:
+            self.mirror.on_fail(rec.cid)
 
     # -- capacity ----------------------------------------------------------
 
@@ -744,6 +881,8 @@ class CampaignEngine:
                     self._mx.evicted.value += 1
                 if self._trace is not None:
                     self._exec_span(victim, "shed")
+                if self.mirror:
+                    self.mirror.on_fail(victim.cid)
         # force the next reconcile through the slow path: it settles against
         # the old rates, re-waterfills against the new capacity, and re-keys
         # every completion entry
@@ -770,6 +909,8 @@ class CampaignEngine:
                     self._trace.instant("lease.preempt", self.now,
                                         self.tenant, f"slot {slot}",
                                         args={"cid": rec.cid, "slot": slot})
+                if self.mirror:
+                    self.mirror.on_fail(rec.cid)
                 return rec.cid
         return None
 

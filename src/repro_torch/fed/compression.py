@@ -10,8 +10,9 @@ The port of ``repro.fed.compression``:
 Two equivalent representations, one quantization math: the legacy
 flattened dict (:func:`compress` / :func:`decompress`) and the wire-native
 tree (:func:`compress_tree` / :func:`decompress_tree`) whose leaves are
-:class:`QuantizedTensor` / :class:`TopKTensor`.  Wire leaves are numpy, as
-the reference's, so the v2 codec can send them.
+:class:`~repro_torch.fed.transport.QuantizedTensor` /
+:class:`~repro_torch.fed.transport.TopKTensor` (the codec's own wire types,
+as in the reference).  Wire leaves are numpy, so the v2 codec sends them.
 
 The reference draws int8's rounding noise from ``jax.random``, which torch
 cannot reproduce.  So the noise is a seam: ``noise(seed, leaf index, shape)``
@@ -24,39 +25,18 @@ f32 in every form.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.bridge import to_numpy
+from repro_torch.fed.transport import QuantizedTensor, TopKTensor
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 #: (seed, leaf index, shape) -> uniform [0, 1) of that shape (array or tensor)
 Noise = Callable[[int, int, Tuple[int, ...]], Any]
-
-
-@dataclass(frozen=True)
-class QuantizedTensor:
-    """QSGD-style per-tensor symmetric int8 quantization: ``q`` (int8,
-    original shape) and one scalar ``scale`` such that the dequantized
-    tensor is ``q.astype(f32) * scale``."""
-
-    q: Any
-    scale: float
-
-
-@dataclass(frozen=True)
-class TopKTensor:
-    """Magnitude top-k sparsification: ``idx`` (int32 indices into the
-    flattened tensor), ``vals`` (float32), and the dense ``shape``."""
-
-    idx: Any
-    vals: Any
-    shape: Tuple[int, ...]
-
 
 _WIRE_LEAF_TYPES = (QuantizedTensor, TopKTensor)
 

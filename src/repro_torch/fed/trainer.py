@@ -8,14 +8,19 @@ state machine (:class:`RoundPhase`):
                 clock of its real train step on the device, or a fixed
                 backend), draw failure times and the deadline;
   ``SIMULATE``  drive the FedHC campaign engine (scheduler + process
-                manager + sharing under one continuous clock) to get the
-                round's simulated timeline;
-  ``DISPATCH``  pick the round's finishers;
+                manager + sharing under one continuous clock, with every
+                SPAWN/COMPLETE/FAIL mirrored through the FLServer control
+                plane) to get the round's simulated timeline;
+  ``DISPATCH``  pick the round's finishers and, when a control-plane
+                dispatcher is injected, have the remote workers train them
+                (``repro_torch.launch.multihost.ControlPlaneDispatcher``:
+                the global params leave as numpy, the deltas come back as
+                numpy, or compressed wire trees);
   ``COLLECT``   run the *actual* local training — one finisher per step,
                 or with ``client_batching="wave"`` every finisher in one
                 :class:`~repro_torch.fed.batch_exec.BatchedExecutor` wave,
                 so a fabric can interleave this wall-clock work with other
-                tenants' phases;
+                tenants' phases — or take the remote results, one a step;
   ``AGGREGATE`` sync weighted FedAvg, or FedBuff-style async ordered by
                 simulated completion times, with optional uplink
                 compression (int8 / topk);
@@ -37,14 +42,12 @@ die are simply absent from aggregation).
 With ``obs=`` (``repro_torch.obs.ObsPlane``) the trainer counts
 ``fed.comm_bytes``, ``client.train_seconds`` and ``round.degraded`` in its
 tenant's scope, and traces ``client.train``, ``client.batch_wave`` and
-``round.aggregate`` on the wall clock.  A wall span closes after the card
+``round.aggregate`` on the wall clock (``round.broadcast`` too, with a
+dispatcher).  A wall span closes after the card
 has finished its work: every collect path ends by bringing the metrics to
 the host (``float`` / ``.cpu()``), which waits for the work queued before
 it, and the aggregate, which reads nothing back, synchronizes the card
 when it is traced.
-
-Still to port: remote dispatch (a control-plane dispatcher); asking for it
-raises.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.core.aggregation import AsyncAggregator, apply_deltas, tree_nbytes
 from repro_torch.core.budget import ClientBudget, WorkloadSpec
@@ -70,7 +73,9 @@ from repro_torch.data.synthetic import make_dataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.batch_exec import BatchedExecutor
 from repro_torch.fed.client import FLClient, batch_to, make_small_step
-from repro_torch.fed.compression import Noise, compress_tree, decompress_tree, tree_wire_bytes
+from repro_torch.fed.compression import (
+    Noise, compress_tree, decompress_tree, is_compressed_tree, tree_wire_bytes,
+)
 from repro_torch.models.small import SmallModelConfig, init_small, small_loss
 from repro_torch.obs.metrics import Counter
 from repro_torch.optim.optimizers import make_optimizer
@@ -133,17 +138,13 @@ class RoundState:
     result: Optional[RoundResult] = None
     engine_round_idx: Optional[int] = None   # set by submit_round (fabric)
     finishers: List[Tuple[int, Any]] = field(default_factory=list)
+    remote: Optional[list] = None            # dispatcher round results
     trainable: List[int] = field(default_factory=list)  # eager-collect queue
-    mode: str = "FULL"
+    mode: str = "FULL"                       # FULL | DEGRADED (quorum close)
     deltas: List[Tuple[PyTree, float]] = field(default_factory=list)
     train_metrics: Dict[str, float] = field(default_factory=dict)
     collect_idx: int = 0                     # finishers collected so far
     rec: Optional[dict] = None               # the round's history record
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 row 6: multihost)")
 
 
 class FederatedTrainer:
@@ -168,13 +169,14 @@ class FederatedTrainer:
         the framework-provided runtime backend (default:
         ``MeasuredRuntime`` on ``device``; inject ``FixedRuntime`` to make
         the simulated timeline reproducible across hosts, or
-        ``AnalyticalRuntime`` for the card's roofline).  ``obs`` is an
-        observability plane.  ``device`` defaults to the CUDA card.
+        ``AnalyticalRuntime`` for the card's roofline).  ``dispatcher``
+        (optional) makes local training *remote*: the round's finishers
+        are trained by worker processes driven over the control plane —
+        see ``repro_torch.launch.multihost.ControlPlaneDispatcher``.
+        ``obs`` is an observability plane.  ``device`` defaults to the CUDA card.
         ``noise`` is int8 compression's rounding noise
         (``repro_torch.fed.compression``; default: a ``torch.Generator`` on
         the device)."""
-        if dispatcher is not None:
-            raise _not_ported("remote dispatch")
         if fed.client_batching not in ("off", "wave"):
             raise ValueError(f"unknown client_batching {fed.client_batching!r}")
         self.device = resolve_device(device)
@@ -185,6 +187,7 @@ class FederatedTrainer:
                            if test_batch is not None else None)
         self.rng = np.random.default_rng(fed.seed)
         self.runtime = runtime if runtime is not None else MeasuredRuntime(self.device)
+        self.dispatcher = dispatcher
         self.noise = noise
         self.opt = make_optimizer(fed.optimizer, fed.learning_rate)
         self.step_fn = make_small_step(mcfg, self.opt, fed.prox_mu)
@@ -208,8 +211,7 @@ class FederatedTrainer:
         self._h_train = (obs.registry.histogram("client.train_seconds",
                                                 self.tenant)
                          if obs is not None else None)
-        # rounds closed DEGRADED: only a quorum-closing dispatcher (row 6)
-        # degrades a round, so it stays at zero here
+        # rounds closed DEGRADED by a quorum-closing dispatcher
         self._m_degraded = (obs.registry.counter("round.degraded",
                                                  self.tenant)
                             if obs is not None else Counter())
@@ -218,14 +220,16 @@ class FederatedTrainer:
             buffer_size=fed.async_buffer, server_lr=fed.server_lr
         )
         # one campaign engine for the whole run: continuous simulated clock
-        # across rounds, executor pool persists.  An injected engine is a
-        # fabric tenant's: this trainer then draws executors through the
-        # arbiter's lease.
+        # across rounds, executor pool persists, and every simulated
+        # SPAWN/COMPLETE/FAIL is mirrored through the FLServer control
+        # plane.  An injected engine is a fabric tenant's: this trainer
+        # then draws executors through the arbiter's lease.
         self.engine = engine if engine is not None else CampaignEngine(
             SCHEDULERS[fed.scheduler],
             theta=fed.theta,
             manager_mode=fed.manager_mode,
             max_parallel=fed.max_parallel,
+            mirror=True,
             obs=obs,
             # lifelong engine: per-round timelines feed the history records,
             # but the campaign-global timeline and executor event history
@@ -376,7 +380,7 @@ class FederatedTrainer:
         arrive in span-end order, exactly the finisher order DISPATCH
         would pick, so eager collection is identical to collecting after
         the fact.  Returns True if a client was trained."""
-        if st.phase is not RoundPhase.SIMULATE:
+        if st.phase is not RoundPhase.SIMULATE or self.dispatcher is not None:
             return False
         # over-selection: only the first participants_per_round completions
         # become finishers — never train past that cap
@@ -393,7 +397,7 @@ class FederatedTrainer:
         off.  Returns the number of clients trained."""
         if self.batch_exec is None:
             return int(self.collect_eager(st))
-        if st.phase is not RoundPhase.SIMULATE:
+        if st.phase is not RoundPhase.SIMULATE or self.dispatcher is not None:
             return 0
         cap = min(len(st.trainable), self.fed.participants_per_round)
         if st.collect_idx >= cap:
@@ -403,36 +407,79 @@ class FederatedTrainer:
         return len(cids)
 
     def _step_dispatch(self, st: RoundState) -> None:
+        fed = self.fed
         st.finishers = sorted(
             st.result.spans.items(), key=lambda kv: kv[1].end
-        )[:self.fed.participants_per_round]
+        )[:fed.participants_per_round]
+        if self.dispatcher is not None:
+            t0 = time.time()
+            # the global params leave as numpy: payloads are numpy at the
+            # seams, whatever transport carries them
+            st.remote = self.dispatcher.train_round(
+                [cid for cid, _ in st.finishers], params_to_numpy(self.params),
+                fed.local_steps, self.round, compression=fed.compression,
+            )
+            report = getattr(self.dispatcher, "last_round_report", None)
+            if report is not None and report.get("mode") == "DEGRADED":
+                # quorum close: the dispatcher returned results for the
+                # reported subset only — drop the stragglers' finisher
+                # slots so COLLECT/AGGREGATE see matching lists and the
+                # FedAvg weight sum renormalizes over the survivors
+                reported = set(report.get("reported", ()))
+                st.finishers = [f for f in st.finishers if f[0] in reported]
+                st.mode = "DEGRADED"
+                if st.result is not None:
+                    st.result.mode = "DEGRADED"
+                self._m_degraded.inc()
+                if self._trace is not None:
+                    self._trace.wall_instant(
+                        "round.degraded", self.tenant, "rounds",
+                        args={"round": self.round,
+                              "reported": len(st.finishers),
+                              "stragglers": len(report.get("stragglers", ()))})
+            if self._trace is not None:
+                self._trace.wall_span(
+                    "round.broadcast", t0, time.time(), self.tenant, "rounds",
+                    args={"round": self.round, "clients": len(st.finishers)})
         st.phase = RoundPhase.COLLECT
 
     def _collect_client(self, st: RoundState, cid: int) -> None:
-        """Train and ingest ONE finisher (st.collect_idx'th); shared by the
+        """Train/ingest ONE finisher (st.collect_idx'th): the real local
+        training in-process, or the matching remote result; shared by the
         COLLECT phase step and the eager path."""
-        t0 = time.time()
-        delta, n_seen, m = st.by_id[cid].train_local(
-            self.params, self.step_fn, self.opt, n_steps=self.fed.local_steps)
-        t1 = time.time()
-        if self._h_train is not None:
-            self._h_train.observe(t1 - t0)
-        if self._trace is not None:
-            self._trace.wall_span(
-                "client.train", t0, t1, self.tenant, "train",
-                args={"cid": cid, "round": self.round})
+        if st.remote is not None:
+            delta, n_seen, m = st.remote[st.collect_idx]
+        else:
+            t0 = time.time()
+            delta, n_seen, m = st.by_id[cid].train_local(
+                self.params, self.step_fn, self.opt, n_steps=self.fed.local_steps)
+            t1 = time.time()
+            if self._h_train is not None:
+                self._h_train.observe(t1 - t0)
+            if self._trace is not None:
+                self._trace.wall_span(
+                    "client.train", t0, t1, self.tenant, "train",
+                    args={"cid": cid, "round": self.round})
         self._ingest_delta(st, cid, delta, n_seen, m)
 
     def _ingest_delta(self, st: RoundState, cid: int, delta, n_seen, m) -> None:
         """Compression + comm accounting + delta bookkeeping for one
-        collected client — shared by the per-client and batched-wave paths,
-        with the reference's per-client compression seeds."""
+        collected client — shared by the per-client, batched-wave and
+        remote paths, with the reference's per-client compression seeds.  A
+        remote delta arrives as numpy, already compressed where the round
+        compresses (workers compress at the source), and is brought onto
+        the trainer's device here."""
         fed = self.fed
         if fed.compression != "none":
-            wire = compress_tree(delta, fed.compression,
-                                 seed=self.round * 1000 + cid, noise=self.noise)
+            wire = delta
+            if st.remote is None or not is_compressed_tree(delta):
+                wire = compress_tree(delta, fed.compression,
+                                     seed=self.round * 1000 + cid, noise=self.noise)
             self._comm.inc(tree_wire_bytes(wire))
             delta = params_from_numpy(decompress_tree(wire), self.device)
+        elif st.remote is not None:
+            self._comm.inc(tree_wire_bytes(delta))
+            delta = params_from_numpy(delta, self.device)
         else:
             self._comm.inc(tree_nbytes(delta))
         st.deltas.append((delta, float(n_seen)))
@@ -462,8 +509,9 @@ class FederatedTrainer:
 
     def _step_collect(self, st: RoundState) -> None:
         if st.collect_idx < len(st.finishers):
-            if self.batch_exec is not None:
+            if self.batch_exec is not None and st.remote is None:
                 # batched path: drain every remaining finisher in one wave
+                # (remote dispatch keeps the per-client loop)
                 self._collect_wave(
                     st, [cid for cid, _ in st.finishers[st.collect_idx:]])
             else:
@@ -508,6 +556,11 @@ class FederatedTrainer:
             "comm_bytes": self.comm_bytes,
             **{f"train_{k}": v for k, v in st.train_metrics.items()},
         }
+        if self.dispatcher is not None:
+            # bytes framed onto the wire (both directions), from the
+            # dispatcher's transport counters — split into the tensor
+            # payload share vs framing/header overhead
+            rec.update(self.dispatcher.wire_stats())
         if self.test_batch is not None:
             with torch.no_grad():
                 loss, m = small_loss(self.params, self.mcfg, self.test_batch)

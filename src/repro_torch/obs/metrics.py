@@ -148,7 +148,21 @@ CANONICAL_METRICS: Dict[str, str] = {
     "fabric.capacity_events": "counter — elastic capacity changes applied",
     "exec.spawns": "counter — executor processes spawned",
     "fed.comm_bytes": "counter — application-level bytes moved (mirror/trainer)",
+    "server.restarts": "counter — client restarts detected by SessionTracker",
+    "server.duplicate_uploads_dropped": "counter — (cid, round) upload dedup hits",
+    "server.sessions_evicted": "counter — sessions dropped by TTL sweep",
+    "wire.framed_bytes": "counter — framed bytes incl. 4-byte length prefix",
+    "wire.payload_bytes": "counter — tensor-segment share of framed bytes",
+    "wire.header_bytes": "counter — header/framing share of framed bytes",
+    "wire.messages": "counter — envelopes encoded",
+    "wire.reconnects": "counter — client transport reconnect events",
+    "wire.duplicates_dropped": "counter — duplicate seq frames dropped",
+    "wire.retransmits": "counter — outbox frames resent on session resume",
+    "wire.auth_rejects": "counter — handshakes rejected by HMAC session auth",
+    "wire.sessions_dead": "counter — sessions declared dead by the liveness reaper",
     "round.degraded": "counter — rounds closed DEGRADED by the quorum policy",
+    "fault.round_closed_aborts": "counter — stragglers sent TERMINATE round_closed",
+    "fault.wal_appends": "counter — records appended to the round journal",
     "client.train_seconds": "histogram — wall-clock local training time (s)",
     "client.batch_waves": "counter — batched COLLECT waves executed",
     "client.batch_clients": "counter — clients trained through batched waves",

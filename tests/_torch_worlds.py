@@ -165,8 +165,9 @@ def engine_digest(eng):
 def twin_fabric_trainers(obs=False, **fed_kw):
     """The same two-tenant fabric in each package, run by ``run_trainers``:
     A (weight 3) batches its waves, B (weight 1) trains clients one at a
-    time with another seed and world.  The reference tenants carry their
-    control-plane mirror, as its tests do; it does not feed the timeline.
+    time with another seed and world.  The tenants of both packages carry
+    their control-plane mirror, as the reference's tests do; it does not
+    feed the timeline.
     Returns ({tenant: (ref trainer, port trainer)}, ref histories, port
     histories, ref obs plane, port obs plane)."""
     from repro.core.fabric import PoolFabric as RefPoolFabric
@@ -186,7 +187,7 @@ def twin_fabric_trainers(obs=False, **fed_kw):
             clients=clients,
             ref_ctor=dict(engine=ref_fab.add_tenant(tid, weight=weight, mirror=True, **lean),
                           obs=ref_obs),
-            port_ctor=dict(engine=port_fab.add_tenant(tid, weight=weight, **lean),
+            port_ctor=dict(engine=port_fab.add_tenant(tid, weight=weight, mirror=True, **lean),
                            obs=port_obs),
             **dict(kw, **fed_kw))
     ref_hist = ref_fab.run_trainers({t: p[0] for t, p in pairs.items()})

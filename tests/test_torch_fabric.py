@@ -267,9 +267,23 @@ def test_work_conserving_borrow_when_other_tenant_idle():
 
 
 def test_fabric_refuses_unknown_tenants_and_a_mirror():
+    """An unregistered tenant is refused; a tenant with the control-plane
+    mirror (once refused too, whence the name) runs, its monitor tracking
+    the reference's."""
     fab = port_fabric.PoolFabric(total_slots=4)
     fab.add_tenant("A")
     with pytest.raises(KeyError, match="unregistered"):
         fab.run({"B": [[port_campaign.SimClient(0, 10.0, 1.0)]]})
-    with pytest.raises(NotImplementedError, match="queue 1 row 6"):
-        fab.add_tenant("M", mirror=True)
+
+    def run(campaign, fabric, scheduler):
+        fab = fabric.PoolFabric(total_slots=4, lease_ttl=2.0)
+        eng = fab.add_tenant("M", mirror=True)
+        fab.add_tenant("N", weight=2.0)
+        res = fab.run({"M": [_flood(campaign.SimClient, 6, work=3.0)] * 2,
+                       "N": [_flood(campaign.SimClient, 6, work=5.0, base=100)]})
+        mon = eng.server.monitor
+        return (campaign_digest(res["M"]), dict(mon.state),
+                [(c, k.value, st) for c, k, st in mon.log], sorted(eng.server.uploads))
+    ref, port = _both(run)
+    assert port == ref
+    assert set(port[1].values()) == {"done"} and len(port[3]) == 6

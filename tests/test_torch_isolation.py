@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, and its entry points never move to
+neither JAX nor the reference package (nor ``ml_dtypes``: the wire codec
+carries bf16 through torch), and its entry points never move to
 the CPU on their own."""
 import ast
 import os
@@ -28,7 +29,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torc
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))
 print('MODULES', len(names))
 print('BAD', bad)
 assert not bad, bad
@@ -67,6 +68,7 @@ def _entry_points():
     from repro_torch.core.runtime import MeasuredRuntime
     from repro_torch.fed.batch_exec import BatchedExecutor
     from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+    from repro_torch.launch.multihost import WorldSpec, run_local_inline
     from repro_torch.launch.serve import serve
     from repro_torch.models.lm import init_lm, make_lm_cache
     from repro_torch.models.small import SmallModelConfig, init_small
@@ -83,13 +85,15 @@ def _entry_points():
         "init_lm": lambda: init_lm(torch.Generator(), lm_cfg),
         "make_lm_cache": lambda: make_lm_cache(lm_cfg, 1, 8),
         "serve": lambda: serve(lm_cfg, batch=1, prompt_len=4, decode_steps=1),
+        "run_local_inline": lambda: run_local_inline(WorldSpec(n_clients=2, rounds=1,
+                                                               participants_per_round=2)),
     }
 
 
 @pytest.mark.parametrize("name", ["init_small", "BatchedExecutor",
                                   "FederatedTrainer", "MeasuredRuntime",
                                   "params_from_numpy", "init_lm", "make_lm_cache",
-                                  "serve"])
+                                  "serve", "run_local_inline"])
 def test_entry_point_without_device_raises_on_a_cpu_only_host(name):
     _no_card()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -99,9 +103,14 @@ def test_entry_point_without_device_raises_on_a_cpu_only_host(name):
 def test_entry_points_run_on_the_cpu_when_asked():
     from repro_torch.models.small import SmallModelConfig, init_small
 
+    from repro_torch.launch.multihost import WorldSpec, run_local_inline
+
     params = init_small(0, SmallModelConfig(hidden=4, n_layers=1, image_size=2),
                         device="cpu")
     assert params["main"]["head"]["w"].device.type == "cpu"
+    trainer = run_local_inline(WorldSpec(n_clients=2, rounds=1, participants_per_round=2),
+                               device="cpu")
+    assert trainer.device.type == "cpu" and trainer.history[0]["completed"] == 2
 
 
 def test_kernel_wrappers_take_only_cpu_or_cuda_tensors():

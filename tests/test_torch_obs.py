@@ -93,7 +93,7 @@ def test_canonical_table_is_the_references_and_strict_mode_gates_it():
     for name in port_obs.CANONICAL_METRICS:
         reg.counter(name, "x")
     with pytest.raises(KeyError, match="CANONICAL_METRICS"):
-        reg.counter("wire.framed_bytes", "x")     # the multihost slice's
+        reg.counter("hier.clients_folded", "x")   # the hierarchical tree's (row 6b)
 
 
 def test_tracer_units_equal_reference():

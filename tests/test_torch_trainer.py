@@ -2,16 +2,18 @@
 waves (mixed batch sizes) with a deterministic runtime, starting from the
 reference trainer's own initial params.  Engine-derived history fields must
 be EQUAL (the engine is a pure-Python copy fed identical works); losses and
-params agree within 1e-5.  The reference runs with its control-plane mirror
-on (its default), the port without one: the mirror replays transitions and
-does not feed the timeline.  Also: the engine copy's timelines, and what
-the port still refuses (a dispatcher, the control-plane mirror).
+params agree within 1e-5.  Both trainers run their engine's control-plane
+mirror (the default); the mirror replays transitions and does not feed the
+timeline.  Also: the engine copy's timelines, and the trainer options of
+the multihost slice (a dispatcher, the control-plane mirror).
 Compression, checkpoints and the other client models are in
 tests/test_torch_trainer_options.py; fabric-driven rounds in
-tests/test_torch_trainer_fabric.py."""
+tests/test_torch_trainer_fabric.py; the multihost deployment in
+tests/test_torch_multihost.py."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.ckpt.checkpoint import _flatten as ref_flatten
 from repro.core.campaign import CampaignEngine as RefCampaignEngine
@@ -22,6 +24,7 @@ from repro_torch.core.campaign import CampaignEngine
 from repro_torch.core.scheduler import SCHEDULERS
 from repro_torch.core.simulator import SimClient
 from repro_torch.fed.trainer import FedConfig, FederatedTrainer
+from repro_torch.tree import tree_leaves as flatten_tensors
 
 from _torch_worlds import (
     MCFG, assert_histories_match, max_tree_diff, twin_clients, twin_trainers)
@@ -115,11 +118,44 @@ def test_engine_copy_reproduces_reference_timelines(scenario):
 
 @pytest.mark.parametrize("what", ["dispatcher", "mirror"])
 def test_unported_trainer_options_raise(what):
-    """What is still to port raises, naming the multihost row of ROADMAP.md:
-    the trainer's remote dispatch and the engine's control-plane mirror."""
-    _, port_cl = twin_clients([2], seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 row 6"):
-        if what == "dispatcher":
-            FederatedTrainer(MCFG, port_cl, FedConfig(), device="cpu", dispatcher=object())
-        else:
-            CampaignEngine(SCHEDULERS["fedhc"], mirror=True)
+    """The options the multihost slice brought (once refused, naming
+    ROADMAP.md): a dispatcher trains the round's finishers remotely — over
+    a LocalTransport with inline workers, the same rounds as training
+    in-process, bit for bit — and the engine's control-plane mirror tracks
+    every simulated client.  The name dates from when both were refused:
+    nothing here raises now."""
+    from repro_torch.core.runtime import FixedRuntime
+    from repro_torch.fed.client import make_small_step
+    from repro_torch.fed.server import FLServer, LocalTransport
+    from repro_torch.launch.multihost import ClientWorker, ControlPlaneDispatcher
+    from repro_torch.optim.optimizers import make_optimizer
+
+    if what == "mirror":
+        eng = CampaignEngine(SCHEDULERS["fedhc"], mirror=True)
+        res = eng.run_round([SimClient(i, 30.0, 1.0 + i) for i in range(4)],
+                            failure_times={3: 0.5})
+        assert eng.server.monitor.state == {0: "done", 1: "done", 2: "done", 3: "failed"}
+        assert sorted(eng.server.uploads) == sorted(res.spans) == [0, 1, 2]
+        return
+    fed = FedConfig(rounds=2, participants_per_round=4, local_steps=2, learning_rate=0.2)
+    _, local_cl = twin_clients([2, 4, 6, 8, 3, 5], seed=4)
+    _, worker_cl = twin_clients([2, 4, 6, 8, 3, 5], seed=4)
+    opt = make_optimizer(fed.optimizer, fed.learning_rate)
+    step_fn = make_small_step(MCFG, opt, fed.prox_mu)
+    transport = LocalTransport()
+    workers = [ClientWorker(transport, c, step_fn, opt, device="cpu") for c in worker_cl]
+    for w in workers:
+        w.start_round()
+    disp = ControlPlaneDispatcher(FLServer(transport), inline_workers=workers)
+    remote = FederatedTrainer(MCFG, worker_cl, fed, runtime=FixedRuntime(2.0, 1.0),
+                              device="cpu", dispatcher=disp)
+    local = FederatedTrainer(MCFG, local_cl, fed, runtime=FixedRuntime(2.0, 1.0),
+                             device="cpu")
+    remote.params = {k: v for k, v in local.params.items()}
+    got, want = remote.run(), local.run()
+    for g, w in zip(got, want):
+        assert {k: g[k] for k in w} == w
+        assert (g["wire_bytes"], g["wire_payload_bytes"], g["wire_header_bytes"]) == (0, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(flatten_tensors(remote.params),
+                                                  flatten_tensors(local.params)))
+    assert sum(w.rounds_trained for w in workers) == 8

@@ -6,9 +6,9 @@ phases between their engines' simulated events.
 Held against the port's own synchronous ``run_round`` (a single tenant:
 bit for bit when clients train one at a time) and against the live
 reference driven the same way (two tenants: the history field for field,
-the parameters within 2e-5).  The reference tenants carry their
-control-plane mirror (as its tests do), the port's none: the mirror does
-not feed the timeline.  Small worlds from numpy seeds: six clients,
+the parameters within 2e-5).  The tenants of both packages carry their
+control-plane mirror (as the reference's tests do): the mirror does not
+feed the timeline.  Small worlds from numpy seeds: six clients,
 hidden 16, deterministic runtimes."""
 import jax
 import pytest
