@@ -237,14 +237,47 @@ Phases (any failure exits non-zero before the last line is printed):
              their stats blobs, the time from the spawn to the first
              REGISTER, the wire bytes by share per round, inline against
              socket wall.
+26. hier   — the hierarchical tree of ``repro_torch.fed.hier``: a
+             ``RootAggregator`` in this process, each leaf a process spawned
+             with ``run_leaf``.  Gates: (a) examples/hier_tree.py's world —
+             1,000 ``SimWorker``s on driver threads over 2 leaves (pods
+             ``cid % 2``), 2 rounds, template w 16x16 + b 16 — under none,
+             int8 and topk: the root's params digest equal to
+             ``run_flat_campaign``'s, and the ``none`` digest equal to
+             HIER_FLAT_DIGEST (the reference's; a CPU test holds it); then
+             the same 1,000 clients with the main path's client
+             (784→128→128→62, f32) as template; (b) examples/hier_tree.py's pinned chaos at 200
+             clients (leaf 0's uplink through a proxy corrupting two frames,
+             leaf 1's pod through a FaultSchedule killing every connection
+             at its frame 3 and blackholing its first client for 4 frames):
+             digest equal to flat, at least one frame corrupted and one
+             connection killed; (c) tests/test_faults.py:376 — a journaling
+             leaf (checkpoint every 2 folds) SIGKILLed once 3 uploads of round
+             0 are journaled and restarted on its port and journal: digest
+             equal to flat, both rounds closed FULL with their full count,
+             no (client, round) journaled twice; (d) tests/test_hier.py:358 —
+             100,000 clients over 8 leaf accumulators in this process, every
+             partial through the codec: equal to flat; (e) phase 25's world
+             through the tree — 8 ``run_worker`` processes on the card dial 2
+             leaves, the root's one ``train_round`` from the world's initial
+             params against every client trained here on the card as
+             ``ClientWorker`` does and folded into one ``ExactAccumulator``:
+             the means' digests equal, count 8, weight the sum of ``n``.  No
+             kernel is on this path: every count is 0 around the phase.
+             Printed only: each round's ``train_round`` wall, spawn to each
+             leaf's ``ready_queue`` report, each leaf's PARTIAL_SUM bytes a
+             round against the bytes of the uploads it took in, the
+             ``hier.*`` and ``fault.*`` counters, fold ms a client at both
+             template widths, the 100,000-client wall.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3, 18, 23, 24 and 25, ``tgmm`` with those of phases 3, 23, 24 and 25, by path too, with worst
+of phases 3, 18, 23, 24, 25 and 26, ``tgmm`` with those of phases 3, 23, 24, 25 and 26, by path too, with worst
 errors and times by path and olmoe's wgmma times, ``flash_attention`` with
 those of phases 7, 14, 18 and 21, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
-times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's),
+times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
+``launches_by_path`` also holds its launches in phase 26, 0),
 the card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  The script uses one card: unless
 ``CUDA_VISIBLE_DEVICES`` names exactly one, it is set to the first.
@@ -257,10 +290,13 @@ import json
 import math
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -2844,6 +2880,484 @@ def run_multihost_phase(torch, counters, smi, device=None):
     return launches, row
 
 
+# ---------------------------------------------------------------- phase 26
+
+#: phase 26(a)'s world, examples/hier_tree.py's: 1,000 simulated clients
+#: over 2 leaf processes (pods cid % 2), 2 rounds, template w 16x16 + b 16
+HIER_CLIENTS = 1000
+HIER_ROUNDS = 2
+HIER_LEAVES = 2
+#: run_flat_campaign's params digest of that world under "none", as the
+#: reference computes it (tests/test_torch_hier.py holds it against
+#: repro.fed.hier: the card's machine has no JAX)
+HIER_FLAT_DIGEST = "5f02067f7ed4268a8ba21075a14bc06921d89d6f5a17cc1582e45b2df051ba02"
+HIER_MLP_CLIENTS = 1000    # (a) again with the main path's client (784->128->128->62) as template
+HIER_CHAOS_CLIENTS = 200   # examples/hier_tree.py --chaos --clients 200
+HIER_KILL_CLIENTS = 10     # tests/test_faults.py:376's leaf SIGKILL world
+HIER_SCALE = (100_000, 8, 2)   # tests/test_hier.py:358: clients, leaf accumulators, rounds
+HIER_TIMEOUT = 300.0
+#: in-process folds timed a template (fold ms a client)
+HIER_FOLD_REPS = {"16x16+16": 500, "femnist-mlp": 32}
+
+
+def hier_template():
+    import numpy as np
+
+    return {"w": np.zeros((16, 16), np.float32), "b": np.zeros(16, np.float32)}
+
+
+def mlp_template(mcfg):
+    """The FEMNIST-MLP client's parameter tree as f32 numpy zeros."""
+    import numpy as np
+
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.models.small import init_small
+    from repro_torch.tree import tree_map
+
+    return tree_map(np.zeros_like, params_to_numpy(init_small(0, mcfg, device="cpu")))
+
+
+def raise_fd_limit(want=4096):
+    """Room for 1,000 client sockets in this process (examples/hier_tree.py's
+    ``_raise_fd_limit``); the spawned leaves inherit the limit."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE,
+                           (min(want, hard) if hard > 0 else want, hard))
+    return resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+
+def hier_leaf(leaf_id, root_host, root_port, ready, done, kw):
+    """A spawned leaf process: ``run_leaf`` under an ObsPlane whose counters
+    it reports on ``done`` once the root has shut it down."""
+    from repro_torch.fed.hier import run_leaf
+    from repro_torch.obs import ObsPlane
+
+    obs = ObsPlane()
+    run_leaf(leaf_id, root_host, root_port, ready_queue=ready, obs=obs, **kw)
+    done.put((leaf_id, obs.registry.counters_snapshot()))
+
+
+def spawn_leaves(ctx, uplinks, **kw):
+    """One leaf process (``spawn``) per entry of ``uplinks`` (leaf id -> the
+    root address it dials): the processes, each leaf's client port, the
+    seconds from the spawn to its ``ready_queue`` report, and the queue its
+    counters arrive on at shutdown."""
+    ready, done = ctx.Queue(), ctx.Queue()
+    procs = {lid: ctx.Process(target=hier_leaf, args=(lid, host, port, ready, done, kw),
+                              daemon=True)
+             for lid, (host, port) in uplinks.items()}
+    t0 = time.perf_counter()
+    for p in procs.values():
+        p.start()
+    ports, ready_s = {}, {}
+    for _ in procs:
+        lid, port = ready.get(timeout=120.0)
+        ports[lid], ready_s[lid] = port, time.perf_counter() - t0
+    return procs, ports, ready_s, done
+
+
+def join_leaves(procs, done):
+    """Each leaf's counters (drained before the join), then each leaf's
+    exit, which must be clean."""
+    counters = dict(done.get(timeout=60.0) for _ in procs)
+    for p in procs.values():
+        p.join(timeout=60.0)
+    assert all(p.exitcode == 0 for p in procs.values()), \
+        {lid: p.exitcode for lid, p in procs.items()}
+    return counters
+
+
+def stop_all(procs):
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=10.0)
+
+
+def log_rounds(root, log):
+    """Wrap ``root.train_round``: each round's wall and each leaf's
+    PARTIAL_SUM as a v2 frame (bytes), appended to ``log``."""
+    from repro_torch.fed.transport import Message, MsgType, encode_envelope_wire
+
+    train_round = root.train_round
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = train_round(*a, **kw)
+        log.append({"wall_s": time.perf_counter() - t0, "partial_bytes": {
+            lid: len(encode_envelope_wire(0, 0, Message(MsgType.PARTIAL_SUM, lid, up)).data)
+            for lid, up in sorted(root.server.uploads.items())}})
+        return out
+
+    root.train_round = timed
+
+
+def upload_bytes(template, rnd, cids, compression):
+    """The v2 frames (bytes) of ``cids``' simulated uploads of round ``rnd``,
+    each encoded once here: what their leaf takes in when no frame is lost,
+    resent or duplicated."""
+    from repro_torch.fed.hier import _client_delta, sim_weight
+    from repro_torch.fed.transport import Message, MsgType, encode_envelope_wire
+
+    return sum(len(encode_envelope_wire(0, 0, Message(MsgType.UPLOAD, c, {
+        "delta": _client_delta(template, rnd, c, compression), "n": sim_weight(c),
+        "round": rnd})).data) for c in cids)
+
+
+def driver_threads(template, dial, pods, errors):
+    """One thread of ``drive_sim_clients`` a pod (16 driver threads each),
+    started; a driver's error lands in ``errors``."""
+    from repro_torch.fed.hier import drive_sim_clients
+
+    def drive(lid, port, cids):
+        try:
+            drive_sim_clients("127.0.0.1", port, cids, template, threads=16,
+                              timeout=HIER_TIMEOUT, max_reconnect_attempts=40)
+        except BaseException as e:      # noqa: BLE001 - checked after the join
+            errors.append((lid, repr(e)))
+
+    threads = [threading.Thread(target=drive, args=(lid, dial[lid], cids), daemon=True)
+               for lid, cids in pods.items()]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def join_drivers(threads, errors):
+    for t in threads:
+        t.join(timeout=120.0)
+    assert not errors, errors
+    assert not any(t.is_alive() for t in threads), "a client driver hung"
+
+
+def hier_only(snap):
+    """The ``hier.*`` and ``fault.*`` counters of a counters snapshot."""
+    return {k: v for k, v in snap.items() if k.startswith(("hier.", "fault."))}
+
+
+def hier_counters(root_obs, leaf_counters):
+    """The ``hier.*`` and ``fault.*`` counters, the root's and each leaf's."""
+    return {"root": hier_only(root_obs.registry.counters_snapshot()),
+            **{f"leaf {lid}": hier_only(s) for lid, s in sorted(leaf_counters.items())}}
+
+
+def hier_campaign(ctx, label, template, n_clients, compression="none", chaos=False):
+    """A root in this process over 2 spawned leaves and ``n_clients``
+    simulated clients on driver threads, ``HIER_ROUNDS`` rounds, against
+    ``run_flat_campaign``.  With ``chaos``: examples/hier_tree.py's pinned
+    fault script (leaf 0's uplink through a corrupting proxy, leaf 1's pod
+    through a FaultSchedule: every connection killed at its frame 3, the
+    pod's first client blackholed for 4 frames)."""
+    from repro_torch.fed.hier import RootAggregator, run_flat_campaign, run_root_campaign
+    from repro_torch.fed.net import (ChaosProxy, FaultEvent, FaultPlan, FaultSchedule,
+                                     SocketServerTransport)
+    from repro_torch.obs import ObsPlane
+
+    cids = list(range(n_clients))
+    pods = {lid: cids[lid::HIER_LEAVES] for lid in range(HIER_LEAVES)}
+    obs = ObsPlane()
+    root_t = SocketServerTransport("127.0.0.1", 0, obs=obs)
+    root = RootAggregator(root_t, obs=obs, round_timeout=HIER_TIMEOUT)
+    log = []
+    log_rounds(root, log)
+    uplinks = {lid: (root_t.host, root_t.port) for lid in pods}
+    proxies, sched, procs = {}, None, {}
+    try:
+        if chaos:
+            proxies["uplink"] = ChaosProxy(root_t.host, root_t.port,
+                                           FaultPlan(corrupt_after_frames=2, corrupt_times=2))
+            uplinks[0] = (proxies["uplink"].host, proxies["uplink"].port)
+        procs, ports, ready_s, done = spawn_leaves(ctx, uplinks)
+        dial = dict(ports)
+        if chaos:
+            sched = FaultSchedule([FaultEvent(frame=3, op="kill"),
+                                   FaultEvent(frame=2, op="blackhole", client_id=pods[1][0], arg=4)])
+            proxies["pod 1"] = ChaosProxy("127.0.0.1", ports[1], schedule=sched)
+            dial[1] = proxies["pod 1"].port
+        errors = []
+        drivers = driver_threads(template, dial, pods, errors)
+        t0 = time.perf_counter()
+        digest, _ = run_root_campaign(root, pods, template, HIER_ROUNDS, compression=compression)
+        wall = time.perf_counter() - t0
+        join_drivers(drivers, errors)
+        leaf_counters = join_leaves(procs, done)
+    finally:
+        stop_all(procs.values())
+        for p in proxies.values():
+            p.close()
+        root_t.close()
+    t0 = time.perf_counter()
+    flat, _ = run_flat_campaign(template, cids, HIER_ROUNDS, compression=compression)
+    flat_s = time.perf_counter() - t0
+    expected = [{lid: upload_bytes(template, rnd, pod, compression) for lid, pod in pods.items()}
+                for rnd in range(HIER_ROUNDS)]
+    # the leaf's client-side transport (scope "server" in its ObsPlane):
+    # framed bytes both ways over the campaign, resent and duplicated frames included
+    leaf_wire = {lid: s["wire.framed_bytes"]["server"] for lid, s in sorted(leaf_counters.items())}
+    res = {"digest": digest, "flat_digest": flat, "tree_equals_flat": digest == flat,
+           "campaign_wall_s": wall, "flat_wall_s": flat_s,
+           "spawn_to_ready_s": ready_s,
+           "rounds": [{**r, "upload_bytes_fault_free": b} for r, b in zip(log, expected)],
+           "leaf_client_wire_bytes": leaf_wire,
+           "root_wire_bytes": root_t.wire_bytes,
+           "counters": hier_counters(obs, leaf_counters)}
+    if chaos:
+        res.update(frames_corrupted=proxies["uplink"].frames_corrupted,
+                   connections_killed=proxies["pod 1"].connections_killed,
+                   frames_blackholed=proxies["pod 1"].frames_blackholed,
+                   schedule_fired={op: sum(ev.op == op for _c, ev in sched.fired)
+                                   for op in ("kill", "blackhole")})
+    say(f"  {label}: {n_clients} clients, {compression}: tree {digest[:16]}, flat {flat[:16]}, "
+        f"equal {res['tree_equals_flat']}; campaign wall {wall:.3f} s (flat in-process "
+        f"{flat_s:.3f} s); spawn to ready " + ", ".join(f"leaf {l} {s:.3f} s"
+                                                          for l, s in sorted(ready_s.items())))
+    for i, r in enumerate(res["rounds"]):
+        say(f"    round {i}: train_round wall {r['wall_s']:.4f} s; PARTIAL_SUM bytes "
+            f"{r['partial_bytes']} against the uploads' bytes with no fault "
+            f"{r['upload_bytes_fault_free']}")
+    say(f"    leaves' client-side wire bytes over the campaign (both ways, every frame "
+        f"sent or taken in): {leaf_wire}; the root's {root_t.wire_bytes}")
+    say(f"    counters {res['counters']}")
+    if chaos:
+        say(f"    chaos: {res['frames_corrupted']} uplink frames corrupted, "
+            f"{res['connections_killed']} client connections killed, "
+            f"{res['frames_blackholed']} frames blackholed, schedule fired {res['schedule_fired']}")
+    assert digest == flat, (label, digest, flat)
+    return res
+
+
+def free_port():
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def wal_uploads(path, rnd):
+    from repro_torch.fed import wal as walmod
+
+    try:
+        r = walmod.recover(path).rounds.get(rnd)
+    except walmod.WalError:
+        return 0
+    return len(r.uploads) if r is not None else 0
+
+
+def hier_leaf_kill(ctx, template, directory):
+    """(c): tests/test_faults.py:376's crash-restart on the port: one leaf
+    process journaling (checkpoint every 2 folds) SIGKILLed once 3 uploads
+    of round 0 are journaled, restarted on its port and journal."""
+    from repro_torch.fed import wal as walmod
+    from repro_torch.fed.hier import RootAggregator, run_flat_campaign, run_root_campaign
+    from repro_torch.fed.net import SocketServerTransport
+
+    cids = list(range(HIER_KILL_CLIENTS))
+    wal_path = os.path.join(directory, "leaf0.wal")
+    leaf_port = free_port()
+    kw = dict(port=leaf_port, wal_path=wal_path, wal_checkpoint_every=2)
+    root_t = SocketServerTransport("127.0.0.1", 0)
+    root = RootAggregator(root_t, round_timeout=HIER_TIMEOUT)
+    uplink = {0: (root_t.host, root_t.port)}
+    result, errors, procs = {}, [], []
+
+    def campaign():
+        try:
+            result["digest"], _ = run_root_campaign(root, {0: cids}, template, HIER_ROUNDS)
+        except BaseException as e:      # noqa: BLE001 - checked after the join
+            errors.append(("root", repr(e)))
+
+    try:
+        first, ports, ready_s, _done = spawn_leaves(ctx, uplink, **kw)
+        procs.append(first[0])
+        assert ports[0] == leaf_port, ports
+        camp = threading.Thread(target=campaign, daemon=True)
+        camp.start()
+        drivers = driver_threads(template, {0: leaf_port}, {0: cids[:6]}, errors)
+        deadline = time.monotonic() + 120.0
+        while wal_uploads(wal_path, 0) < 3:
+            assert time.monotonic() < deadline, "no uploads journaled"
+            time.sleep(0.02)
+        os.kill(first[0].pid, signal.SIGKILL)
+        first[0].join(timeout=10.0)
+        journaled = wal_uploads(wal_path, 0)
+        second, _ports, ready2, done = spawn_leaves(ctx, uplink, **kw)
+        procs.append(second[0])
+        drivers += driver_threads(template, {0: leaf_port}, {0: cids[6:]}, errors)
+        camp.join(timeout=HIER_TIMEOUT)
+        assert not camp.is_alive(), "campaign hung after the leaf restart"
+        join_drivers(drivers, errors)
+        leaf_counters = join_leaves(second, done)
+    finally:
+        stop_all(procs)
+        root_t.close()
+    flat, _ = run_flat_campaign(template, cids, HIER_ROUNDS)
+    rec = walmod.recover(wal_path)
+    closes = {rnd: rec.rounds[rnd].close_meta for rnd in range(HIER_ROUNDS)}
+    pairs = {rnd: [(c, p.get("round")) for c, p in rec.rounds[rnd].uploads]
+             for rnd in range(HIER_ROUNDS)}
+    say(f"  (c) leaf SIGKILL: killed with {journaled} uploads of round 0 journaled; restarted "
+        f"leaf ready in {ready2[0]:.3f} s (first {ready_s[0]:.3f} s); tree {result['digest'][:16]}, "
+        f"flat {flat[:16]}; closes {closes}; journaled uploads a round "
+        f"{ {r: len(p) for r, p in pairs.items()} }; restarted leaf's counters "
+        f"{hier_only(leaf_counters[0])}")
+    assert journaled >= 3, journaled
+    assert result["digest"] == flat, (result["digest"], flat)
+    for rnd in range(HIER_ROUNDS):
+        assert rec.rounds[rnd].closed and closes[rnd]["mode"] == "FULL", closes
+        assert closes[rnd]["count"] == len(cids), closes
+        assert len(pairs[rnd]) == len(set(pairs[rnd])) == len(cids), pairs[rnd]
+    assert len(rec.rounds[0].uploads) > journaled - 1
+    return {"journaled_at_kill": journaled, "restart_ready_s": ready2[0],
+            "tree_equals_flat": True, "closes": closes,
+            "counters": hier_only(leaf_counters[0])}
+
+
+def hier_scale():
+    """(d): tests/test_hier.py:358's world in this process: 100,000 clients
+    over 8 leaf accumulators, every partial through the codec, 2 rounds
+    (``run_two_tier_campaign``), against the flat run."""
+    import numpy as np
+
+    from repro_torch.fed.hier import run_flat_campaign, run_two_tier_campaign
+
+    n, n_leaves, rounds = HIER_SCALE
+    template = {"w": np.zeros((8, 8), np.float32)}
+    t0 = time.perf_counter()
+    digest, _params, counts = run_two_tier_campaign(template, range(n), rounds, n_leaves)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat, _ = run_flat_campaign(template, range(n), rounds)
+    flat_s = time.perf_counter() - t0
+    say(f"  (d) {n:,} clients over {n_leaves} leaf accumulators, {rounds} rounds: wall {wall:.3f} s "
+        f"(flat {flat_s:.3f} s); counts {counts}; tree {digest[:16]}, flat {flat[:16]}")
+    assert counts == [n] * rounds, counts
+    assert digest == flat, (digest, flat)
+    return {"wall_s": wall, "flat_wall_s": flat_s, "tree_equals_flat": True}
+
+
+def fold_ms(templates):
+    """Fold ms a client at each template width: ``ExactAccumulator.fold`` of
+    simulated f32 deltas, in this process."""
+    from repro_torch.fed.hier import ExactAccumulator, sim_weight, synth_delta
+
+    out = {}
+    for name, template in templates.items():
+        reps = HIER_FOLD_REPS[name]
+        deltas = [synth_delta(template, 0, c) for c in range(reps)]
+        acc = ExactAccumulator()
+        t0 = time.perf_counter()
+        for c, d in enumerate(deltas):
+            acc.fold(d, sim_weight(c))
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    say("  fold ms a client: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def hier_card_round(torch, ctx, device=None):
+    """(e): phase 25's world through the tree.  8 worker processes
+    (``run_worker``, so on the card) dial 2 leaf processes, pods ``cid % 2``;
+    the root calls ``RootAggregator.train_round`` once from the world's
+    initial params.  The flat side trains each client once in this process
+    on the card, as ``ClientWorker`` does, and folds every delta with its
+    ``n`` into one ``ExactAccumulator``."""
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.device import resolve_device
+    from repro_torch.fed.client import make_small_step
+    from repro_torch.fed.hier import ExactAccumulator, RootAggregator, params_digest
+    from repro_torch.fed.net import SocketServerTransport
+    from repro_torch.launch.multihost import WorldSpec, build_world, run_worker
+    from repro_torch.models.small import init_small
+    from repro_torch.optim.optimizers import make_optimizer
+
+    dev = resolve_device(device)
+    spec = WorldSpec(hidden=MH_HIDDEN)
+    mcfg, clients, _test, fed = build_world(spec)
+    params = params_to_numpy(init_small(fed.seed, mcfg, device="cpu"))
+    pods = {lid: [c for c in range(spec.n_clients) if c % HIER_LEAVES == lid]
+            for lid in range(HIER_LEAVES)}
+    root_t = SocketServerTransport("127.0.0.1", 0)
+    root = RootAggregator(root_t, round_timeout=MH_ROUND_TIMEOUT)
+    procs, workers = {}, []
+    try:
+        procs, ports, ready_s, done = spawn_leaves(
+            ctx, {lid: (root_t.host, root_t.port) for lid in pods})
+        workers = [ctx.Process(target=run_worker,
+                               args=(spec, cid, "127.0.0.1", ports[cid % HIER_LEAVES], device),
+                               daemon=True) for cid in range(spec.n_clients)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        mean, count, weight = root.train_round(pods, params, 0, local_steps=spec.local_steps)
+        wall = time.perf_counter() - t0
+        root.server.broadcast_shutdown()
+        for w in workers:
+            w.join(timeout=60.0)
+        assert all(w.exitcode == 0 for w in workers), [w.exitcode for w in workers]
+        leaf_counters = join_leaves(procs, done)
+    finally:
+        stop_all(workers + list(procs.values()))
+        root_t.close()
+
+    opt = make_optimizer(fed.optimizer, fed.learning_rate)
+    step_fn = make_small_step(mcfg, opt, fed.prox_mu)
+    flat, ns = ExactAccumulator(), []
+    t0 = time.perf_counter()
+    for c in clients:
+        delta, n_seen, _metrics = c.train_local(params_from_numpy(params, dev), step_fn, opt,
+                                                n_steps=spec.local_steps)
+        flat.fold(params_to_numpy(delta), int(n_seen))
+        ns.append(int(n_seen))
+    sync(torch, dev)
+    flat_s = time.perf_counter() - t0
+    got, want = params_digest(mean), params_digest(flat.finalize_mean())
+    say(f"  (e) the card's deltas: 8 worker processes on {dev} under 2 leaves, one train_round "
+        f"wall {wall:.3f} s (spawn included); leaves ready in "
+        + ", ".join(f"{l}: {s:.3f} s" for l, s in sorted(ready_s.items()))
+        + f"; count {count}, weight {weight} (flat {flat.count}, {sum(ns)}); tree mean "
+        f"{got[:16]}, flat mean {want[:16]}, equal {got == want}; flat side trained in "
+        f"{flat_s:.3f} s; leaf counters "
+        f"{ {l: hier_only(s) for l, s in sorted(leaf_counters.items())} }")
+    assert count == spec.n_clients and weight == sum(ns), (count, weight, ns)
+    assert got == want, (got, want)
+    return {"train_round_wall_s": wall, "spawn_to_ready_s": ready_s, "count": count,
+            "weight": weight, "tree_equals_flat": True, "flat_train_s": flat_s}
+
+
+def run_hier_phase(torch, mcfg, smi, device=None):
+    """Phase 26: the hierarchical tree (``repro_torch.fed.hier``), five
+    gates; the root in this process, leaves spawned."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    say(f"  card: {smi}")
+    say(f"  open-file limit {raise_fd_limit()}")
+    template = hier_template()
+    row = {"card": smi}
+    say(f"  (a) {HIER_CLIENTS} simulated clients over {HIER_LEAVES} leaf processes, "
+        f"{HIER_ROUNDS} rounds, template w 16x16 + b 16, under none, int8 and topk:")
+    row["a"] = {c: hier_campaign(ctx, f"(a) {c}", template, HIER_CLIENTS, c)
+                for c in ("none", "int8", "topk")}
+    assert row["a"]["none"]["flat_digest"] == HIER_FLAT_DIGEST, row["a"]["none"]["flat_digest"]
+    mlp = mlp_template(mcfg)
+    row["a"]["femnist-mlp"] = hier_campaign(ctx, "(a) the main path's client as template",
+                                            mlp, HIER_MLP_CLIENTS)
+    row["fold_ms"] = fold_ms({"16x16+16": template, "femnist-mlp": mlp})
+    say(f"  (b) chaos: examples/hier_tree.py's pinned fault script at {HIER_CHAOS_CLIENTS} clients:")
+    row["b"] = hier_campaign(ctx, "(b) chaos", template, HIER_CHAOS_CLIENTS, chaos=True)
+    assert row["b"]["frames_corrupted"] >= 1, row["b"]["frames_corrupted"]
+    assert row["b"]["connections_killed"] >= 1, row["b"]["connections_killed"]
+    with tempfile.TemporaryDirectory() as directory:
+        row["c"] = hier_leaf_kill(ctx, template, directory)
+    row["d"] = hier_scale()
+    row["e"] = hier_card_round(torch, ctx, device)
+    return row
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3113,6 +3627,18 @@ def main() -> int:
         f"TCP, against the inline run; int8 uplink; a ChaosProxy; the card against the CPU")
     multihost_launches, multihost_row = run_multihost_phase(torch, counters, smi)
     say(json.dumps({"multihost": multihost_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+
+    say(f"PHASE 26 hier: the hierarchical tree of repro_torch.fed.hier, a root in this process "
+        f"over spawned leaf processes: {HIER_CLIENTS} simulated clients in three encodings and "
+        f"at the main path's client width, chaos, a leaf SIGKILL, {HIER_SCALE[0]:,} clients over "
+        f"two tiers, and phase 25's world trained on the card through 2 leaves")
+    zero_launches(counters)
+    hier_row = run_hier_phase(torch, mcfg, smi)
+    hier_launches = {k: v for counts in counters for k, v in counts.items()}
+    say(f"  kernel launches in this process during phase 26: {hier_launches}")
+    assert not any(hier_launches.values()), "a kernel launched on the hierarchical path"
+    say(json.dumps({"hier": hier_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -3208,6 +3734,12 @@ def main() -> int:
         "decode_32k": {k: decode_long[k] for k in (*timing_keys, "sdpa_dequantized_ms", "tb_per_s",
                                                    "host_ms", "splits", "shape", "max_abs_err")},
     })
+    served_by = {"ssd_scan": MAMBA_ARCH, "rglru_scan": RGEMMA_ARCH,
+                 "flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
+    for k in kernels:
+        k.setdefault("launches_by_path", {served_by.get(k["name"]): k["launches"]})
+        k["launches_by_path"]["hierarchical tree (phase 26, script process)"] = \
+            hier_launches[k["name"]]
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

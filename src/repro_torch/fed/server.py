@@ -367,8 +367,8 @@ class FLServer:
         self.record_table: Dict[int, Deque[Message]] = {}
         self._row_of: Dict[int, int] = {}
         self._rows = itertools.count()
-        # hierarchy extensions (the reference's fed/hier.py sets them;
-        # nothing in this package does yet): ``cached_payloads`` maps
+        # hierarchy extensions (repro_torch.fed.hier sets them: its leaf
+        # and root aggregators): ``cached_payloads`` maps
         # an instruction kind to pre-extracted v2 segments — the
         # instruction's own payload rides as the per-send extra, the
         # heavy tensors are framed once.  ``on_instruction`` lets a node

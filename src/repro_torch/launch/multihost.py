@@ -1,7 +1,6 @@
 """repro_torch.launch.multihost — run a federated campaign over real connections.
 
-The port of ``repro.launch.multihost``, flat deployment: the ``FLServer``
-control plane and N client *worker processes* speaking the Fig-4 protocol
+The port of ``repro.launch.multihost``: the ``FLServer`` control plane and N client *worker processes* speaking the Fig-4 protocol
 over ``repro_torch.fed.net``'s socket transport, wired into
 ``FederatedTrainer`` so each global round's local training happens in the
 workers and the deltas come back over the wire (with ``wire_bytes``
@@ -14,10 +13,11 @@ Roles, one protocol:
 * ``--role server`` — run only the server side, listening on
   ``--host/--port`` for remote workers;
 * ``--role worker`` — run one client worker (``--client-id``) against a
-  remote server at ``--host/--port``.
-
-``--role aggregator`` (a leaf of the hierarchical tree) raises: the tree is
-ROADMAP.md queue 1 row 6b.
+  remote server at ``--host/--port``;
+* ``--role aggregator`` — run one leaf aggregator of the hierarchical tree
+  (``--leaf-id``): serve a pod of clients on ``--host/--port`` and ship one
+  ``PARTIAL_SUM`` a round to the root at ``--root-host/--root-port``
+  (``repro_torch.fed.hier``).
 
 Every process rebuilds the same deterministic world from the shared
 :class:`WorldSpec` (model config, budgets, Dirichlet data partition), so a
@@ -95,7 +95,7 @@ class WorldSpec:
     #: build default); both the server and every worker honor it
     wire_version: Optional[int] = None
     #: hierarchical deployment: number of leaf aggregator pods between the
-    #: clients and the root (0 = flat, the only deployment ported)
+    #: clients and the root (0 = flat)
     n_leaves: int = 0
     #: where leaf aggregators find the root when ``n_leaves > 0``
     root_host: str = "127.0.0.1"
@@ -467,11 +467,23 @@ def _worker_entry(spec: WorldSpec, client_id: int, host: str, port: int,
     run_worker(spec, client_id, host, port, device)
 
 
-def run_aggregator(spec: WorldSpec, leaf_id: int = 0, *, obs=None) -> None:
-    """A leaf aggregator of the hierarchical tree: not in this package yet."""
-    raise NotImplementedError(
-        "the hierarchical tree (leaf aggregators, fed/hier.py) is not ported "
-        "yet (ROADMAP.md, queue 1 row 6b)")
+def run_aggregator(spec: WorldSpec, leaf_id: int, *,
+                   host: Optional[str] = None, port: Optional[int] = None,
+                   obs=None) -> None:
+    """One leaf aggregator process (``--role aggregator``): serve a pod of
+    clients on ``host:port`` and speak PARTIAL_SUM up to the root at
+    ``spec.root_host:spec.root_port``.  Blocks until the root broadcasts
+    shutdown.  The leaf is model-agnostic — it never builds the world and
+    holds no tensor on a device; it folds whatever compressed deltas its
+    clients upload."""
+    from repro_torch.fed.hier import run_leaf
+
+    run_leaf(
+        leaf_id, spec.root_host, spec.root_port,
+        host=spec.host if host is None else host,
+        port=spec.port if port is None else port,
+        obs=obs,
+    )
 
 
 def run_local_inline(spec: WorldSpec, device: DeviceLike = None) -> FederatedTrainer:
@@ -562,6 +574,8 @@ def _spec_from_args(args: argparse.Namespace) -> WorldSpec:
         port=args.port,
         compression=args.compression,
         wire_version=args.wire_version,
+        root_host=args.root_host,
+        root_port=args.root_port,
     )
 
 
@@ -582,6 +596,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="server listen port (0 = ephemeral; server prints it)")
     ap.add_argument("--client-id", type=int, default=0,
                     help="worker role: which client shard this process owns")
+    ap.add_argument("--leaf-id", type=int, default=0,
+                    help="aggregator role: this leaf's id in the tree")
+    ap.add_argument("--root-host", default="127.0.0.1",
+                    help="aggregator role: root aggregator host")
+    ap.add_argument("--root-port", type=int, default=0,
+                    help="aggregator role: root aggregator port")
     ap.add_argument("--compression", default="none",
                     choices=("none", "int8", "topk"),
                     help="uplink delta compression, applied at the worker")
@@ -614,7 +634,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"worker {args.client_id}: trained {trained} rounds")
         return
     if args.role == "aggregator":
-        run_aggregator(spec, obs=obs)
+        print(f"leaf {args.leaf_id}: serving clients on "
+              f"{spec.host}:{spec.port}, root at "
+              f"{spec.root_host}:{spec.root_port}")
+        run_aggregator(spec, args.leaf_id, obs=obs)
+        print(f"leaf {args.leaf_id}: shutdown")
         return
     if args.role == "server":
         from repro_torch.fed.net import SocketServerTransport

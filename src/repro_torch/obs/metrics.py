@@ -11,8 +11,8 @@ Design constraints, in order:
 3. counters hold exact ints (or floats where the accounting is a float),
    never sampled or rounded.
 
-``CANONICAL_METRICS`` is the normative name table, trimmed to the names
-the port registers; every entry is the reference's, word for word.
+``CANONICAL_METRICS`` is the normative name table: the reference's, entry
+for entry and word for word.
 """
 from __future__ import annotations
 
@@ -134,7 +134,7 @@ class Histogram:
         }
 
 
-#: Normative metric-name table: every name the port registers (a strict
+#: Normative metric-name table: every name the stack registers (a strict
 #: registry refuses any other).
 CANONICAL_METRICS: Dict[str, str] = {
     "campaign.rounds_completed": "counter — rounds closed by the engine",
@@ -163,11 +163,17 @@ CANONICAL_METRICS: Dict[str, str] = {
     "round.degraded": "counter — rounds closed DEGRADED by the quorum policy",
     "fault.round_closed_aborts": "counter — stragglers sent TERMINATE round_closed",
     "fault.wal_appends": "counter — records appended to the round journal",
+    "fault.wal_replays": "counter — uploads restored from the journal on restart",
     "client.train_seconds": "histogram — wall-clock local training time (s)",
     "client.batch_waves": "counter — batched COLLECT waves executed",
     "client.batch_clients": "counter — clients trained through batched waves",
     "client.batch_compiles": "counter — wave programs built (compile-cache misses)",
     "client.batch_fallbacks": "counter — wave clients run on the sequential fallback",
+    "roofline.wire_bytes": "counter — per-device collective wire bytes (float)",
+    "hier.clients_folded": "counter — client deltas folded into a leaf partial",
+    "hier.partial_sums": "counter — PARTIAL_SUM messages reduced at the root",
+    "hier.chunk_hits": "counter — content-addressed broadcast blobs reused",
+    "hier.chunk_misses": "counter — broadcast blobs framed fresh (new digest)",
 }
 
 

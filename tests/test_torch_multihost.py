@@ -7,8 +7,11 @@ against the all-reference run (tests/test_net.py:417-457,
 tests/test_faults.py:551,607); and the selector-based server and the
 scripted fault schedule (tests/test_hier.py:332, tests/test_faults.py:149),
 the port's against the reference's and a campaign through both against
-the inline run.  Every socket run carries the reference's
+the inline run; and ``--role aggregator``, a leaf of the port's tree.  Every socket run carries the reference's
 round timeout, so nothing can hang the suite."""
+import argparse
+import dataclasses
+import socket
 import threading
 import time
 
@@ -209,12 +212,54 @@ def test_mixed_world_reference_server_port_workers(compression):
                for a, b in zip(ref_leaves, got_leaves)) <= 1e-5
 
 
-def test_aggregator_role_raises_naming_the_roadmap_row():
-    spec = mh.WorldSpec()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 row 6b"):
-        mh.run_aggregator(spec, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 row 6b"):
-        mh.main(["--role", "aggregator"])
+def _free_port():
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_aggregator_role_serves_a_leaf_through_a_round(capsys):
+    """``--role aggregator`` serves leaf 1 of a port root's tree: the root
+    drives it through a round of simulated clients, to the flat digest, and
+    its shutdown ends the role with the reference's two lines."""
+    from repro_torch.fed.hier import (RootAggregator, drive_sim_clients, run_flat_campaign,
+                                      run_root_campaign)
+
+    template = {"w": np.zeros((3, 4), np.float32), "b": np.zeros(5, np.float32)}
+    cids = list(range(6))
+    root_t = SocketServerTransport("127.0.0.1", 0)
+    root = RootAggregator(root_t, round_timeout=ROUND_TIMEOUT)
+    leaf_port = _free_port()
+    leaf = threading.Thread(target=mh.main, args=([
+        "--role", "aggregator", "--leaf-id", "1", "--root-host", root_t.host,
+        "--root-port", str(root_t.port), "--port", str(leaf_port)],), daemon=True)
+    leaf.start()
+    clients = threading.Thread(
+        target=drive_sim_clients, args=("127.0.0.1", leaf_port, cids, template),
+        kwargs={"threads": 2, "timeout": ROUND_TIMEOUT, "max_reconnect_attempts": 40},
+        daemon=True)
+    clients.start()
+    try:
+        digest, _ = run_root_campaign(root, {1: cids}, template, 1)
+        clients.join(timeout=30.0)
+        leaf.join(timeout=30.0)
+        assert not clients.is_alive() and not leaf.is_alive()
+    finally:
+        root_t.close()
+    assert digest == run_flat_campaign(template, cids, 1)[0]
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == (f"leaf 1: serving clients on 127.0.0.1:{leaf_port}, root at "
+                      f"{root_t.host}:{root_t.port}")
+    assert out[-1] == "leaf 1: shutdown"
+
+
+def test_spec_from_args_carries_the_root_address_as_the_reference():
+    args = argparse.Namespace(
+        clients=6, rounds=2, participants=9, local_steps=3, seed=4, host="10.0.0.2",
+        port=7001, compression="topk", wire_version=2, root_host="10.0.0.9", root_port=7002)
+    got, want = mh._spec_from_args(args), ref_mh._spec_from_args(args)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.root_host, got.root_port, got.participants_per_round) == ("10.0.0.9", 7002, 6)
 
 
 def _events(pkg_event):

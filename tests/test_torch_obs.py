@@ -89,11 +89,14 @@ def test_counter_gauge_and_registry_equal_reference():
 def test_canonical_table_is_the_references_and_strict_mode_gates_it():
     for name, text in port_obs.CANONICAL_METRICS.items():
         assert ref_obs.CANONICAL_METRICS[name] == text
+    for name, text in ref_obs.CANONICAL_METRICS.items():
+        assert port_obs.CANONICAL_METRICS[name] == text
     reg = port_obs.MetricsRegistry(strict=True)
     for name in port_obs.CANONICAL_METRICS:
         reg.counter(name, "x")
+    assert "hier.leaf_restarts" not in ref_obs.CANONICAL_METRICS
     with pytest.raises(KeyError, match="CANONICAL_METRICS"):
-        reg.counter("hier.clients_folded", "x")   # the hierarchical tree's (row 6b)
+        reg.counter("hier.leaf_restarts", "x")
 
 
 def test_tracer_units_equal_reference():
