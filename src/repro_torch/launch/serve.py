@@ -6,6 +6,8 @@ port of ``repro.launch.serve``, with the same flags and printed lines.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --reduced
 
 It runs on the CUDA card (and raises without one); ``serve(...,
 device="cpu")`` runs it on the CPU.
@@ -34,25 +36,35 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
           log=print) -> Dict[str, Any]:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``decode_steps`` tokens (greedy at ``temperature`` 0, else sampled).
+    An encoder-decoder also gets ``frames`` (B, prompt_len, d_model) and a
+    VLM ``patch_embeds`` (B, n_vision_tokens, d_model), stubs drawn as the
+    reference draws them (f32 normals); decode starts at position
+    ``prompt_len + n_vision_tokens``.
 
     Where it differs from the reference's entry point:
 
     * the model runs with ``attn_impl``, ``ssm_impl``, ``rglru_impl`` and
       ``moe_gmm_impl`` set to ``"pallas"`` whatever ``cfg`` says, so on the
-      card every prefill attention, SSD scan and RG-LRU scan, and every
-      expert product of prefill and decode, goes through its hand-written
-      kernel (flash attention, ``ssd_scan``, ``rglru_scan``, ``gmm``);
-      decode attends through the plain attention (an int8 cache is
-      dequantized first) and steps the recurrences in plain torch, as the
-      reference's decode does;
-    * weights come from a ``torch.Generator`` seeded with ``seed``, prompts
-      and sampling from one seeded with ``seed + 1`` (the reference's
+      card every prefill self-attention (an encoder's too), SSD scan and
+      RG-LRU scan, and every expert product of prefill and decode, goes
+      through its hand-written kernel (flash attention, ``ssd_scan``,
+      ``rglru_scan``, ``gmm``); decode attends through the plain attention
+      (an int8 cache is dequantized first) and steps the recurrences in
+      plain torch, and cross-attention runs ``attention_chunked`` in
+      prefill and decode, as the reference's do;
+    * weights come from a ``torch.Generator`` seeded with ``seed``, prompts,
+      stubs and sampling from one seeded with ``seed + 1`` (the reference's
       ``PRNGKey(0)`` and ``PRNGKey(1)``; the draws differ);
-    * decode writes the caches in place (the reference donates them).
+    * decode writes the caches in place (the reference donates them);
+    * the self-attention caches hold ``prompt_len + n_vision_tokens +
+      decode_steps + 1`` slots: the reference sizes them without the
+      vision prefix, which truncates a VLM's prefilled cache and makes
+      every decode step write its last slot.
 
-    Returns the parameters, prompts, generated tokens ``(B, 1 +
-    decode_steps)``, the logits of every step, and the wall seconds of
-    prefill and decode."""
+    Returns the parameters, prompts, the stubs (``frames``,
+    ``patch_embeds``: None where the model takes none), generated tokens
+    ``(B, 1 + decode_steps)``, the logits of every step, and the wall
+    seconds of prefill and decode."""
     dev = resolve_device(device)
     cfg = cfg.replace(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas",
                       moe_gmm_impl="pallas")
@@ -62,12 +74,19 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     b, s = batch, prompt_len
-    cache_len = s + decode_steps + 1
+    n_prefix = s + cfg.n_vision_tokens
     prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    inputs = {"tokens": prompts, "cache_len": n_prefix + decode_steps + 1}
+    frames = patch_embeds = None
+    if cfg.is_encdec:
+        frames = inputs["frames"] = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    if cfg.n_vision_tokens:
+        patch_embeds = inputs["patch_embeds"] = torch.randn(
+            (b, cfg.n_vision_tokens, cfg.d_model), generator=gen, device=dev)
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = fns.prefill(params, {"tokens": prompts, "cache_len": cache_len})
+        logits, cache = fns.prefill(params, inputs)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         log(f"prefill: {b}×{s} tokens in {t_prefill:.2f}s ({b*s/t_prefill:.0f} tok/s)")
@@ -76,7 +95,7 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
         out, step_logits = [tok], [logits]
         t0 = time.perf_counter()
         for i in range(decode_steps):
-            logits, cache = serve_step(params, cache, {"token": tok, "pos": s + i})
+            logits, cache = serve_step(params, cache, {"token": tok, "pos": n_prefix + i})
             if temperature > 0:
                 probs = torch.softmax(logits.float() / temperature, -1)
                 tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
@@ -90,7 +109,8 @@ def serve(cfg: ModelConfig, batch: int = 4, prompt_len: int = 64, decode_steps: 
         f"({b*decode_steps/t_dec:.1f} tok/s)")
     tokens = torch.stack(out, dim=1)
     log("sample token ids:", tokens[0, :16].tolist())
-    return {"params": params, "prompts": prompts, "tokens": tokens, "logits": step_logits,
+    return {"params": params, "prompts": prompts, "frames": frames,
+            "patch_embeds": patch_embeds, "tokens": tokens, "logits": step_logits,
             "prefill_s": t_prefill, "decode_s": t_dec}
 
 

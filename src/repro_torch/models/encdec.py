@@ -1,0 +1,105 @@
+"""Whisper-style encoder-decoder backbone [arXiv:2212.04356].  The port of
+``repro.models.encdec`` for serving.
+
+The conv frontend is a stub, as in the reference: the caller supplies frame
+embeddings (B, S_enc, d_model).  Encoder: bidirectional attention + GELU
+MLP with sinusoidal positions, ``ENC_SPEC`` blocks stacked on a leading
+layer axis and run in a Python loop.  Decoder: the LM trunk of
+``repro_torch.models.lm`` (``tok``, ``groups``, ``final_norm``) whose
+blocks carry cross-attention, with sinusoidal positions added to the
+token embeddings and no RoPE (the reference's ``_sinusoid_at`` is
+``layers.sinusoid_at``).
+
+Not ported yet: ``encdec_loss`` (LM training, ROADMAP queue 1 row 8).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import block_apply, init_block
+from repro_torch.models.lm import _layer, init_lm, init_stacked, lm_hidden, make_lm_cache
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+ENC_SPEC = LayerSpec(mixer="attn", ffn="dense", window=None, cross_attn=False)
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig,
+                device: DeviceLike = None) -> Tuple[Params, Params]:
+    """(params, axes): ``init_lm``'s decoder trunk, then ``enc/blocks``
+    stacked on a leading layer axis and ``enc/norm``, the reference's tree."""
+    dev = resolve_device(device)
+    params, axes = init_lm(gen, cfg, dev)
+    stack, stack_axes = init_stacked(cfg.n_enc_layers, lambda: init_block(gen, cfg, ENC_SPEC))
+    norm, norm_axes = L.init_rmsnorm(cfg.d_model, cfg, gen.device)
+    params["enc"] = tree_map(lambda t: t.to(dev), {"blocks": stack, "norm": norm})
+    axes["enc"] = {"blocks": stack_axes, "norm": norm_axes}
+    return params, axes
+
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, S_enc, d_model), the stubbed conv frontend's output."""
+    b, s, d = frames.shape
+    cd = L._dt(cfg, "compute_dtype")
+    x = frames.to(cd) + L.sinusoidal_positions(s, d, cd, frames.device)[None]
+    positions = torch.arange(s, dtype=torch.int32, device=frames.device).expand(b, s)
+    for r in range(cfg.n_enc_layers):
+        x, _, _ = block_apply(_layer(params["enc"]["blocks"], r), x, cfg=cfg, spec=ENC_SPEC,
+                              mode="full", positions=positions, causal=False)
+    return L.rmsnorm(params["enc"]["norm"], x, cfg.norm_eps)
+
+
+def _dec_embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, pos0: int = 0):
+    """Token embeddings plus the sinusoids of positions ``pos0 ..``."""
+    x = L.embed(params["tok"], tokens, cfg)
+    pos = torch.arange(pos0, pos0 + tokens.shape[1], device=tokens.device)
+    return x + L.sinusoid_at(pos, cfg.d_model, L._dt(cfg, "compute_dtype"))[None]
+
+
+def encdec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    raise NotImplementedError(
+        "encdec_loss is not ported yet (ROADMAP: queue 1 row 8, LM training)")
+
+
+def encdec_prefill(
+    params: Params,
+    frames: torch.Tensor,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    cache_len: int = 0,
+):
+    """Encode, then run the decoder prompt; returns (last logits (B,V), caches)."""
+    enc_out = encode(params, frames, cfg)
+    cache_len = cache_len or tokens.shape[1]
+    x = _dec_embed(params, tokens, cfg)
+    hidden, caches, _ = lm_hidden(params, x, cfg, mode="prefill", cache_len=cache_len,
+                                  enc_out=enc_out)
+    logits = L.logits_from_hidden(params["tok"], hidden[:, -1:], cfg)
+    return logits[:, 0], caches
+
+
+def encdec_decode_step(
+    params: Params,
+    cache: Dict[str, Any],
+    token: torch.Tensor,  # (B,) int
+    pos: int,             # position being written
+    cfg: ModelConfig,
+):
+    """One decode step; ``cache`` is written in place and returned."""
+    pos = int(pos)
+    x = _dec_embed(params, token[:, None], cfg, pos0=pos)
+    hidden, caches, _ = lm_hidden(params, x, cfg, mode="decode", pos=pos, cache=cache)
+    logits = L.logits_from_hidden(params["tok"], hidden, cfg)
+    return logits[:, 0], caches
+
+
+def make_encdec_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int,
+                      device: DeviceLike = None):
+    return make_lm_cache(cfg, batch, cache_len, device, enc_len=enc_len)

@@ -5,7 +5,7 @@ Conventions (the reference's)
 -----------------------------
 * ``init_*`` returns ``(params, axes)``: ``axes`` mirrors the params tree
   with tuples of *logical* axis names for the sharding rules (still to port,
-  ROADMAP item 17; nothing in the port reads them yet).  Draws come from a
+  ROADMAP queue 1 row 9; nothing in the port reads them yet).  Draws come from a
   ``torch.Generator``, on the generator's device; they differ from
   ``jax.random``'s, so a parity test bridges the reference's weights.
 * Weights live in ``cfg.param_dtype``; matmuls run in ``cfg.compute_dtype``;
@@ -19,8 +19,6 @@ Conventions (the reference's)
 * Local attention uses ring-buffer KV caches of window size at decode.
   ``update_cache`` writes the cache in place (the reference gets the same
   from buffer donation).
-
-``sinusoidal_positions`` (whisper) is not ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -87,6 +85,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position table (S, D), computed in
+    f32 and cast to ``dtype``."""
+    return sinusoid_at(torch.arange(seq, device=device), d, dtype)
+
+
+def sinusoid_at(pos: torch.Tensor, d: int, dtype=torch.float32) -> torch.Tensor:
+    """Sinusoidal embedding (..., D) of the positions ``pos`` (...,)."""
+    half = d // 2
+    scale = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=pos.device)
+                      / max(half - 1, 1))
+    ang = pos.float()[..., None] * scale
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # --------------------------------------------------------------------------
 # Attention parameter init and projections
 # --------------------------------------------------------------------------
@@ -120,7 +134,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Tuple[Params, Para
     return params, axes
 
 
-def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
@@ -129,9 +143,9 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def qkv_project(params: Params, x: torch.Tensor, cfg: ModelConfig):
     cd = _dt(cfg, "compute_dtype")
     x = x.to(cd)
-    q = _proj_in(x, params["wq"].to(cd))
-    k = _proj_in(x, params["wk"].to(cd))
-    v = _proj_in(x, params["wv"].to(cd))
+    q = proj_in(x, params["wq"].to(cd))
+    k = proj_in(x, params["wk"].to(cd))
+    v = proj_in(x, params["wv"].to(cd))
     if "bq" in params:
         q = q + params["bq"].to(cd)
         k = k + params["bk"].to(cd)

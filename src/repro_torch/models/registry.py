@@ -1,10 +1,11 @@
 """Model registry: family-dispatched init/prefill/decode.  The port of
-``repro.models.registry`` for the decoder-only families it serves: dense,
-moe (olmoe, on one device), ssm (mamba2) and hybrid (recurrentgemma).
+``repro.models.registry`` for the families it serves: dense, moe (olmoe,
+on one device), ssm (mamba2), hybrid (recurrentgemma), vlm (internvl2)
+and the encoder-decoder (whisper).
 
-Not ported yet: the encoder-decoder family (whisper, ROADMAP item 14), the
-loss and ``make_train_step`` (LM training, item 15), and ``input_specs``
-(the dry-run planner, item 18); each raises.
+Not ported yet: the losses and ``make_train_step`` (LM training, ROADMAP
+queue 1 row 8) and ``input_specs`` (the dry-run planner, queue 1 row 9);
+each raises.
 """
 from __future__ import annotations
 
@@ -12,9 +13,16 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 
-_TRAINING = "is not ported yet (ROADMAP: LM training, launch/train.py)"
+_TRAINING = "is not ported yet (ROADMAP: queue 1 row 8, LM training)"
+_NO_SPECS = "input_specs is not ported yet (ROADMAP: queue 1 row 9, launch/dryrun.py)"
+
+# Whisper cross-attention context at decode (native 30 s window = 1500 frames).
+WHISPER_ENC_LEN = 1500
+# VLM stub prefix length (InternViT patch embeddings, already projected).
+VLM_PREFIX = 256
 
 
 def decode_cache_len(seq_len: int, multiple: int = 512) -> int:
@@ -37,8 +45,7 @@ class ModelFns:
 
 def model_fns(cfg: ModelConfig) -> ModelFns:
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet (ROADMAP: models/encdec.py)")
+        return _encdec_fns(cfg)
     return _lm_fns(cfg)
 
 
@@ -62,11 +69,44 @@ def _lm_fns(cfg: ModelConfig) -> ModelFns:
         return LM.make_lm_cache(cfg, batch_size, cache_len, device)
 
     def input_specs(shape):
-        raise NotImplementedError("input_specs is not ported yet (ROADMAP: launch/dryrun.py)")
+        raise NotImplementedError(_NO_SPECS)
 
     return ModelFns(
         cfg=cfg,
         init=lambda gen, device=None: LM.init_lm(gen, cfg, device),
+        loss=loss,
+        prefill=prefill,
+        decode=decode,
+        make_cache=make_cache,
+        input_specs=input_specs,
+    )
+
+
+def _encdec_fns(cfg: ModelConfig) -> ModelFns:
+    def loss(params, batch):
+        return ED.encdec_loss(params, batch, cfg)
+
+    def prefill(params, batch):
+        return ED.encdec_prefill(
+            params,
+            batch["frames"],
+            batch["tokens"],
+            cfg,
+            cache_len=batch.get("cache_len", 0) or batch["tokens"].shape[1],
+        )
+
+    def decode(params, cache, batch):
+        return ED.encdec_decode_step(params, cache, batch["token"], batch["pos"], cfg)
+
+    def make_cache(batch_size: int, cache_len: int, device=None):
+        return ED.make_encdec_cache(cfg, batch_size, cache_len, WHISPER_ENC_LEN, device)
+
+    def input_specs(shape):
+        raise NotImplementedError(_NO_SPECS)
+
+    return ModelFns(
+        cfg=cfg,
+        init=lambda gen, device=None: ED.init_encdec(gen, cfg, device),
         loss=loss,
         prefill=prefill,
         decode=decode,

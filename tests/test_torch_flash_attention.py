@@ -26,6 +26,7 @@ SWEEP = [
     (1, 384, 384, 4, 1, 32, True, 128),      # MQA + window, non-pow2 seq
     (2, 128, 128, 4, 4, 64, False, None),    # bidirectional (encoder)
     (1, 128, 512, 4, 2, 64, True, None),     # suffix: Sq < Skv
+    (1, 256, 256, 12, 2, 128, True, None),   # GQA 6:1 at D=128 (internvl2-26b's heads)
 ]
 # shapes the Pallas kernel's tiling refuses (S not a multiple of its tile):
 # held against the reference's oracle

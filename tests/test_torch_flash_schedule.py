@@ -111,6 +111,8 @@ def _check_tiles(sq, skv, causal, window, tq, tk):
 
 @pytest.mark.parametrize("sq,skv,causal,window", [
     (2048, 2048, True, None),           # qwen1.5-0.5b, olmoe-1b-7b prefill
+    (2304, 2304, True, None),           # internvl2-26b prefill: 256 patches + 2048 tokens
+    (2048, 2048, False, None),          # whisper-base's encoder: bidirectional
     (2048, 2048, True, 2048),           # recurrentgemma-9b: the window covers every causal key
     (2048, 2048, True, 512),            # a window edge inside the tiles
     (128, 2048, True, None),            # suffix: the queries are the last 128 positions

@@ -335,6 +335,8 @@ FLASH_CASES = [
     (1, 65, 65, 2, 1, 128, True, 5),
     (1, 2048, 2048, 16, 1, 256, True, 512),
     (2, 128, 2048, 8, 2, 128, True, None),
+    (1, 256, 256, 12, 2, 128, True, None),     # GQA 6:1 at D=128 (internvl2-26b's heads)
+    (1, 200, 200, 8, 8, 64, False, None),      # bidirectional off the tiles (whisper's encoder)
 ]
 # each flash path with each dtype it takes (wgmma takes bf16; f32 stays on FFMA)
 FLASH_PATH_DTYPES = [("ffma", "float32"), ("ffma", "bfloat16"), ("wgmma", "bfloat16")]

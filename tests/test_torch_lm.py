@@ -7,7 +7,9 @@ port's plain versions) on last-token logits and every cache leaf; greedy
 decode steps on tokens and logits; the checkpoint keys of params and
 caches; the layers the path runs; and the serve entry point end to end.
 The dense family (qwen, gemma3), the moe family (olmoe), the ssm family
-(mamba2) and the hybrid family (recurrentgemma).  Tolerances are the reference's: f32 2e-5, bf16
+(mamba2), the hybrid family (recurrentgemma) and the vlm family
+(internvl2, a prefix of patch embeddings); the encoder-decoder is held in
+``tests/test_torch_encdec.py``.  Tolerances are the reference's: f32 2e-5, bf16
 compute 2e-2."""
 import dataclasses
 
@@ -42,7 +44,8 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 # in f32 and bf16 compute; recurrentgemma (RG-LRU, RG-LRU, MQA local
 # attention with a window of 8 and a ring cache); olmoe (8 experts, top 2,
 # every expert product through the grouped matmul's "pallas" route) in f32
-# and bf16 compute
+# and bf16 compute; internvl2 (GQA 4:2, 4 patch embeddings through vis_proj
+# in front of the prompt, decode from PROMPT + 4) in f32 and bf16 compute
 CASES = {
     "qwen-f32": ("qwen1.5-0.5b", {}, F32),
     "qwen-bf16": ("qwen1.5-0.5b", {"compute_dtype": "bfloat16"}, BF16),
@@ -53,6 +56,8 @@ CASES = {
     "recurrentgemma": ("recurrentgemma-9b", {}, F32),
     "olmoe": ("olmoe-1b-7b", {}, F32),
     "olmoe-bf16": ("olmoe-1b-7b", {"compute_dtype": "bfloat16"}, BF16),
+    "internvl2": ("internvl2-26b", {}, F32),
+    "internvl2-bf16": ("internvl2-26b", {"compute_dtype": "bfloat16"}, BF16),
 }
 KERNEL_ROUTES = dict(attn_impl="pallas", ssm_impl="pallas", rglru_impl="pallas",
                      moe_gmm_impl="pallas")
@@ -101,7 +106,8 @@ def test_configs_equal_the_reference_field_for_field(reduced):
 # ---------------------------------------------------------------- init
 
 
-@pytest.mark.parametrize("case", ["qwen-f32", "gemma3", "mamba2", "recurrentgemma", "olmoe"])
+@pytest.mark.parametrize("case", ["qwen-f32", "gemma3", "mamba2", "recurrentgemma", "olmoe",
+                                  "internvl2"])
 def test_init_keeps_the_reference_tree_shapes_dtypes_and_axes(case):
     arch, over, _ = CASES[case]
     ref_cfg, cfg = _cfgs(arch, over)
@@ -127,15 +133,21 @@ def test_prefill_and_greedy_decode_match_the_reference(case):
     arch, over, tol = CASES[case]
     ref_cfg, cfg = _cfgs(arch, over)
     host, params = _params(ref_cfg)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, PROMPT)).astype(np.int32)
-    cache_len = PROMPT + STEPS + 1
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    # a VLM's patch embeddings go in front of the prompt, and decode follows them
+    nv = cfg.n_vision_tokens
+    patches = rng.normal(size=(2, nv, cfg.d_model)).astype(np.float32) if nv else None
+    start = PROMPT + nv
+    cache_len = start + STEPS + 1
 
-    want_logits, want_cache = ref_lm.lm_prefill(jax.tree.map(jnp.asarray, host),
-                                                jnp.asarray(tokens), ref_cfg,
-                                                cache_len=cache_len)
+    want_logits, want_cache = ref_lm.lm_prefill(
+        jax.tree.map(jnp.asarray, host), jnp.asarray(tokens), ref_cfg, cache_len=cache_len,
+        prefix_embeds=None if patches is None else jnp.asarray(patches))
     with torch.no_grad():
-        logits, cache = lm.lm_prefill(params, torch.from_numpy(tokens).long(), cfg,
-                                      cache_len=cache_len)
+        logits, cache = lm.lm_prefill(
+            params, torch.from_numpy(tokens).long(), cfg, cache_len=cache_len,
+            prefix_embeds=None if patches is None else torch.from_numpy(patches))
     _close(logits, want_logits, tol, "prefill logits")
     want_flat, got_flat = _flatten(want_cache), flatten(cache)
     assert list(got_flat) == list(want_flat)
@@ -155,9 +167,9 @@ def test_prefill_and_greedy_decode_match_the_reference(case):
         assert np.array_equal(tok.numpy()[~near_tie], want_tok[~near_tie]), (case, i)
         tok = torch.from_numpy(want_tok.astype(np.int64))
         want_logits, ref_cache = ref_step(ref_params, ref_cache,
-                                          {"token": jnp.asarray(want_tok), "pos": PROMPT + i})
+                                          {"token": jnp.asarray(want_tok), "pos": start + i})
         with torch.no_grad():
-            logits, cache = step(params, cache, {"token": tok, "pos": PROMPT + i})
+            logits, cache = step(params, cache, {"token": tok, "pos": start + i})
         _close(logits, want_logits, tol, f"decode step {i} logits")
         want_tok = np.asarray(jnp.argmax(want_logits, -1))
         tok = torch.argmax(logits, -1)
@@ -330,10 +342,12 @@ def test_cache_helpers_match_the_reference(ring):
 # ---------------------------------------------------------------- serve
 
 
-def test_serve_runs_end_to_end_on_the_cpu():
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-base", "internvl2-26b"])
+def test_serve_runs_end_to_end_on_the_cpu(arch):
     lines = []
-    out = serve(registry.get_config("qwen1.5-0.5b", reduced=True), batch=2, prompt_len=16,
-                decode_steps=4, device="cpu", log=lambda *a: lines.append(" ".join(map(str, a))))
+    cfg = registry.get_config(arch, reduced=True)
+    out = serve(cfg, batch=2, prompt_len=16, decode_steps=4, device="cpu",
+                log=lambda *a: lines.append(" ".join(map(str, a))))
     assert out["tokens"].shape == (2, 5) and out["tokens"].dtype == torch.int64
     assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 512
     assert all(torch.isfinite(lg.float()).all() for lg in out["logits"])
@@ -343,3 +357,30 @@ def test_serve_runs_end_to_end_on_the_cpu():
     # greedy: each generated token is the argmax of its step's logits
     for i, lg in enumerate(out["logits"]):
         assert torch.equal(torch.argmax(lg, -1), out["tokens"][:, i])
+    # the stubs the model takes, f32 normals, returned for the twins
+    frames, patches = out["frames"], out["patch_embeds"]
+    assert (frames is not None) == cfg.is_encdec
+    assert (patches is not None) == bool(cfg.n_vision_tokens)
+    if frames is not None:
+        assert frames.shape == (2, 16, cfg.d_model) and frames.dtype == torch.float32
+    if patches is not None:
+        assert patches.shape == (2, cfg.n_vision_tokens, cfg.d_model)
+        assert patches.dtype == torch.float32
+
+
+def test_serve_decodes_a_vlm_after_its_prefix_in_a_cache_that_holds_it(monkeypatch):
+    """``serve`` decodes a VLM from position ``prompt_len + n_vision_tokens``
+    and sizes its caches to hold the prefix, the prompt and every step (the
+    reference sizes them without the prefix: a reference defect)."""
+    seen = []
+    real = lm.lm_decode_step
+
+    def spy(params, cache, token, pos, cfg):
+        seen.append((pos, cache["g0"][0]["kv"]["k"].shape[2]))
+        return real(params, cache, token, pos, cfg)
+
+    monkeypatch.setattr(lm, "lm_decode_step", spy)
+    cfg = registry.get_config("internvl2-26b", reduced=True)
+    serve(cfg, batch=2, prompt_len=16, decode_steps=3, device="cpu", log=lambda *a: None)
+    n = 16 + cfg.n_vision_tokens
+    assert seen == [(n + i, n + 3 + 1) for i in range(3)]
