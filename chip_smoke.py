@@ -290,11 +290,44 @@ Phases (any failure exits non-zero before the last line is printed):
              2304: 48 flash launches a prefill, all on wgmma; its twin with
              attention through ``attention_chunked`` and K rolled alone as
              the control (with K and V rolled together the last causal row
-             sees every pair); the peak memory of the serve and the twin.
+             sees every pair); the peak memory of the serve and the twin;
+29. train  — LM training: (a) ``repro_torch.launch.train.train`` on
+             qwen1.5-0.5b at its published width (24 layers, d_model 1024,
+             vocab 151,936, f32 parameters, bf16 compute, remat ``full``,
+             AdamW with clip 1.0), 3 rounds x 4 silos x 4 local steps of
+             batch 8 x 128: once under ``none`` checkpointed every round,
+             once under ``int8``; the loss finite every round and lower in
+             round 3 than in round 1, ``comm_bytes`` under ``none`` = 4 x 3
+             x the f32 parameter bytes (int8: a byte a parameter + 4 a
+             leaf), the last checkpoint restoring the run's parameters bit
+             for bit, a run resumed from it (one round) against the same
+             round run from the parameters in memory: ``comm_bytes`` equal,
+             loss within TRAIN_RESUME_REL_TOL (the embedding's backward sums
+             with atomics); each round's wall by phase, one train step's
+             median wall, tokens/s, peak memory and card busy share; (b)
+             one step of qwen-100m in f32 (TF32 off) on the card and on the
+             CPU from the same parameters and batch: loss within 1e-5
+             relative, the gradients' global relative L2 within 1e-4, and
+             the card's with the tokens rolled by one outside it; (c)
+             olmoe-1b-7b at full width cut to 4 of its 16 layers (AdamW
+             state fits one card), two train steps of batch 8 x 128 (8,192
+             routed rows a layer over 64 experts), counted: 36 ``gmm``
+             launches a step (forward, remat recompute, dx; every one on
+             wgmma) and 12 ``tgmm`` (wgmma), a finite loss; layer 0's
+             captured expert products, dx and dw of the kernel route
+             against autograd through the plain loop in f32 (1e-4) and
+             bf16 (2e-2) relative norms, group sizes rolled by one as the
+             control; ``gmm`` (forward and dx on wᵀ as a view) and ``tgmm``
+             timed at those shapes beside the plain loop,
+             ``torch._grouped_mm`` and the bound; (d) two train steps each
+             of whisper-base (``encdec_loss``, frames drawn from the seed)
+             and mamba2-1.3b at full width: a finite loss, every parameter
+             leaf changed, walls and peak memory.  Every other kernel reads
+             0 launches in the phase.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3, 18, 23, 24, 25 and 26, ``tgmm`` with those of phases 3, 23, 24, 25 and 26, by path too, with worst
-errors and times by path and olmoe's wgmma times, ``flash_attention`` with
+of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
+errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
 those of phases 7, 14, 18, 21, 27 and 28 (and how many were bidirectional), ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
@@ -3561,6 +3594,451 @@ def run_internvl_phase(torch, counters, no_launches):
     return launches
 
 
+# ---------------------------------------------------------------- phase 29
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_ROUNDS, TRAIN_SILOS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 4, 8, 128
+TRAIN_RESUME_REL_TOL = 1e-3     # a resumed round against the same round from memory
+TRAIN_TWIN_LOSS_REL_TOL = 1e-5  # qwen-100m in f32, card against CPU
+TRAIN_TWIN_GRAD_REL_TOL = 1e-4
+TRAIN_MOE_LAYERS = 4            # olmoe-1b-7b cut to 4 of its 16 layers: AdamW state fits
+TRAIN_MOE_STEPS = 2
+TRAIN_MOE_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_FAMILIES = ("whisper-base", "mamba2-1.3b")
+
+
+def tree_bytes(tree):
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def train_batch(torch, cfg, device):
+    """One batch of the silo data ``launch/train.py`` draws (a Zipf stream,
+    contiguous windows; silo 0's seeds), plus whisper's frames from a
+    generator seeded 1."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.data.synthetic import make_lm_tokens
+
+    data = TokenDataset(make_lm_tokens(200_000, cfg.vocab_size, seed=0), TRAIN_SEQ,
+                        TRAIN_BATCH, seed=0)
+    batch = {"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(device)}
+    if cfg.is_encdec:
+        gen = torch.Generator(device=device).manual_seed(1)
+        batch["frames"] = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                                      device=device)
+    return batch
+
+
+def step_walls(torch, step, args, reps):
+    """Median wall seconds of ``step(*args)`` (each ending in a synchronize)
+    after one warm call, and the peak memory of a call."""
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_run(torch, cfg, label, device, **kw):
+    """``launch/train.py``'s ``train`` with its printed lines, and each
+    round's phase walls."""
+    from repro_torch.launch.train import train
+
+    say(f"  {label}:")
+    res = train(cfg, rounds=kw.pop("rounds", TRAIN_ROUNDS), silos=TRAIN_SILOS,
+                local_steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=device,
+                log=lambda *a: say("    " + " ".join(map(str, a))), **kw)
+    for h in res["history"]:
+        say(f"    round {h['round']} phase wall s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in h["phase_s"].items()))
+    losses = [h["loss"] for h in res["history"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    return res
+
+
+def run_train_main_path(torch, cfg, device, directory):
+    """(a): qwen1.5-0.5b's federated pretraining rounds under none (checkpointed)
+    and int8, a resume, and one train step's wall, launches and memory."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.models.registry import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    none = train_run(torch, cfg, "compression none, checkpointed", device, ckpt_dir=directory)
+    params = none["params"]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    f32_bytes = 4 * n_params
+    losses = [h["loss"] for h in none["history"]]
+    assert losses[-1] < losses[0], losses
+    comm = none["history"][-1]["comm_bytes"]
+    assert comm == TRAIN_SILOS * TRAIN_ROUNDS * f32_bytes, (comm, f32_bytes)
+    say(f"  none: loss {losses[0]:.4f} -> {losses[-1]:.4f}; comm_bytes {comm} = {TRAIN_SILOS} "
+        f"silos x {TRAIN_ROUNDS} rounds x {f32_bytes} f32 parameter bytes ({n_params} parameters)")
+    step, restored = CheckpointManager(directory).restore_latest(params)
+    assert step == TRAIN_ROUNDS
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(restored), tree_leaves(params)))
+    say(f"  the checkpoint of round {step} restores the run's parameters bit for bit")
+    del restored
+    resumed = train_run(torch, cfg, "resumed from the checkpoint, one round", device, rounds=1,
+                        ckpt_dir=directory)
+    straight = train_run(torch, cfg, "the same round from the parameters in memory", device,
+                         rounds=1, init_params=params)
+    (r,), (s,) = resumed["history"], straight["history"]
+    assert resumed["start_round"] == TRAIN_ROUNDS and r["round"] == TRAIN_ROUNDS + 1
+    assert r["comm_bytes"] == s["comm_bytes"], (r, s)
+    gap = abs(r["loss"] - s["loss"]) / abs(s["loss"])
+    say(f"  resumed round {r['round']} against the round from memory: loss {r['loss']:.6f} vs "
+        f"{s['loss']:.6f} (relative {gap:.2e}, tol {TRAIN_RESUME_REL_TOL:g}), comm_bytes "
+        f"{r['comm_bytes']} both")
+    assert gap <= TRAIN_RESUME_REL_TOL, gap
+    del resumed, straight
+    int8 = train_run(torch, cfg, "compression int8", device, compression="int8")
+    losses8 = [h["loss"] for h in int8["history"]]
+    assert losses8[-1] < losses8[0], losses8
+    comm8 = int8["history"][-1]["comm_bytes"]
+    n_leaves = len(tree_leaves(params))
+    assert comm8 == TRAIN_SILOS * TRAIN_ROUNDS * (n_params + 4 * n_leaves), comm8
+    say(f"  int8: loss {losses8[0]:.4f} -> {losses8[-1]:.4f}; comm_bytes {comm8} "
+        f"({comm8 / comm:.4f} of none's)")
+    del int8
+
+    step_fn, opt = make_train_step(cfg)
+    state = opt.init(params)
+    batch = train_batch(torch, cfg, device)
+    wall, peak = step_walls(torch, step_fn, (params, state, batch), reps=6)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"  one train step ({TRAIN_BATCH} x {TRAIN_SEQ}, remat {cfg.remat}, {cfg.compute_dtype} "
+        f"compute, {cfg.optimizer} clip {cfg.grad_clip:g}): median wall {wall * 1e3:.2f} ms, "
+        f"{tokens / wall:.0f} tokens/s, peak allocated {peak:.2f} GB (parameters "
+        f"{f32_bytes / 1e9:.2f} GB, AdamW state {tree_bytes(state) / 1e9:.2f} GB)")
+    prof = profile_call(torch, "one train step", lambda: step_fn(params, state, batch))
+    row = {"params": n_params, "losses": {"none": losses, "int8": losses8},
+           "comm_bytes": {"none": comm, "int8": comm8},
+           "round_phase_s": [h["phase_s"] for h in none["history"]],
+           "round_wall_s": [h["wall_s"] for h in none["history"]],
+           "step_ms": wall * 1e3, "tokens_per_s": tokens / wall, "peak_gb": peak,
+           "resume_loss_rel_gap": gap, **{f"step_{k}": v for k, v in prof.items()}}
+    del state, batch, params, none
+    return row
+
+
+def params_init(torch, cfg, device):
+    """The init ``train`` draws (a generator seeded 0 on the device)."""
+    from repro_torch.models.registry import model_fns
+
+    return model_fns(cfg).init(torch.Generator(device=device).manual_seed(0), device)[0]
+
+
+def grads_gap(torch, a, b):
+    """Global relative L2 of gradient tree ``a`` against ``b``."""
+    from repro_torch.tree import tree_leaves
+
+    num = sum(float((x.float().cpu() - y.float().cpu()).square().sum())
+              for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    den = sum(float(y.float().square().sum()) for y in tree_leaves(b))
+    return math.sqrt(num / den)
+
+
+def run_train_twin(torch, device):
+    """(b): one step of qwen-100m in f32 (TF32 off) on the card and on the CPU
+    from the same parameters and batch; the tokens rolled by one as control."""
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.registry import make_train_step, model_fns, value_and_grad
+    from repro_torch.tree import tree_map
+
+    cfg = train_config("qwen-100m").replace(compute_dtype="float32")
+    fns = model_fns(cfg)
+    host, _ = fns.init(torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(device), host)
+    batch_h = train_batch(torch, cfg, "cpu")
+    batch_c = {k: v.to(device) for k, v in batch_h.items()}
+    rolled = {"tokens": batch_c["tokens"].roll(1, dims=1)}
+    assert not torch.backends.cuda.matmul.allow_tf32
+    t0 = time.perf_counter()
+    (loss_h, _), g_h = value_and_grad(fns.loss, host, batch_h)
+    cpu_s = time.perf_counter() - t0
+    (loss_c, _), g_c = value_and_grad(fns.loss, card, batch_c)
+    (loss_r, _), g_r = value_and_grad(fns.loss, card, rolled)
+    step, opt = make_train_step(cfg)
+    _, _, m_h = step(host, opt.init(host), batch_h)
+    _, _, m_c = step(card, opt.init(card), batch_c)
+    loss_gap = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    step_gap = abs(float(m_c["loss"]) - float(m_h["loss"])) / abs(float(m_h["loss"]))
+    gap, control = grads_gap(torch, g_c, g_h), grads_gap(torch, g_r, g_h)
+    rolled_gap = abs(float(loss_r) - float(loss_h)) / abs(float(loss_h))
+    say(f"  qwen-100m ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss card {float(loss_c):.7f} CPU {float(loss_h):.7f} "
+        f"(relative {loss_gap:.2e}, tol {TRAIN_TWIN_LOSS_REL_TOL:g}; the train step's "
+        f"{step_gap:.2e}, grad_norm {float(m_c['grad_norm']):.6f} vs {float(m_h['grad_norm']):.6f}); "
+        f"gradients' global relative L2 {gap:.2e} (tol {TRAIN_TWIN_GRAD_REL_TOL:g}); control, "
+        f"tokens rolled by one on the card: {control:.2e} (loss {rolled_gap:.2e}); CPU "
+        f"value_and_grad {cpu_s:.1f} s")
+    assert loss_gap <= TRAIN_TWIN_LOSS_REL_TOL and step_gap <= TRAIN_TWIN_LOSS_REL_TOL
+    assert gap <= TRAIN_TWIN_GRAD_REL_TOL, gap
+    assert control > TRAIN_TWIN_GRAD_REL_TOL, control
+    return {"loss_rel_gap": loss_gap, "grad_rel_l2": gap, "control_grad_rel_l2": control}
+
+
+def moe_train_config():
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(OLMOE_ARCH)
+    return cfg.replace(n_layers=TRAIN_MOE_LAYERS,
+                       groups=(LayerGroup(cfg.groups[0].pattern, TRAIN_MOE_LAYERS),))
+
+
+@contextlib.contextmanager
+def capture_expert_products(ops, caps, n):
+    """Record the first ``n`` grouped-matmul calls' (x, w, group sizes), and
+    every path ``gmm`` chooses."""
+    real, real_path = ops.grouped_matmul, ops.choose_path
+    paths = []
+
+    def spy(x, w, sizes):
+        if len(caps) < n:
+            caps.append((x.detach(), w.detach(), sizes))
+        return real(x, w, sizes)
+
+    def path_spy(*a, **kw):
+        paths.append(real_path(*a, **kw))
+        return paths[-1]
+
+    with mock.patch.object(ops, "grouped_matmul", spy), \
+            mock.patch.object(ops, "choose_path", path_spy):
+        yield paths
+
+
+def hold_expert_grads(torch, ops, ref, x, w, sizes, dtype, seed):
+    """dx and dw of the kernel route against autograd through the plain loop
+    at these inputs in ``dtype``, and the kernel with the group sizes rolled
+    by one as the control: (relative norms, control's)."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    x, w = x.to(dtype), w.to(dtype)
+    dy = torch.randn((x.shape[0], w.shape[2]), generator=gen, device=x.device).to(dtype)
+
+    def grads(fn, gs):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xx, ww, gs).backward(dy)
+        return xx.grad, ww.grad
+
+    want = grads(ref.grouped_matmul_ref, sizes)
+    got = grads(ops.grouped_matmul, sizes)
+    bad = grads(ops.grouped_matmul, sizes.roll(1))
+    torch.cuda.synchronize()
+    return ([rel_norm(a, b) for a, b in zip(got, want)],
+            [rel_norm(a, b) for a, b in zip(bad, want)])
+
+
+def time_train_products(torch, ops, ref, x, w, h, wd, sizes):
+    """``gmm`` (forward and the backward's dx on wᵀ as a view) and ``tgmm`` at
+    the train step's expert shapes and routed split, bf16: kernel (on a
+    schedule made beforehand) beside the plain loop, ``torch._grouped_mm``
+    and the least time the card could take."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    m, g = x.shape[0], w.shape[0]
+    live = int((sizes > 0).sum())
+    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+    bounds = ops.row_bounds(sizes, m)
+    rows = {}
+    dy_up = torch.randn((m, w.shape[2]), generator=gen, device="cuda").bfloat16()
+    dy_down = torch.randn((m, wd.shape[2]), generator=gen, device="cuda").bfloat16()
+    gmm_cases = (("wg/wu forward", x, w), ("wd forward", h, wd),
+                 ("wg/wu dx (wT view)", dy_up, w.transpose(1, 2)),
+                 ("wd dx (wT view)", dy_down, wd.transpose(1, 2)))
+    for name, a, b in gmm_cases:
+        (_, k), n = a.shape, b.shape[2]
+        path = ops.choose_path(m, k, n, g, a.dtype, ops._vector_rows(a, b))
+        prefix = ops.tile_prefix(bounds, ops.PATHS[path][1])
+        y = torch.empty((m, n), device="cuda", dtype=a.dtype)
+        lib_ms, lib_note = grouped_mm_ms(torch, a, b, ends)
+        row = {"kernel": "gmm", "M": m, "K": k, "N": n, "G": g, "path": path,
+               "ms": median_ms(torch, lambda: ops.launch_gmm(path, a, b, bounds, prefix, y),
+                               reps=20, warm=2),
+               "plain_ms": median_ms(torch, lambda: ref.grouped_matmul_ref(a, b, sizes),
+                                     reps=5, warm=1),
+               "library_ms": lib_ms}
+        flops, io_bytes = 2 * m * k * n, 2 * (m * k + live * k * n + m * n) + 4 * (g + 1)
+        rows[name] = timing_row(row, flops, io_bytes, lib_note)
+    for name, a, d in (("wg/wu dw", x, dy_up), ("wd dw", h, dy_down)):
+        (_, k), n = a.shape, d.shape[1]
+        path = ops.choose_tgmm_path(m, k, n, g, a.dtype)
+        dw = torch.empty((g, k, n), device="cuda", dtype=a.dtype)
+        lib_ms, lib_note = grouped_mm_ms(torch, a.t(), d, ends)
+        row = {"kernel": "tgmm", "M": m, "K": k, "N": n, "G": g, "path": path,
+               "ms": median_ms(torch, lambda: ops.launch_tgmm(path, a, d, bounds, dw),
+                               reps=20, warm=2),
+               "plain_ms": median_ms(torch, lambda: ref.tgmm_ref(a, d, sizes, g), reps=5, warm=1),
+               "library_ms": lib_ms}
+        flops, io_bytes = 2 * m * k * n, 2 * (m * k + m * n + g * k * n) + 4 * (g + 2)
+        rows[name] = timing_row(row, flops, io_bytes, lib_note)
+    for name, row in rows.items():
+        lib = row["library_ms"]
+        say(f"  {row['kernel']} {name:<20} M={row['M']} K={row['K']} N={row['N']} G={row['G']}: "
+            f"{row['ms']:.4f} ms ({row['path']}); plain {row['plain_ms']:.4f} ms; library "
+            f"(torch._grouped_mm) {'null' if lib is None else f'{lib:.4f} ms'}"
+            f"{' (' + row['library_note'] + ')' if row['library_note'] else ''}; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {row['tflop_per_s']:.1f} TFLOP/s; "
+            f"kernel / bound {row['ms'] / row['bound_ms']:.2f}"
+            + (f", kernel / library {row['ms'] / lib:.2f}" if lib else ""))
+    return rows
+
+
+def timing_row(row, flops, io_bytes, lib_note):
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               tflop_per_s=flops / row["ms"] / 1e9, library_note=lib_note)
+    return row
+
+
+def run_train_moe(torch, ops, ref, counters, device):
+    """(c): olmoe-1b-7b at full width, 4 of its 16 layers: two train steps with
+    every expert product on the kernels, counted; then one layer's captured
+    expert products held against autograd through the plain loop, and timed."""
+    from repro_torch.models.registry import make_train_step
+
+    cfg = moe_train_config()
+    n_moe = TRAIN_MOE_LAYERS
+    say(f"  {OLMOE_ARCH} at full width, {TRAIN_MOE_LAYERS} of its 16 layers ({cfg.param_count() / 1e9:.2f} "
+        f"B parameters, f32; {cfg.compute_dtype} compute, remat {cfg.remat}, {cfg.optimizer} clip "
+        f"{cfg.grad_clip:g}), batch {TRAIN_BATCH} x {TRAIN_SEQ}: {TRAIN_BATCH * TRAIN_SEQ * cfg.top_k} "
+        f"routed rows a layer over {cfg.n_experts} experts")
+    params = params_init(torch, cfg, device)
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    batch = train_batch(torch, cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches((*counters, ops.TGMM_PATH_LAUNCHES))
+    caps, walls, losses = [], [], []
+    with capture_expert_products(ops, caps, 3) as paths:
+        for _ in range(TRAIN_MOE_STEPS):
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    tgmm_paths = dict(ops.TGMM_PATH_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  {TRAIN_MOE_STEPS} steps: walls {', '.join(f'{w:.3f}' for w in walls)} s, losses "
+        f"{losses}, peak allocated {peak:.2f} GB (parameters {tree_bytes(params) / 1e9:.2f} GB, "
+        f"AdamW state {tree_bytes(state) / 1e9:.2f} GB); launches {launches}, tgmm by path "
+        f"{tgmm_paths}, gmm paths chosen {sorted(set(paths))}")
+    want = {**{k: 0 for k in launches}, "gmm": 9 * n_moe * TRAIN_MOE_STEPS,
+            "tgmm": 3 * n_moe * TRAIN_MOE_STEPS}
+    assert launches == want, (launches, want)       # forward, recompute, dx: 3 x 3 a layer
+    assert tgmm_paths == {"ffma": 0, "wgmma": want["tgmm"]}, tgmm_paths
+    assert paths == ["wgmma"] * want["gmm"], paths
+    assert all(math.isfinite(x) for x in losses), losses
+    del params, state, batch
+    free_card(torch)
+
+    (x, wg, sizes), _, (h, wd, _) = caps
+    assert x.shape == (TRAIN_BATCH * TRAIN_SEQ * cfg.top_k, cfg.d_model), x.shape
+    assert int(sizes.sum()) == x.shape[0]
+    say(f"  layer 0's routed split: {int((sizes > 0).sum())} experts live, rows an expert "
+        f"{int(sizes.min())} .. {int(sizes.max())} (mean {x.shape[0] / cfg.n_experts:.0f})")
+    errs = {}
+    for dtype, tol in TRAIN_MOE_TOLS.items():
+        for name, a, b in (("wg", x, wg), ("wd", h, wd)):
+            got, bad = hold_expert_grads(torch, ops, ref, a, b, sizes, getattr(torch, dtype), 16)
+            errs[f"{dtype} {name}"] = {"dx": got[0], "dw": got[1], "control": bad}
+            say(f"  {dtype} {name} product x {tuple(a.shape)} w {tuple(b.shape)}: kernel route "
+                f"against autograd through the plain loop, relative dx {got[0]:.2e} dw "
+                f"{got[1]:.2e} (tol {tol:g}); group sizes rolled by one: dx {bad[0]:.2e} dw "
+                f"{bad[1]:.2e}")
+            assert max(got) <= tol, (dtype, name, got)
+            assert min(bad) > tol, (dtype, name, bad)
+    rows = time_train_products(torch, ops, ref, x.bfloat16(), wg.bfloat16(), h.bfloat16(),
+                               wd.bfloat16(), sizes)
+    del caps, x, wg, h, wd
+    free_card(torch)
+    return launches, tgmm_paths, {"step_s": walls, "losses": losses, "peak_gb": peak,
+                                  "grads": errs}, rows
+
+
+def run_train_families(torch, device):
+    """(d): one train step each of whisper-base (encdec_loss) and mamba2-1.3b
+    (ssd_chunked in plain torch) at full width: finite loss, params changed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        params = params_init(torch, cfg, device)
+        step, opt = make_train_step(cfg)
+        state = opt.init(params)
+        batch = train_batch(torch, cfg, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            new, state, metrics = step(params if i == 0 else new, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                loss = float(metrics["loss"])
+                changed = sum(not torch.equal(a, b)
+                              for a, b in zip(tree_leaves(new), tree_leaves(params)))
+                del params
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_leaves = len(tree_leaves(new))
+        say(f"  {arch} at full width ({cfg.param_count() / 1e9:.2f} B parameters, remat "
+            f"{cfg.remat}, {cfg.compute_dtype} compute"
+            f"{f', frames {TRAIN_BATCH} x {TRAIN_SEQ} x {cfg.d_model}' if cfg.is_encdec else ''}): "
+            f"two steps {walls[0]:.3f} s (the first) and {walls[1]:.3f} s, first loss {loss:.4f}, "
+            f"{changed} of {n_leaves} parameter leaves changed by it, peak allocated {peak:.2f} GB")
+        assert math.isfinite(loss) and changed == n_leaves, (loss, changed, n_leaves)
+        out[arch] = {"step_s": walls, "loss": loss, "peak_gb": peak}
+        del new, state, batch
+        free_card(torch)
+    return out
+
+
+def run_train_phase(torch, ops, ref, counters, smi, device="cuda"):
+    """Phase 29: LM training.  (a) and (b), (d) with every kernel count set to
+    0 before and read 0 after; (c) with its two steps counted."""
+    from repro_torch.configs.registry import get_config
+
+    free_card(torch)
+    cfg = get_config(TRAIN_ARCH)
+    say(f"PHASE 29 train: repro_torch.launch.train on {TRAIN_ARCH} at its published width "
+        f"({cfg.total_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute, remat {cfg.remat}, "
+        f"{cfg.optimizer} clip {cfg.grad_clip:g}), {TRAIN_ROUNDS} rounds x {TRAIN_SILOS} silos x "
+        f"{TRAIN_STEPS} local steps, batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    say(f"  card: {smi}")
+    t0 = time.perf_counter()
+    zero_launches(counters)
+    with tempfile.TemporaryDirectory() as directory:
+        main_row = run_train_main_path(torch, cfg, device, directory)
+    say("  (b) card against CPU")
+    twin_row = run_train_twin(torch, device)
+    quiet = {k: v for counts in counters for k, v in counts.items()}
+    assert not any(quiet.values()), quiet          # the dense path runs no kernel
+    say("  (c) expert gradients on gmm and tgmm")
+    moe_launches, moe_tgmm_paths, moe_row, moe_rows = run_train_moe(torch, ops, ref, counters,
+                                                                    device)
+    say("  (d) the other families")
+    zero_launches(counters)
+    family_rows = run_train_families(torch, device)
+    quiet = {k: v for counts in counters for k, v in counts.items()}
+    assert not any(quiet.values()), quiet
+    say(f"  phase 29 {time.perf_counter() - t0:.1f} s")
+    row = {"card": smi, TRAIN_ARCH: main_row, "qwen-100m twin": twin_row,
+           f"{OLMOE_ARCH} ({TRAIN_MOE_LAYERS} layers)": moe_row, **family_rows}
+    return moe_launches, moe_tgmm_paths, moe_rows, row
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3847,6 +4325,10 @@ def main() -> int:
     whisper_launches, whisper_layer_err = run_whisper_phase(torch, counters, no_launches)
     say(f"  so far {time.perf_counter() - t_all:.1f} s")
     internvl_launches = run_internvl_phase(torch, counters, no_launches)
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    train_launches, train_tgmm_paths, train_rows, train_row = run_train_phase(
+        torch, ops, ref, counters, smi)
+    say(json.dumps({"train": train_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -3862,16 +4344,21 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": "float32", "bfloat16": r["bfloat16"],
         })
+    train_key = f"{OLMOE_ARCH} train steps ({TRAIN_MOE_LAYERS} layers)"
+    train_keys = (*timing_keys, "path", "tflop_per_s", "M", "K", "N", "G")
     kernels[1].update({
-        "launches": launches["tgmm"] + option_launches["tgmm"] + fabric_launches["tgmm"],
+        "launches": (launches["tgmm"] + option_launches["tgmm"] + fabric_launches["tgmm"]
+                     + train_launches["tgmm"]),
         "launches_by_path": {"femnist-mlp rounds": launches["tgmm"],
                              "femnist-mlp rounds, other options": option_launches["tgmm"],
                              "femnist-mlp fabric, tenant A": fabric_launches["tgmm"],
                              "femnist-mlp multihost (server process)":
-                                 multihost_launches["tgmm"]},
+                                 multihost_launches["tgmm"],
+                             train_key: train_launches["tgmm"]},
         "path": rows[1]["path"], "wrapper_ms": rows[1]["wrapper_ms"],
         "launches_by_kernel_path": {p: tgmm_paths[p] + option_launches["tgmm_by_path"][p]
-                                    + fabric_tgmm_paths[p] for p in tgmm_paths},
+                                    + fabric_tgmm_paths[p] + train_tgmm_paths[p]
+                                    for p in tgmm_paths},
         "max_abs_err_by_path": tgmm_errs,
         "by_path": {r["layer"]: {"float32": r["by_path"], "bfloat16": r["bfloat16"]["by_path"]}
                     for r in rows if r["name"] == "tgmm"},
@@ -3880,19 +4367,24 @@ def main() -> int:
                    for r in rows if r["name"] == "tgmm"},
         OLMOE_ARCH: {key: {k: r[k] for k in (*timing_keys, "path", "wrapper_ms", "tflop_per_s")}
                      for key, r in moe_tgmm_rows.items()},
+        train_key: {key: {k: r[k] for k in train_keys}
+                    for key, r in train_rows.items() if r["kernel"] == "tgmm"},
     })
     kernels[0].update({
         "launches": (launches["gmm"] + olmoe_launches["gmm"] + option_launches["gmm"]
-                     + fabric_launches["gmm"]),
+                     + fabric_launches["gmm"] + train_launches["gmm"]),
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
                              OLMOE_ARCH: olmoe_launches["gmm"],
                              "femnist-mlp rounds, other options": option_launches["gmm"],
                              "femnist-mlp fabric, tenant A": fabric_launches["gmm"],
                              "femnist-mlp multihost (server process)":
-                                 multihost_launches["gmm"]},
+                                 multihost_launches["gmm"],
+                             train_key: train_launches["gmm"]},
         "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
         OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
                      for (name, prod), r in moe_rows.items()},
+        train_key: {key: {k: r[k] for k in train_keys}
+                    for key, r in train_rows.items() if r["kernel"] == "gmm"},
     })
     flash_row = flash_rows[SERVE_SHAPE]
     flash_paths = {SERVE_ARCH: qwen_launches, RGEMMA_ARCH: rgemma_launches,
@@ -3953,6 +4445,7 @@ def main() -> int:
         k.setdefault("launches_by_path", {served_by.get(k["name"]): k["launches"]})
         k["launches_by_path"]["hierarchical tree (phase 26, script process)"] = \
             hier_launches[k["name"]]
+        k["launches_by_path"].setdefault(train_key, train_launches[k["name"]])
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

@@ -1,8 +1,8 @@
-"""Client-local data pipeline: deterministic shuffled batching.
+"""Client-local data pipeline: deterministic shuffled batching (+LM windows).
 
-A numpy copy of ``repro.data.pipeline.ClientDataset``: the same seed gives
-the same shuffles, so a port world and a reference world built from one
-seed see identical batches.  Batches stay numpy; the trainer moves them to
+A numpy copy of ``repro.data.pipeline.ClientDataset`` and ``TokenDataset``:
+the same seed gives the same shuffles and windows, so a port world and a
+reference world built from one seed see identical batches.  Batches stay numpy; the trainer moves them to
 its device.
 """
 from __future__ import annotations
@@ -45,3 +45,19 @@ class ClientDataset:
     def batches(self, n_batches: int) -> Iterator[Dict[str, np.ndarray]]:
         for _ in range(n_batches):
             yield self.next_batch()
+
+
+class TokenDataset:
+    """Contiguous-window LM batches over a token stream."""
+
+    def __init__(self, tokens: np.ndarray, seq_len: int, batch_size: int, seed: int = 0):
+        self.tokens = tokens
+        self.seq_len = seq_len
+        self.batch_size = batch_size
+        self._rng = np.random.default_rng(seed)
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        max_start = len(self.tokens) - self.seq_len - 1
+        starts = self._rng.integers(0, max_start, size=self.batch_size)
+        toks = np.stack([self.tokens[s : s + self.seq_len] for s in starts])
+        return {"tokens": toks.astype(np.int32)}

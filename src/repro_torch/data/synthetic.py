@@ -1,10 +1,11 @@
 """Synthetic federated datasets with the paper's shapes/cardinalities.
 
-A numpy copy of ``repro.data.synthetic.make_dataset``: FEMNIST/CIFAR-10/
-SST-2 are synthesized with matching shapes, class counts and learnable
-class structure (class-conditional Gaussians over a random low-rank basis
-for images; class-biased token unigrams for text).  The same seed gives the
-same arrays as the reference.
+A numpy copy of ``repro.data.synthetic.make_dataset`` and
+``make_lm_tokens``: FEMNIST/CIFAR-10/SST-2 are synthesized with matching
+shapes, class counts and learnable class structure (class-conditional
+Gaussians over a random low-rank basis for images; class-biased token
+unigrams for text); LM pretraining streams are Zipf-distributed tokens.
+The same seed gives the same arrays as the reference.
 """
 from __future__ import annotations
 
@@ -55,3 +56,12 @@ def make_dataset(
         [rng.choice(spec.vocab_size, size=spec.seq_len, p=probs[cls]) for cls in y]
     ).astype(np.int32)
     return x, y
+
+
+def make_lm_tokens(n_tokens: int, vocab_size: int, seed: int = 0) -> np.ndarray:
+    """Zipf-distributed token stream for LM pretraining examples."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    return rng.choice(vocab_size, size=n_tokens, p=p).astype(np.int32)

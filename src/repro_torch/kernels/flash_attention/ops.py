@@ -19,8 +19,9 @@ is not aligned so).  ``LAUNCHES`` counts kernel launches and
 ``PATH_LAUNCHES`` the same launches by path, so a run can show which path
 its attention went through.  ``kv_tiles`` is the kernel's block-skip: the
 KV tiles a query tile visits.  The kernel is a forward: on the card it
-refuses inputs that need a gradient (training is a later slice of the
-port).
+refuses inputs that need a gradient until its backward is written
+(ROADMAP queue 2 B1); training runs ``attention_chunked``, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -139,7 +140,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: shapes exceed the kernel's grid: {tuple(q.shape)}")
     if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
         raise NotImplementedError("flash_attention: the kernel's backward is not ported yet "
-                                  "(ROADMAP: kernel queue #2, LM training)")
+                                  "(ROADMAP queue 2 B1)")
 
 
 def flash_attention(

@@ -15,7 +15,8 @@ does.  ``impl`` is the reference's:
 The kernel takes any L (the reference's Pallas kernel needs L to be a
 multiple of its chunk; its oracle does not).  ``LAUNCHES`` counts kernel
 launches.  The kernel is a forward: on the card it refuses inputs that need
-a gradient.  ``rglru_decode_step`` is the one-token update of decode, plain
+a gradient until its backward is written (ROADMAP queue 2 B3); training runs
+``rglru_associative``, as the reference's does.  ``rglru_decode_step`` is the one-token update of decode, plain
 torch as in the reference.
 """
 from __future__ import annotations
@@ -70,7 +71,7 @@ def _check(log_a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"rglru_scan: shapes exceed the kernel's grid: {tuple(b.shape)}")
     if (log_a.requires_grad or b.requires_grad) and torch.is_grad_enabled():
         raise NotImplementedError("rglru_scan: the kernel's backward is not ported yet "
-                                  "(ROADMAP: LM training)")
+                                  "(ROADMAP queue 2 B3)")
 
 
 def rglru_kernel(log_a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -27,8 +27,9 @@ version alone.
 
 ``LAUNCHES`` counts kernel launches and ``PATH_LAUNCHES`` the same launches
 by path, so a run can show which path its scan went through.  The kernel is
-a forward: on the card it refuses inputs that need a gradient (training is
-a later slice of the port).  ``ssd_decode_step`` is the one-token update of
+a forward: on the card it refuses inputs that need a gradient until its
+backward is written (ROADMAP queue 2 B2); training runs ``ssd_chunked``, as
+the reference's does.  ``ssd_decode_step`` is the one-token update of
 decode, plain torch as in the reference.
 """
 from __future__ import annotations
@@ -122,7 +123,7 @@ def _check(x, dt, a, b_mat, c_mat) -> None:
         raise ValueError(f"ssd_scan: shapes exceed the kernel's grid: {tuple(x.shape)}")
     if any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)) and torch.is_grad_enabled():
         raise NotImplementedError("ssd_scan: the kernel's backward is not ported yet "
-                                  "(ROADMAP: LM training)")
+                                  "(ROADMAP queue 2 B2)")
 
 
 def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,

@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone [arXiv:2212.04356].  The port of
-``repro.models.encdec`` for serving.
+``repro.models.encdec``: its loss and its serving.
 
 The conv frontend is a stub, as in the reference: the caller supplies frame
 embeddings (B, S_enc, d_model).  Encoder: bidirectional attention + GELU
@@ -8,9 +8,8 @@ layer axis and run in a Python loop.  Decoder: the LM trunk of
 ``repro_torch.models.lm`` (``tok``, ``groups``, ``final_norm``) whose
 blocks carry cross-attention, with sinusoidal positions added to the
 token embeddings and no RoPE (the reference's ``_sinusoid_at`` is
-``layers.sinusoid_at``).
-
-Not ported yet: ``encdec_loss`` (LM training, ROADMAP queue 1 row 8).
+``layers.sinusoid_at``).  The encoder's layer bodies run under
+``maybe_remat``, as the decoder's do in ``lm_hidden``'s training forward.
 """
 from __future__ import annotations
 
@@ -22,7 +21,16 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import block_apply, init_block
-from repro_torch.models.lm import _layer, init_lm, init_stacked, lm_hidden, make_lm_cache
+from repro_torch.models.lm import (
+    chunked_ce,
+    init_lm,
+    init_stacked,
+    lm_hidden,
+    make_lm_cache,
+    maybe_remat,
+    next_token_targets,
+    unbind_layers,
+)
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -49,9 +57,14 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     cd = L._dt(cfg, "compute_dtype")
     x = frames.to(cd) + L.sinusoidal_positions(s, d, cd, frames.device)[None]
     positions = torch.arange(s, dtype=torch.int32, device=frames.device).expand(b, s)
-    for r in range(cfg.n_enc_layers):
-        x, _, _ = block_apply(_layer(params["enc"]["blocks"], r), x, cfg=cfg, spec=ENC_SPEC,
-                              mode="full", positions=positions, causal=False)
+
+    def body(xx, layer_params):
+        return block_apply(layer_params, xx, cfg=cfg, spec=ENC_SPEC, mode="full",
+                           positions=positions, causal=False)[0]
+
+    rbody = maybe_remat(body, cfg)
+    for lp in unbind_layers(params["enc"]["blocks"], cfg.n_enc_layers):
+        x = rbody(x, lp)
     return L.rmsnorm(params["enc"]["norm"], x, cfg.norm_eps)
 
 
@@ -63,8 +76,17 @@ def _dec_embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, pos0: int
 
 
 def encdec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    raise NotImplementedError(
-        "encdec_loss is not ported yet (ROADMAP: queue 1 row 8, LM training)")
+    """batch: frames (B, S_enc, D) float, tokens (B, S_dec) int.  The
+    decoder's next-token CE (the aux loss is reported, not added, as the
+    reference does).  Returns (loss, {ce, aux, tokens})."""
+    enc_out = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    x = _dec_embed(params, tokens, cfg)
+    hidden, _, aux = lm_hidden(params, x, cfg, mode="full", enc_out=enc_out)
+    targets, mask = next_token_targets(tokens)
+    tot, cnt = chunked_ce(params, hidden, targets, mask, cfg)
+    ce = tot / torch.clamp(cnt, min=1.0)
+    return ce, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def encdec_prefill(

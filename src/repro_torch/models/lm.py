@@ -1,7 +1,8 @@
 """Decoder-only language model over layer groups.  The port of
-``repro.models.lm`` for serving (prefill and decode) of the dense, moe
-(olmoe), ssm (mamba2), hybrid (recurrentgemma) and vlm (internvl2)
-families, and the decoder trunk of the encoder-decoder (whisper,
+``repro.models.lm``: training (the ``full`` forward, ``chunked_ce`` and
+``lm_loss``) and serving (prefill and decode) of the dense, moe (olmoe),
+ssm (mamba2), hybrid (recurrentgemma) and vlm (internvl2) families, and
+the decoder trunk of the encoder-decoder (whisper,
 ``repro_torch.models.encdec``).
 
 Layer groups (``cfg.groups``) hold stacked parameters on a leading layer
@@ -16,20 +17,31 @@ block ``{"lru": {"conv", "h"}}``, and a cross-attention block also
 prefill sums the MoE layers' aux losses, as the reference does.  A VLM's
 patch embeddings go through ``vis_proj`` and in front of the tokens.
 
-Not ported yet: the ``full`` training forward, ``chunked_ce`` and
-``lm_loss`` (LM training, ROADMAP queue 1 row 8).
+The training forward runs each layer body under ``maybe_remat``
+(``cfg.remat``): ``none`` keeps every activation, ``full`` recomputes the
+body in the backward (``torch.utils.checkpoint``), ``dots`` recomputes it
+but keeps the matrix products' outputs.  A stacked group is unbound into
+its layers once, so each stacked leaf's gradient is one ``stack`` of its
+layers' gradients.  The cross-entropy runs over sequence chunks of
+``cfg.loss_chunk`` in a Python loop, each chunk's ``logsumexp`` in f32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import block_apply, block_cache, init_block
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -39,6 +51,35 @@ def _layer_axes(ax):
     if isinstance(ax, dict):
         return {k: _layer_axes(v) for k, v in ax.items()}
     return ("layers",) + tuple(ax)
+
+
+#: the products whose outputs ``remat="dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``cfg.remat``: ``none`` as it is; ``full`` recomputed in
+    the backward; ``dots`` recomputed but for the outputs of ``mm``, ``bmm``
+    and ``addmm``, which are kept (the reference's
+    ``dots_with_no_batch_dims_saveable`` keeps only the unbatched dots; what
+    is kept moves memory and time, never the gradients).  Without grad mode
+    nothing is saved for a backward, so ``fn`` runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -118,12 +159,20 @@ def _layer(tree, r: int):
     return tree_map(lambda t: t[r], tree)
 
 
+def unbind_layers(tree, n: int):
+    """The ``n`` layers of a stacked tree, as views from one ``unbind`` a
+    leaf: its backward stacks the layers' gradients into the leaf's at once,
+    where ``n`` selects would each add a zero-filled copy of the leaf."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[r] for p in parts]) for r in range(n)]
+
+
 def lm_hidden(
     params: Params,
     x: torch.Tensor,
     cfg: ModelConfig,
     *,
-    mode: str = "prefill",
+    mode: str = "full",
     positions: Optional[torch.Tensor] = None,
     pos: Optional[int] = None,
     cache: Optional[Dict[str, Any]] = None,
@@ -131,23 +180,39 @@ def lm_hidden(
     enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
-    """Run all layer groups.  Returns (hidden, caches, aux).
+    """Run all layer groups.  Returns (hidden, caches (None in ``full``
+    mode), aux).
 
-    ``prefill`` builds new caches; ``decode`` writes ``cache`` in place and
-    returns it.  Cross-attention blocks attend over ``enc_out`` at prefill
-    and over their cache at decode."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP: queue 1 row 8, LM training)")
+    ``full`` is the training forward: no cache, each layer body under
+    ``maybe_remat``.  ``prefill`` builds new caches; ``decode`` writes
+    ``cache`` in place and returns it.  Cross-attention blocks attend over
+    ``enc_out`` in ``full`` and ``prefill`` mode and over their cache at
+    decode."""
+    if mode not in ("full", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     b, s = x.shape[0], x.shape[1]
-    if positions is None and mode == "prefill":
+    if positions is None and mode != "decode":
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {}
 
     for gi, group in enumerate(cfg.groups):
         gp = params["groups"][f"g{gi}"]
-        if mode == "prefill":
+        if mode == "full":
+
+            def body(xx, au, layer_params, _group=group):
+                for j, spec in enumerate(_group.pattern):
+                    xx, _, a = block_apply(
+                        layer_params[f"p{j}"], xx, cfg=cfg, spec=spec, mode="full",
+                        positions=positions, causal=causal, enc_out=enc_out,
+                    )
+                    au = au + a
+                return xx, au
+
+            rbody = maybe_remat(body, cfg)
+            for lp in unbind_layers(gp, group.repeat):
+                x, aux = rbody(x, aux, lp)
+        elif mode == "prefill":
             per_layer = []
             for r in range(group.repeat):
                 lp, caches = _layer(gp, r), []
@@ -173,7 +238,74 @@ def lm_hidden(
             new_caches[f"g{gi}"] = gc
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, new_caches, aux
+    return x, (new_caches if mode != "full" else None), aux
+
+
+# --------------------------------------------------------------------------
+# Loss (chunked cross-entropy)
+# --------------------------------------------------------------------------
+
+
+def chunked_ce(
+    params: Params,
+    hidden: torch.Tensor,
+    targets: torch.Tensor,
+    mask: torch.Tensor,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (sum CE over masked tokens, mask count), the logits of one
+    chunk of ``cfg.loss_chunk`` positions at a time; unchunked where the
+    chunk does not divide the sequence, as the reference does."""
+    s = hidden.shape[1]
+    chunk = min(cfg.loss_chunk or s, s)
+    if s % chunk != 0:
+        chunk = s  # fall back to unchunked rather than pad
+
+    def ce_chunk(h, t, m):
+        logits = L.logits_from_hidden(params["tok"], h, cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(logits, t[..., None].long(), dim=-1)[..., 0]
+        return torch.sum((logz - tgt) * m), torch.sum(m)
+
+    if chunk == s:
+        return ce_chunk(hidden, targets, mask)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        lsum, lcnt = ce_chunk(hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+                              mask[:, c0:c0 + chunk])
+        tot, cnt = tot + lsum, cnt + lcnt
+    return tot, cnt
+
+
+def next_token_targets(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(targets, mask): each position's next token, and 1 at every position
+    but the last, which has none (its target is 0, masked out)."""
+    b, s = tokens.shape
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
+    mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return targets, mask
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """batch: tokens (B,S) int, optional loss_mask (B,S), optional
+    patch_embeds (B, n_vis, D) for a VLM.  Next-token CE plus
+    ``router_aux_coef`` times the MoE layers' aux loss.  Returns (loss,
+    {ce, aux, tokens})."""
+    tokens = batch["tokens"]
+    prefix = batch.get("patch_embeds")
+    x = embed_inputs(params, tokens, cfg, prefix)
+    hidden, _, aux = lm_hidden(params, x, cfg, mode="full")
+    if prefix is not None and prefix.shape[1]:
+        hidden = hidden[:, prefix.shape[1]:]
+    targets, mask = next_token_targets(tokens)
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"].float()
+    tot, cnt = chunked_ce(params, hidden, targets, mask, cfg)
+    ce = tot / torch.clamp(cnt, min=1.0)
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 # --------------------------------------------------------------------------

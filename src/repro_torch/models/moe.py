@@ -18,8 +18,8 @@ router weights.  No capacity factor, no token dropping.
 
 The sharded bodies (``_moe_shard_body``, ``_moe_shard_body_ep``,
 ``_moe_shard_body_ep_resident``) wait for the port's sharding rules
-(ROADMAP item 17): ``moe_ffn`` with a mesh of more than one device raises.
-Group sizes are counted with a scatter-add on the tensor's device, so the
+(ROADMAP queue 1 row 9b): ``moe_ffn`` with a mesh of more than one device
+raises.  Group sizes are counted with a scatter-add on the tensor's device, so the
 kernel route never waits for the card.
 """
 from __future__ import annotations
@@ -128,6 +128,6 @@ def moe_ffn(
     ``DeviceMesh``); one device, or none, runs the local path."""
     if mesh is not None and mesh.size() > 1:
         raise NotImplementedError(
-            "the sharded MoE bodies are not ported yet (ROADMAP item 17: dist/sharding.py)")
+            "the sharded MoE bodies are not ported yet (ROADMAP queue 1 row 9b)")
     return _moe_local(params["router"], params["wg"], params["wu"], params["wd"], x, cfg,
                       gmm_impl)

@@ -1,22 +1,24 @@
-"""Model registry: family-dispatched init/prefill/decode.  The port of
-``repro.models.registry`` for the families it serves: dense, moe (olmoe,
-on one device), ssm (mamba2), hybrid (recurrentgemma), vlm (internvl2)
-and the encoder-decoder (whisper).
+"""Model registry: family-dispatched init/loss/prefill/decode and the step
+factories.  The port of ``repro.models.registry`` for the dense, moe
+(olmoe, on one device), ssm (mamba2), hybrid (recurrentgemma) and vlm
+(internvl2) families and the encoder-decoder (whisper).
 
-Not ported yet: the losses and ``make_train_step`` (LM training, ROADMAP
-queue 1 row 8) and ``input_specs`` (the dry-run planner, queue 1 row 9);
-each raises.
+Not ported yet: ``input_specs`` (the dry-run planner, ROADMAP queue 1 row
+9), which raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
+from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_TRAINING = "is not ported yet (ROADMAP: queue 1 row 8, LM training)"
 _NO_SPECS = "input_specs is not ported yet (ROADMAP: queue 1 row 9, launch/dryrun.py)"
 
 # Whisper cross-attention context at decode (native 30 s window = 1500 frames).
@@ -36,7 +38,7 @@ def decode_cache_len(seq_len: int, multiple: int = 512) -> int:
 class ModelFns:
     cfg: ModelConfig
     init: Callable        # (generator, device=None) -> (params, axes)
-    loss: Callable
+    loss: Callable        # (params, batch) -> (loss, metrics{ce, aux, tokens})
     prefill: Callable     # (params, batch{tokens, cache_len}) -> (logits, caches)
     decode: Callable      # (params, cache, batch{token, pos}) -> (logits, cache), in place
     make_cache: Callable  # (batch_size, cache_len, device=None) -> (caches, axes)
@@ -51,7 +53,7 @@ def model_fns(cfg: ModelConfig) -> ModelFns:
 
 def _lm_fns(cfg: ModelConfig) -> ModelFns:
     def loss(params, batch):
-        raise NotImplementedError(f"the LM loss {_TRAINING}")
+        return LM.lm_loss(params, batch, cfg)
 
     def prefill(params, batch):
         return LM.lm_prefill(
@@ -115,8 +117,38 @@ def _encdec_fns(cfg: ModelConfig) -> ModelFns:
     )
 
 
+def value_and_grad(loss_fn: Callable, params, batch):
+    """((loss, metrics), grads) of ``loss_fn(params, batch) -> (loss,
+    metrics)``, as ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them:
+    ``grads`` is a tree like ``params``, zeros where the loss does not
+    reach a leaf; ``loss`` and ``metrics`` are detached."""
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, metrics = loss_fn(tree_unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(live, grads)])
+    return tree_map(torch.Tensor.detach, (loss, metrics)), grads
+
+
 def make_train_step(cfg: ModelConfig):
-    raise NotImplementedError(f"make_train_step {_TRAINING}")
+    """Returns (train_step, optimizer).  train_step: (params, opt_state,
+    batch) -> (params, opt_state, metrics{ce, aux, tokens, loss,
+    grad_norm}), new trees: the inputs are left as they were."""
+    fns = model_fns(cfg)
+    opt = make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.weight_decay)
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(fns.loss, params, batch)
+        if cfg.grad_clip:
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        else:
+            gnorm = torch.zeros((), device=loss.device)
+        with torch.no_grad():
+            params, opt_state = opt.update(grads, opt_state, params)
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        return params, opt_state, metrics
+
+    return train_step, opt
 
 
 def make_prefill_step(cfg: ModelConfig):

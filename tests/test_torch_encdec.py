@@ -220,9 +220,18 @@ def test_bridge_carries_the_encoder_and_cross_leaves_under_checkpoint_keys():
 
 
 def test_training_and_input_specs_raise_naming_the_roadmap():
-    _, cfg = _cfgs()
-    fns = model_fns(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 row 8"):
-        fns.loss({}, {})
+    """The loss is ported: ``fns.loss`` gives the reference's value (its
+    gradients are held in tests/test_torch_train.py); ``input_specs`` still
+    raises, naming the roadmap's row."""
+    ref_cfg, cfg = _cfgs(attn_impl="chunked")
+    host, params = _params(ref_cfg)
+    tokens, frames = _inputs(cfg)
+    want, want_m = ref_model_fns(ref_cfg).loss(jax.tree.map(jnp.asarray, host),
+                                               {"frames": frames, "tokens": tokens})
+    got, got_m = model_fns(cfg).loss(params, {"frames": torch.from_numpy(frames),
+                                             "tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(float(got), float(want), **F32)
+    for key in ("ce", "aux", "tokens"):
+        np.testing.assert_allclose(float(got_m[key]), float(want_m[key]), **F32, err_msg=key)
     with pytest.raises(NotImplementedError, match="queue 1 row 9"):
-        fns.input_specs(None)
+        model_fns(cfg).input_specs(None)

@@ -318,6 +318,53 @@ def test_autograd_backward_runs_tgmm_on_its_path(card, dtype, path):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+# the regime of an MoE train step (olmoe at batch 8 x 128: about 128 rows an
+# expert, between decode's few and prefill's thousand), at narrow widths:
+# (M, K, N, G) for the gate/up product and the down product
+TRAIN_SHAPES = [(2048, 256, 128, 16), (2048, 128, 256, 16)]
+
+
+@pytest.mark.parametrize("w_layout", ["stored", "transposed view"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_autograd_at_the_training_regime(card, shape, dtype, w_layout):
+    """Forward, dx = gmm(dy, wᵀ) on wᵀ as a view and dw on tgmm, against
+    autograd through the plain version; w itself also given as a transposed
+    view of a (G, N, K) tensor.  Two gmm launches and one tgmm a call, tgmm
+    on the path its dtype picks; bf16 takes wgmma for every product."""
+    m, k, n, g = shape
+    rng = np.random.default_rng(13)
+    sizes = rng.multinomial(m, np.full(g, 1.0 / g)).astype(np.int32)
+    assert 64 < sizes.min() and sizes.max() < 192, sizes
+    x, w, dy, _ = _inputs(shape, sizes, seed=14)
+    tdt = getattr(torch, dtype)
+    gc = torch.from_numpy(sizes).to(card)
+
+    def grads_of(fn):
+        xc = torch.from_numpy(x).to(card, tdt).requires_grad_()
+        if w_layout == "stored":
+            wc = torch.from_numpy(w).to(card, tdt).requires_grad_()
+            wv = wc
+        else:
+            wc = torch.from_numpy(w.transpose(0, 2, 1).copy()).to(card, tdt).requires_grad_()
+            wv = wc.transpose(1, 2)
+        y = fn(xc, wv, gc)
+        y.backward(torch.from_numpy(dy).to(card, tdt))
+        return y.float(), xc.grad.float(), wc.grad.float()
+
+    before, before_paths = dict(ops.LAUNCHES), dict(ops.TGMM_PATH_LAUNCHES)
+    got = grads_of(ops.grouped_matmul)
+    path = "wgmma" if dtype == "bfloat16" else "ffma"
+    assert ops.LAUNCHES == {"gmm": before["gmm"] + 2, "tgmm": before["tgmm"] + 1}
+    assert ops.TGMM_PATH_LAUNCHES == {**before_paths, path: before_paths[path] + 1}
+    if dtype == "bfloat16":
+        assert ops.choose_path(m, k, n, g, tdt) == ops.choose_path(m, n, k, g, tdt) == "wgmma"
+    want = grads_of(ref.grouped_matmul_ref)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for a, b, what in zip(got, want, ("y", "dx", "dw")):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=lambda m_: f"{what}: {m_}")
+
+
 # flash attention: (b, sq, skv, hq, hk, d, causal, window) — the reference's
 # sweep (tests/test_kernels.py:26-34), a suffix (Sq < Skv), ragged lengths
 # and head sizes off the kernel's tiles, MQA at D = 256 with a window edge
@@ -472,7 +519,7 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
         fa_ops.flash_attention(q, k, k, path="wgmma")               # f32
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, k, k, path="mma")                 # no such path
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="queue 2 B1"):
         fa_ops.flash_attention(q.requires_grad_(), k, k)            # no backward yet
 
 
@@ -597,7 +644,7 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
         ssd_ops.ssd(big, dt[:, :, :1], a[:1], bm[:, :, :1], cm[:, :, :1], impl="pallas")
     with pytest.raises(ValueError):
         ssd_ops.ssd(x[..., ::2], dt, a, bm, cm, impl="pallas")       # P not unit-stride
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="queue 2 B2"):
         ssd_ops.ssd(x.requires_grad_(), dt, a, bm, cm, impl="pallas")   # no backward yet
 
 
@@ -732,7 +779,7 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(card):
         lru_ops.rglru_scan(log_a, x.cpu(), impl="pallas")            # mixed devices
     with pytest.raises(ValueError):
         lru_ops.rglru_scan(log_a[..., ::2], x[..., ::2], impl="pallas")   # W not unit-stride
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="queue 2 B3"):
         lru_ops.rglru_scan(log_a, x.requires_grad_(), impl="pallas")    # no backward yet
 
 

@@ -151,7 +151,7 @@ def test_moe_ffn_refuses_a_mesh_of_more_than_one_device():
         one, _ = moe.moe_ffn(params, xt, cfg, mesh=_Mesh(1))
         none, _ = moe.moe_ffn(params, xt, cfg)
         torch.testing.assert_close(one, none, rtol=0, atol=0)
-        with pytest.raises(NotImplementedError, match="item 17"):
+        with pytest.raises(NotImplementedError, match="queue 1 row 9b"):
             moe.moe_ffn(params, xt, cfg, mesh=_Mesh(4))
     with pytest.raises(ValueError):
         moe.moe_ffn(params, xt, cfg, gmm_impl="megablocks")
