@@ -173,10 +173,11 @@ Phases (any failure exits non-zero before the last line is printed):
              (vocab 2,048, seq 64, hidden 64, 2 layers, 2 classes); 64 clients,
              16 participants, 10 local steps, batch 32, so COLLECT is one dense
              (vmapped) wave; momentum or adamw.  Two rounds each with walls by
-             phase and peak memory, one warm wave profiled (launches, card
-             busy share), and 4 clients of round 2's wave card against CPU
-             within TWIN_REL_TOL (the control, the CNN's ``fc`` fed
-             NCHW-flattened features, must fail it).  Then phase 3's ragged
+             phase and peak memory, one warm wave of CLIENTS_PROFILE_STEPS
+             (2) steps profiled (launches, card busy share), and 4 clients
+             of round 2's wave card against CPU within TWIN_REL_TOL (the
+             control, the CNN's ``fc`` fed NCHW-flattened features, must
+             fail it).  Then phase 3's ragged
              MLP world one round each under adamw (weight decay 0.01),
              adafactor, int8 and topk compression, ``gmm``/``tgmm`` launches
              counted; the adafactor wave against its clients trained one by
@@ -208,9 +209,9 @@ Phases (any failure exits non-zero before the last line is printed):
              batch size, so eager waves are mostly single clients): the same
              CPU-twin gates and launches equal to what its ragged waves
              imply.  Printed only: waves per round and their sizes, COLLECT
-             wall (both worlds), the run's wall traced and untraced and
-             against the tenants one after the other, and the analytical
-             against the measured seconds of one client step.
+             wall (both worlds), the run's wall untraced and traced (one
+             run each) and against the tenants one after the other, and the
+             analytical against the measured seconds of one client step.
 25. multihost — the flat deployment of ``repro_torch.launch.multihost``:
              its world (8 clients, 3 rounds, 8 participants, 2 local steps of
              batch 8) at the repo's MLP width (hidden 128), every process on
@@ -294,13 +295,13 @@ Phases (any failure exits non-zero before the last line is printed):
 29. train  — LM training: (a) ``repro_torch.launch.train.train`` on
              qwen1.5-0.5b at its published width (24 layers, d_model 1024,
              vocab 151,936, f32 parameters, bf16 compute, remat ``full``,
-             AdamW with clip 1.0), 3 rounds x 4 silos x 4 local steps of
-             batch 8 x 128: once under ``none`` checkpointed every round,
-             once under ``int8``; the loss finite every round and lower in
-             round 3 than in round 1, ``comm_bytes`` under ``none`` = 4 x 3
-             x the f32 parameter bytes (int8: a byte a parameter + 4 a
-             leaf), the last checkpoint restoring the run's parameters bit
-             for bit, a run resumed from it (one round) against the same
+             AdamW with clip 1.0), 4 silos x 4 local steps of batch 8 x 128:
+             3 rounds under ``none`` checkpointed every round, 2
+             (TRAIN_INT8_ROUNDS) under ``int8``; the loss finite every round
+             and lower in the last round than in the first, ``comm_bytes``
+             under ``none`` = 4 x 3 x the f32 parameter bytes (int8: 4 x 2 x
+             a byte a parameter + 4 a leaf), the last checkpoint restoring
+             the run's parameters bit for bit, a run resumed from it (one round) against the same
              round run from the parameters in memory: ``comm_bytes`` equal,
              loss within TRAIN_RESUME_REL_TOL (the embedding's backward sums
              with atomics); each round's wall by phase, one train step's
@@ -323,12 +324,43 @@ Phases (any failure exits non-zero before the last line is printed):
              of whisper-base (``encdec_loss``, frames drawn from the seed)
              and mamba2-1.3b at full width: a finite loss, every parameter
              leaf changed, walls and peak memory.  Every other kernel reads
-             0 launches in the phase.
+             0 launches in the phase, ``flash_attention_bwd`` too;
+30. train through flash — the backward of ``flash_attention``
+             (``csrc/flash_attention_bwd.cu``: delta, dK/dV, dQ; FFMA) and
+             training on it under ``attn_impl="pallas"``: (a) on every
+             FLASH_CASES case in f32 and bf16 (the forward on the path its
+             dtype takes), the forward's lse within 1e-5 of
+             ``attention_lse_ref`` and dq, dk, dv against
+             ``attention_bwd_ref`` (f32 allclose 1e-4; bf16 relative norms
+             2e-2 against the plain version in f32 on the same inputs), K
+             rolled by one position failing every limit (the lse's only
+             where a mask makes the roll visible); (b) the backward timed
+             at the training shape (8 x 128, qwen's heads; f32 too) and the
+             five serve shapes beside its plain version, the library
+             (``torch.autograd.grad`` over one SDPA output) and its bound,
+             with the FLOPs it issues; (c) phase 29's qwen-100m twin on the
+             flash route (card: the ffma forward and the backward; CPU: the
+             plain versions), 24 forward and 24 backward launches;
+             qwen1.5-0.5b at full width, 4 steps on the chunked route and 4
+             on the flash route from the same parameters and batch: 48
+             forward launches a step (24 layers, 24 remat recomputes, all
+             wgmma) and 24 backward calls (three launches each), finite and
+             falling losses, the first within 2e-2 of the chunked route's,
+             layers 0 and 23's backward on their captured inputs within
+             bf16's 2e-2 with K rolled outside it, each route's walls,
+             launches, busy share and peak memory; one whisper-base step:
+             12 self-attentions on the kernels (6 bidirectional; twice each
+             forward under remat), cross-attention on
+             ``attention_chunked``, every leaf changed.  Every other kernel
+             reads 0 launches.  No earlier phase launches a backward
+             kernel (``ops.BWD_LAUNCHES`` is 0 when the phase starts).
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
-those of phases 7, 14, 18, 21, 27 and 28 (and how many were bidirectional), ``ssd_scan`` with those of phase 12,
+those of phases 7, 14, 18, 21, 27, 28 and 30 (and how many were bidirectional),
+``flash_attention_bwd`` with phase 30's calls, worst errors by dtype and its
+times at the six shapes, ``ssd_scan`` with those of phase 12,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
@@ -1031,8 +1063,10 @@ def run_serve(torch, cfg, counters, expected):
         f"mask), ssd_scan by path {ssd_paths}; weights {param_gb:.2f} GB, decode cache "
         f"{cache_gb:.2f} GB, peak allocated {peak_gb:.2f} GB")
     assert launches == expected, (launches, expected)   # every launch in the prefill
-    # every served prefill computes in bf16 with 16-byte rows: all on the tensor cores
-    assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"]}, flash_paths
+    # every served prefill computes in bf16 with 16-byte rows: all on the tensor cores;
+    # serving takes no gradient
+    assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"], "bwd_ffma": 0}, \
+        flash_paths
     assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"]}, ssd_paths
     assert len(masks) == launches["flash_attention"], masks
     launches["flash_attention_by_path"] = flash_paths
@@ -2135,6 +2169,10 @@ CLIENT_MODELS = (
                   embed_dim=64), "sst2", "adamw", 1e-3),
 )
 CLIENTS_N, CLIENTS_PARTICIPANTS, CLIENTS_BATCH, CLIENTS_STEPS = 64, 16, 32, 10
+# the profiled warm wave's local steps: a step's launches and busy share are
+# those of every step, and the profiler's tally of a 10-step LSTM wave
+# (~48,000 launches) took ~50 s of the phase
+CLIENTS_PROFILE_STEPS = 2
 TWIN_CLIENTS = 4          # the clients of a round's wave held card against CPU
 # phase 3's MLP world, one round under each (optimizer, weight decay, compression)
 MLP_OPTIONS = (("adamw", 0.01, "none"), ("adafactor", 0.0, "none"), ("sgd", 0.0, "int8"),
@@ -2223,9 +2261,9 @@ def run_client_model(torch, name, fields, dataset, opt_name, lr):
     by_id = {c.client_id: c for c in fresh}
     ex = BatchedExecutor(mcfg, trainer.opt, device="cuda")
     prof = profile_call(torch, f"{name}: one warm dense wave ({len(last['cids'])} clients x "
-                               f"{CLIENTS_STEPS} steps x batch {CLIENTS_BATCH})",
+                               f"{CLIENTS_PROFILE_STEPS} steps x batch {CLIENTS_BATCH})",
                         lambda: ex.run_wave(last["start"], [by_id[c] for c in last["cids"]],
-                                            CLIENTS_STEPS))
+                                            CLIENTS_PROFILE_STEPS))
     cids = last["cids"][:TWIN_CLIENTS]
     want = kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cpu")
     sound = wave_gap(kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cuda"), want)
@@ -2675,7 +2713,7 @@ def run_fabric_phase(torch, ops, mcfg, smi):
 
     say("  the fabric untraced (obs without a tracer) and traced in turns, then each tenant "
         "alone on the pool:")
-    turns = [run_fabric(torch, ops, mcfg, "cuda", trace=t) for t in (False, True, True, False)]
+    turns = [run_fabric(torch, ops, mcfg, "cuda", trace=t) for t in (False, True)]
     walls = {t: sorted(r["wall"] for r in turns if r["obs"].tracing == t) for t in (False, True)}
     off = turns[0]
     alone = {t[0]: run_fabric(torch, ops, mcfg, "cuda", tenants=(t,), trace=False)
@@ -3598,6 +3636,7 @@ def run_internvl_phase(torch, counters, no_launches):
 
 TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_ROUNDS, TRAIN_SILOS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 4, 8, 128
+TRAIN_INT8_ROUNDS = 2           # the int8 run: its host round trip is ~9 s a round
 TRAIN_RESUME_REL_TOL = 1e-3     # a resumed round against the same round from memory
 TRAIN_TWIN_LOSS_REL_TOL = 1e-5  # qwen-100m in f32, card against CPU
 TRAIN_TWIN_GRAD_REL_TOL = 1e-4
@@ -3697,14 +3736,16 @@ def run_train_main_path(torch, cfg, device, directory):
         f"{r['comm_bytes']} both")
     assert gap <= TRAIN_RESUME_REL_TOL, gap
     del resumed, straight
-    int8 = train_run(torch, cfg, "compression int8", device, compression="int8")
+    int8 = train_run(torch, cfg, "compression int8", device, compression="int8",
+                     rounds=TRAIN_INT8_ROUNDS)
     losses8 = [h["loss"] for h in int8["history"]]
     assert losses8[-1] < losses8[0], losses8
     comm8 = int8["history"][-1]["comm_bytes"]
     n_leaves = len(tree_leaves(params))
-    assert comm8 == TRAIN_SILOS * TRAIN_ROUNDS * (n_params + 4 * n_leaves), comm8
+    assert comm8 == TRAIN_SILOS * TRAIN_INT8_ROUNDS * (n_params + 4 * n_leaves), comm8
+    comm_none = TRAIN_SILOS * TRAIN_INT8_ROUNDS * f32_bytes
     say(f"  int8: loss {losses8[0]:.4f} -> {losses8[-1]:.4f}; comm_bytes {comm8} "
-        f"({comm8 / comm:.4f} of none's)")
+        f"({comm8 / comm_none:.4f} of none's over as many rounds)")
     del int8
 
     step_fn, opt = make_train_step(cfg)
@@ -3744,14 +3785,17 @@ def grads_gap(torch, a, b):
     return math.sqrt(num / den)
 
 
-def run_train_twin(torch, device):
+def run_train_twin(torch, device, attn_impl="chunked"):
     """(b): one step of qwen-100m in f32 (TF32 off) on the card and on the CPU
-    from the same parameters and batch; the tokens rolled by one as control."""
+    from the same parameters and batch; the tokens rolled by one as control.
+    Phase 30 runs it on the flash route (``attn_impl="pallas"``): the card's
+    attention on the ffma forward and the backward's kernels, the CPU's on
+    their plain versions."""
     from repro_torch.launch.train import train_config
     from repro_torch.models.registry import make_train_step, model_fns, value_and_grad
     from repro_torch.tree import tree_map
 
-    cfg = train_config("qwen-100m").replace(compute_dtype="float32")
+    cfg = train_config("qwen-100m").replace(compute_dtype="float32", attn_impl=attn_impl)
     fns = model_fns(cfg)
     host, _ = fns.init(torch.Generator().manual_seed(0), "cpu")
     card = tree_map(lambda t: t.to(device), host)
@@ -3771,7 +3815,8 @@ def run_train_twin(torch, device):
     step_gap = abs(float(m_c["loss"]) - float(m_h["loss"])) / abs(float(m_h["loss"]))
     gap, control = grads_gap(torch, g_c, g_h), grads_gap(torch, g_r, g_h)
     rolled_gap = abs(float(loss_r) - float(loss_h)) / abs(float(loss_h))
-    say(f"  qwen-100m ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off), batch "
+    say(f"  qwen-100m ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off, attention "
+        f"{attn_impl}), batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss card {float(loss_c):.7f} CPU {float(loss_h):.7f} "
         f"(relative {loss_gap:.2e}, tol {TRAIN_TWIN_LOSS_REL_TOL:g}; the train step's "
         f"{step_gap:.2e}, grad_norm {float(m_c['grad_norm']):.6f} vs {float(m_h['grad_norm']):.6f}); "
@@ -4039,6 +4084,337 @@ def run_train_phase(torch, ops, ref, counters, smi, device="cuda"):
     return moe_launches, moe_tgmm_paths, moe_rows, row
 
 
+# ---------------------------------------------------------------- phase 30
+
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+# dq, dk, dv against the plain backward: f32 allclose (tests/test_kernels.py:56), bf16
+# relative norm against the plain version in f32 on the same bf16 inputs; the lse allclose
+FLASH_BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_LSE_TOL = 1e-5
+# qwen1.5-0.5b's attention in phase 29's train step (batch 8 x 128)
+TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, None)
+FLASH_TRAIN_STEPS = 4
+FLASH_TRAIN_LOSS_REL_TOL = 2e-2   # the first step's loss, flash route against chunked (bf16)
+
+
+def bwd_close(torch, got, want32, dtype):
+    """(passes, errors): f32 allclose FLASH_BWD_TOLS (errors max|err|), bf16
+    relative norms against the f32 plain version (errors those norms)."""
+    tol = FLASH_BWD_TOLS[str(dtype)[6:]]
+    if dtype == torch.float32:
+        return (all(torch.allclose(a, b, rtol=tol, atol=tol) for a, b in zip(got, want32)),
+                [float((a - b).abs().max()) for a, b in zip(got, want32)])
+    errs = [rel_norm(a, b) for a, b in zip(got, want32)]
+    return max(errs) <= tol, errs
+
+
+def bwd_inputs(torch, case, dtype, seed=0):
+    q, k, v = flash_inputs(torch, case, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    return q, k, v, torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+
+
+def check_flash_bwd(torch, fa_ops, fa_ref):
+    """(a): the forward's lse and the backward's dq, dk, dv against their
+    plain versions on every FLASH_CASES case in f32 and bf16, the forward on
+    the path the dtype takes (f32 ffma, bf16 wgmma); K rolled by one
+    position must fail the limits.  Returns the largest errors by dtype."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for name, case in FLASH_CASES:
+            causal, window = case[6:]
+            q, k, v, do = bwd_inputs(torch, case, dtype)
+            before = dict(fa_ops.BWD_LAUNCHES)
+            o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+            got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+            torch.cuda.synchronize()
+            assert fa_ops.BWD_LAUNCHES == {key: n + 1 for key, n in before.items()}, name
+            lse_want = fa_ref.attention_lse_ref(q, k, causal=causal, window=window)
+            want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
+                                              causal=causal, window=window)
+            ok, errs = bwd_close(torch, got, want32, dtype)
+            abs_err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want32))
+            lse_err = float((lse - lse_want).abs().max())
+            kr = k.roll(1, dims=1)
+            o_r, lse_r = fa_ops.flash_attention_fwd(q, kr, v, causal=causal, window=window)
+            rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, causal=causal,
+                                                window=window)
+            ctl = [bwd_close(torch, (a,), (b,), dtype) for a, b in zip(rolled, want32)]
+            lse_ctl = float((lse_r - lse_want).abs().max())
+            say(f"  {name_dt:>8} {name:<38} {str(case):<40} dq/dk/dv "
+                f"{' '.join(f'{e:.2e}' for e in errs)} (max|err| {abs_err:.2e}), lse max|err| "
+                f"{lse_err:.2e}; K rolled: {' '.join(f'{c[1][0]:.2e}' for c in ctl)}, lse "
+                f"{lse_ctl:.2e}")
+            assert ok, (name, name_dt, errs)
+            torch.testing.assert_close(lse, lse_want, rtol=FLASH_LSE_TOL, atol=FLASH_LSE_TOL,
+                                       msg=lambda m_: f"lse {name} {name_dt}: {m_}")
+            assert not any(c[0] for c in ctl), (name, name_dt, ctl)
+            # without a mask every row sums over all keys: a roll permutes them, lse stays
+            if causal or window is not None:
+                assert not torch.allclose(lse_r, lse_want, rtol=FLASH_LSE_TOL,
+                                          atol=FLASH_LSE_TOL), name
+            row = worst.setdefault(name_dt, {"grads": 0.0, "max_abs_err": 0.0, "lse": 0.0})
+            row["grads"] = max(row["grads"], max(errs))
+            row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+            row["lse"] = max(row["lse"], lse_err)
+            del q, k, v, do, o, lse, got, want32, rolled, o_r, lse_r
+            free_card(torch)
+    return worst
+
+
+def bwd_tile_pairs(fa_ops, sq, skv, causal, window, d):
+    """(query tile, KV tile) pairs the backward visits (each kernel the same)."""
+    tq, tk = fa_ops.bwd_tiles(d)
+    return sum(max(0, end - begin) for begin, end in (
+        fa_ops.kv_tiles(qt, sq, skv, causal, window, tq, tk) for qt in range(-(-sq // tq))))
+
+
+def time_flash_bwd(torch, fa_ops, fa_ref, shape, f32=False):
+    """(b): the backward at ``shape`` in bf16 (and f32 with ``f32``) beside
+    its plain version, the library's backward (torch.autograd.grad over one
+    scaled_dot_product_attention output, built once) and its bound: the
+    four gradient products over the live pairs at the bf16 peak against q,
+    k, v, o, dO and lse read and dq, dk, dv written at 3.35 TB/s."""
+    b, sq, skv, hq, hk, d, causal, window = shape
+    assert window is None or window >= skv   # the library's causal mask is the same
+    mask = dict(causal=causal, window=window)
+    q, k, v, do = bwd_inputs(torch, shape, torch.bfloat16, seed=3)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **mask)
+    row = {"ms": median_ms(torch, lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **mask)),
+           "plain_ms": median_ms(torch, lambda: fa_ref.attention_bwd_ref(q, k, v, do, **mask),
+                                 reps=3, warm=1)}
+    if f32:
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        o32, lse32 = fa_ops.flash_attention_fwd(q32, k32, v32, **mask)
+        row["f32_ms"] = median_ms(torch, lambda: fa_ops.flash_attention_bwd(
+            q32, k32, v32, o32, lse32, do32, **mask))
+        del q32, k32, v32, do32, o32, lse32
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                           enable_gqa=hq != hk)
+    dot = do.transpose(1, 2).contiguous()
+    try:
+        row["library_ms"] = median_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+    except RuntimeError as e:       # the yardstick only: its absence fails nothing
+        row["library_ms"], row["library_note"] = None, str(e)[:160]
+    pairs = live_pairs(sq, skv, causal, window) * b * hq
+    flops = 8 * d * pairs                                   # dV, dP, dQ, dK on each live pair
+    tq, tk = fa_ops.bwd_tiles(d)
+    issued = (14 * d * tq * tk * bwd_tile_pairs(fa_ops, sq, skv, causal, window, d) * b * hq
+              + 2 * d * b * sq * hq)                        # S, dP twice; dV, dK, dQ; delta
+    io_bytes = 2 * (4 * b * sq * hq * d + 4 * b * skv * hk * d) + 4 * b * hq * sq
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, issued_gflop=issued / 1e9, io_mb=io_bytes / 1e6,
+               tflops_issued=issued / row["ms"] / 1e9, shape=list(shape))
+    lib = row["library_ms"]
+    say(f"  flash_attention_bwd B={b} S={sq} Hq={hq} Hk={hk} D={d} "
+        f"{'causal' if causal else 'bidirectional'} window={window}, bf16: {row['ms']:.4f} ms "
+        f"({issued / 1e9:.2f} GFLOP issued on FFMA, {row['tflops_issued']:.1f} TFLOP/s)"
+        + (f", f32 {row['f32_ms']:.4f} ms" if f32 else "")
+        + f"; plain {row['plain_ms']:.4f} ms; library (autograd.grad of scaled_dot_product_"
+        f"attention, bf16) " + (f"{lib:.4f} ms" if lib else row["library_note"])
+        + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 "
+        f"TFLOP/s, {io_bytes / 1e6:.1f} MB at 3.35 TB/s); kernel / bound "
+        f"{row['ms'] / row['bound_ms']:.1f}" + (f", kernel / library {row['ms'] / lib:.1f}"
+                                                if lib else ""))
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    free_card(torch)
+    return row
+
+
+@contextlib.contextmanager
+def capture_bwd_calls(fa_ops, caps, keep):
+    """Record the inputs of the backward calls whose index is in ``keep``
+    (clones: q, k, v, o, lse, dO, causal, window)."""
+    real, n = fa_ops.flash_attention_bwd, [0]
+
+    def spy(q, k, v, o, lse, do, **kw):
+        if n[0] in keep:
+            caps[n[0]] = [t.detach().clone() for t in (q, k, v, o, lse, do)] + \
+                [kw["causal"], kw["window"]]
+        n[0] += 1
+        return real(q, k, v, o, lse, do, **kw)
+
+    with mock.patch.object(fa_ops, "flash_attention_bwd", spy):
+        yield
+
+
+def counts_now(counters, fa_ops):
+    return ({k: v for counts in counters for k, v in counts.items()},
+            dict(fa_ops.PATH_LAUNCHES), dict(fa_ops.BWD_LAUNCHES))
+
+
+def run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device):
+    """(c) qwen1.5-0.5b at full width: FLASH_TRAIN_STEPS train steps on the
+    chunked route and on the flash route from the same parameters and
+    batch; the flash route's launches counted; layers 0 and 23's captured
+    backward inputs held against the plain backward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    n = cfg.total_layers
+    params0 = params_init(torch, cfg, device)
+    batch = train_batch(torch, cfg, device)
+    rows, caps = {}, {}
+    for impl in ("chunked", "pallas"):
+        step, opt = make_train_step(cfg.replace(attn_impl=impl))
+        params, state = params0, opt.init(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES))
+        losses, walls = [], []
+        with capture_bwd_calls(fa_ops, caps, (0, n - 1) if impl == "pallas" else ()):
+            for _ in range(FLASH_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+        launches, paths, kernels = counts_now(counters, fa_ops)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile_call(torch, f"one {impl} train step", lambda: step(params, state, batch))
+        rows[impl] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
+                      "flash_by_path": paths, "bwd_kernels": kernels,
+                      **{f"step_{k}": v for k, v in prof.items()}}
+        say(f"  {impl}: {FLASH_TRAIN_STEPS} steps, walls {', '.join(f'{w:.3f}' for w in walls)} s "
+            f"(median {statistics.median(walls) * 1e3:.1f} ms), losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, peak allocated {peak:.2f} GB; launches "
+            f"{launches}, flash by path {paths}, backward kernels {kernels}")
+        assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+        del params, state, step, opt
+        free_card(torch)
+    want = {k: 0 for k in rows["pallas"]["launches"]}
+    assert rows["chunked"]["launches"] == want, rows["chunked"]["launches"]
+    s = FLASH_TRAIN_STEPS
+    want.update({"flash_attention": 2 * n * s, "flash_attention_bwd": n * s})  # forward, remat recompute
+    assert rows["pallas"]["launches"] == want, (rows["pallas"]["launches"], want)
+    assert rows["pallas"]["flash_by_path"] == {"ffma": 0, "wgmma": 2 * n * s, "bwd_ffma": n * s}
+    assert rows["pallas"]["bwd_kernels"] == {"preprocess": n * s, "dkdv": n * s, "dq": n * s}
+    first = [rows[impl]["losses"][0] for impl in ("chunked", "pallas")]
+    gap = abs(first[1] - first[0]) / abs(first[0])
+    say(f"  first step's loss: flash {first[1]:.6f} against chunked {first[0]:.6f} (relative "
+        f"{gap:.2e}, tol {FLASH_TRAIN_LOSS_REL_TOL:g})")
+    assert gap <= FLASH_TRAIN_LOSS_REL_TOL, gap
+    layers = {}
+    for i, layer in ((n - 1, 0), (0, n - 1)):      # the backward walks the layers last first
+        q, k, v, o, lse, do, causal, window = caps[i]
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
+                                          causal=causal, window=window)
+        ok, errs = bwd_close(torch, got, want32, q.dtype)
+        kr = k.roll(1, dims=1)
+        o_r, lse_r = fa_ops.flash_attention_fwd(q, kr, v, causal=causal, window=window)
+        rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, causal=causal,
+                                            window=window)
+        _, ctl = bwd_close(torch, rolled, want32, q.dtype)
+        say(f"  layer {layer}'s backward on its captured inputs {tuple(q.shape)} {q.dtype}: "
+            f"dq/dk/dv relative {' '.join(f'{e:.2e}' for e in errs)} (tol "
+            f"{FLASH_BWD_TOLS['bfloat16']:g}); K rolled: {' '.join(f'{e:.2e}' for e in ctl)}")
+        assert q.dtype == torch.bfloat16 and ok, (layer, errs)
+        assert max(ctl) > FLASH_BWD_TOLS["bfloat16"], (layer, ctl)
+        layers[layer] = {"rel": errs, "k_rolled": ctl}
+    rows["layers"] = layers
+    del caps, params0, batch
+    free_card(torch)
+    return rows
+
+
+def run_flash_whisper_train(torch, fa_ops, counters, device):
+    """(c) one whisper-base train step under the flash route: its encoder's
+    bidirectional and its decoder's causal self-attentions on the kernels
+    (twice each forward under remat full), cross-attention on
+    attention_chunked, every leaf changed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(WHISPER_ARCH).replace(attn_impl="pallas")
+    n_self = cfg.n_enc_layers + cfg.total_layers
+    params = params_init(torch, cfg, device)
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    batch = train_batch(torch, cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES))
+    real, masks = fa_ops.flash_attention, []
+
+    def tally(q, k, v, *a, **kw):
+        masks.append(kw.get("causal", True))
+        return real(q, k, v, *a, **kw)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(fa_ops, "flash_attention", tally):
+        new, state, metrics = step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, paths, kernels = counts_now(counters, fa_ops)
+    loss = float(metrics["loss"])
+    changed = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(params)))
+    n_leaves = len(tree_leaves(new))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = n_self * (2 if cfg.remat == "full" else 1)
+    say(f"  {WHISPER_ARCH} at full width, one step (remat {cfg.remat}, {cfg.compute_dtype} "
+        f"compute, frames {TRAIN_BATCH} x {TRAIN_SEQ} x {cfg.d_model}): wall {wall:.3f} s, loss "
+        f"{loss:.4f}, {changed} of {n_leaves} leaves changed, peak allocated {peak:.2f} GB; "
+        f"launches {launches}, flash by path {paths}, {masks.count(False)} of {len(masks)} flash "
+        f"calls bidirectional, backward kernels {kernels}")
+    want = {**{k: 0 for k in launches}, "flash_attention": n_fwd, "flash_attention_bwd": n_self}
+    assert launches == want, (launches, want)
+    assert paths == {"ffma": 0, "wgmma": n_fwd, "bwd_ffma": n_self}, paths
+    assert len(masks) == n_fwd and masks.count(False) == n_fwd // n_self * cfg.n_enc_layers, masks
+    assert math.isfinite(loss) and changed == n_leaves, (loss, changed, n_leaves)
+    del params, new, state, batch
+    free_card(torch)
+    return {"step_s": wall, "loss": loss, "peak_gb": peak, "launches": launches,
+            "flash_by_path": paths}
+
+
+def run_flash_train_phase(torch, fa_ops, fa_ref, counters, smi, device="cuda"):
+    """Phase 30: train through flash.  (a) kernel gates, (b) timings, (c)
+    training: qwen-100m's f32 twin, qwen1.5-0.5b at full width, whisper-base."""
+    free_card(torch)
+    say("PHASE 30 train through flash: the backward of flash_attention (three FFMA kernels) "
+        "against its plain version, timed, and training on it under attn_impl=\"pallas\"")
+    say(f"  card: {smi}")
+    t0 = time.perf_counter()
+    # BWD_LAUNCHES is never reset before this phase: no earlier phase launched a backward
+    assert not any(fa_ops.BWD_LAUNCHES.values()), fa_ops.BWD_LAUNCHES
+    say("  (a) the lse and dq, dk, dv against their plain versions, every FLASH_CASES case")
+    worst = check_flash_bwd(torch, fa_ops, fa_ref)
+    say("  (b) timings")
+    timings = {TRAIN_ATTN_SHAPE: time_flash_bwd(torch, fa_ops, fa_ref, TRAIN_ATTN_SHAPE, f32=True)}
+    for shape in (SERVE_SHAPE, RG_ATTN_SHAPE, OLMOE_ATTN_SHAPE, WHISPER_ENC_SHAPE,
+                  INTERNVL_ATTN_SHAPE):
+        timings[shape] = time_flash_bwd(torch, fa_ops, fa_ref, shape)
+    say("  (c) training: qwen-100m card against CPU on the flash route")
+    zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES))
+    twin = run_train_twin(torch, device, attn_impl="pallas")
+    twin_launches, twin_paths, _ = counts_now(counters, fa_ops)
+    n = 8      # qwen-100m's layers (remat none); on the card two value_and_grad and one step
+    want = {**{k: 0 for k in twin_launches}, "flash_attention": 3 * n,
+            "flash_attention_bwd": 3 * n}
+    say(f"  qwen-100m launches on the card {twin_launches}, flash by path {twin_paths}")
+    assert twin_launches == want, (twin_launches, want)
+    assert twin_paths == {"ffma": 3 * n, "wgmma": 0, "bwd_ffma": 3 * n}, twin_paths
+    say(f"  (c) {TRAIN_ARCH} at full width, {FLASH_TRAIN_STEPS} steps on each route")
+    qwen = run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device)
+    say(f"  (c) {WHISPER_ARCH}, one step on the flash route")
+    whisper = run_flash_whisper_train(torch, fa_ops, counters, device)
+    say(f"  phase 30 {time.perf_counter() - t0:.1f} s")
+    runs = {"qwen-100m twin (card)": (twin_launches, twin_paths),
+            f"{TRAIN_ARCH} train steps": (qwen["pallas"]["launches"],
+                                          qwen["pallas"]["flash_by_path"]),
+            f"{WHISPER_ARCH} train step": (whisper["launches"], whisper["flash_by_path"])}
+    return worst, timings, runs, {"card": smi, "qwen-100m twin": twin, TRAIN_ARCH: qwen,
+                                      WHISPER_ARCH: whisper,
+                                      "timings": {str(k): v for k, v in timings.items()}}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4093,6 +4469,9 @@ def main() -> int:
         f"{path}: " + ", ".join(f"D<={d} {fa_ops.library().repro_flash_attention_smem_bytes(code, d)} B"
                                 for d in (32, 64, 128, 256))
         for path, code in fa_ops.PATHS.items()))
+    say("  flash_attention backward dynamic shared memory a block (dK/dV, dQ): " + ", ".join(
+        f"D<={d} {fa_ops.library().repro_flash_attention_bwd_smem_bytes(d, 0)}, "
+        f"{fa_ops.library().repro_flash_attention_bwd_smem_bytes(d, 1)} B" for d in (32, 64, 128, 256)))
     say("  ssd_scan dynamic shared memory a block: " + "; ".join(
         f"{path}: " + ", ".join(f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(code, p, n)} B"
                                 for p, n in ((16, 32), (16, 128), (64, 32), (64, 64), (64, 128)))
@@ -4329,6 +4708,10 @@ def main() -> int:
     train_launches, train_tgmm_paths, train_rows, train_row = run_train_phase(
         torch, ops, ref, counters, smi)
     say(json.dumps({"train": train_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    bwd_errs, bwd_rows, bwd_runs, flash_train_row = run_flash_train_phase(
+        torch, fa_ops, fa_ref, counters, smi)
+    say(json.dumps({"train through flash": flash_train_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -4391,13 +4774,19 @@ def main() -> int:
                    OLMOE_ARCH: olmoe_launches, f"{SERVE_ARCH} (int8 KV cache)": int8_launches,
                    WHISPER_ARCH: whisper_launches, INTERNVL_ARCH: internvl_launches}
     flash_keys = (*timing_keys, "path", "ffma_bf16_ms", "f32_ms", "tflops")
+    flash_train = {f"{k} (phase 30)": {"flash_attention": counts["flash_attention"],
+                                       "flash_attention_by_path": paths}
+                   for k, (counts, paths) in bwd_runs.items()}
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-        "launches": sum(p["flash_attention"] for p in flash_paths.values()),
-        "launches_by_path": {k: p["flash_attention"] for k, p in flash_paths.items()},
+        "launches": sum(p["flash_attention"] for p in (*flash_paths.values(),
+                                                       *flash_train.values())),
+        "launches_by_path": {k: p["flash_attention"] for k, p in (*flash_paths.items(),
+                                                                  *flash_train.items())},
         "launches_by_kernel_path": {path: sum(p["flash_attention_by_path"][path]
-                                              for p in flash_paths.values())
+                                              for p in (*flash_paths.values(),
+                                                        *flash_train.values()))
                                     for path in fa_ops.PATHS},
         "launches_noncausal": sum(p["flash_attention_noncausal"] for p in flash_paths.values()),
         "max_abs_err": worst["flash_attention"], "max_abs_err_by_path": flash_errs,
@@ -4407,6 +4796,25 @@ def main() -> int:
         f"{WHISPER_ARCH} encoder": {k: flash_rows[WHISPER_ENC_SHAPE][k] for k in flash_keys},
         INTERNVL_ARCH: {k: flash_rows[INTERNVL_ATTN_SHAPE][k] for k in flash_keys},
         "served_layers_bf16_rel_norm": {WHISPER_ARCH: whisper_layer_err},
+    })
+    bwd_row = bwd_rows[TRAIN_ATTN_SHAPE]
+    bwd_keys = (*timing_keys, "gflop", "issued_gflop", "io_mb", "tflops_issued", "shape")
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SOURCE,
+        "replaces": "src/repro/kernels/flash_attention/ops.py:43",
+        "launches": sum(counts["flash_attention_bwd"] for counts, _ in bwd_runs.values()),
+        "launches_by_path": {f"{k} (phase 30)": counts["flash_attention_bwd"]
+                             for k, (counts, _) in bwd_runs.items()},
+        "launches_note": "backward calls of phase 30's training runs, three kernel launches "
+                         "each (preprocess, dK/dV, dQ); 0 in phases 1-29",
+        "path": "ffma", "dtype": "bfloat16",
+        "max_abs_err": bwd_errs["bfloat16"]["max_abs_err"], "max_err_by_dtype": bwd_errs,
+        **{k: bwd_row[k] for k in bwd_keys}, "f32_ms": bwd_row["f32_ms"],
+        SERVE_ARCH: {k: bwd_rows[SERVE_SHAPE][k] for k in bwd_keys},
+        RGEMMA_ARCH: {k: bwd_rows[RG_ATTN_SHAPE][k] for k in bwd_keys},
+        OLMOE_ARCH: {k: bwd_rows[OLMOE_ATTN_SHAPE][k] for k in bwd_keys},
+        f"{WHISPER_ARCH} encoder": {k: bwd_rows[WHISPER_ENC_SHAPE][k] for k in bwd_keys},
+        INTERNVL_ARCH: {k: bwd_rows[INTERNVL_ATTN_SHAPE][k] for k in bwd_keys},
     })
     for name, source, replaces_at, path_launches in (
             ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:63", mamba_launches),

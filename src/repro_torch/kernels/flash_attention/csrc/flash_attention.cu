@@ -49,6 +49,12 @@
 //     would miss, and bf16 rows that are not 16-byte aligned):
 //     flash_fwd_kernel, 64-row q tiles, K and V widened to f32 in padded
 //     shared-memory rows, every product with scalar FFMA.
+// Under grad the wrapper also passes `lse`, (B, Hq, Sq) f32: each row's
+// log-sum-exp of its masked scores q^ k^T, in natural-log units on both paths
+// (the wgmma path converts from its log2 units: lse = (m + log2 l) ln 2), so
+// that the backward (flash_attention_bwd.cu) recomputes P = exp(S - lse)
+// from the same rounded q^.  A null `lse` stores nothing: the launches of a
+// forward without grad are those of a forward before the backward existed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,7 +102,7 @@ constexpr int smem_bytes() {
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Skv, int Hq, int Hk, int D,
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hk, int D,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int window) {
@@ -227,6 +233,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && tx == 0) lse[((long long)b * Hq + h) * Sq + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int col = tx + 16 * j;
@@ -241,6 +248,7 @@ constexpr int kWgTQ = 128;     // query rows a block: two warpgroups of 64
 constexpr int kWgThreads = 256;
 constexpr int kWgStages = 2;   // K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DM>
 __host__ __device__ constexpr int wg_tk() { return DM >= 256 ? 64 : 128; }  // keys a KV tile
@@ -418,8 +426,8 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 template <int DM>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
-    int Hq, int Hk, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Skv, int Hq, int Hk, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale, int causal, int window) {
   constexpr int TK = wg_tk<DM>();
@@ -594,6 +602,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
     const int r = q0 + row + 8 * hh;
     if (r >= Sq) continue;
     const float denom = fmaxf(lt, 1e-37f);
+    if (lse != nullptr && (lane & 3) == 0)  // m is quad-uniform, in log2 units
+      lse[((long long)b * Hq + h) * Sq + r] = (m[hh] + log2f(lt)) * kLn2;
 #pragma unroll
     for (int j = 0; j < DM / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);  // D % 8 == 0: the pair is in or out
@@ -605,7 +615,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
 }
 
 template <typename T, int DM>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
            int Hq, int Hk, int D, const long long* st, float scale, int causal, int window,
            cudaStream_t stream) {
   constexpr int bytes = smem_bytes<DM>();
@@ -615,13 +625,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const dim3 grid((unsigned)((Sq + kTQ - 1) / kTQ), (unsigned)Hq, (unsigned)B);
   flash_fwd_kernel<T, DM><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, Hq, Hk, D, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<T*>(o), lse, Sq, Skv, Hq, Hk, D, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DM>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
                  int Hq, int Hk, int D, const long long* st, float scale, int causal, int window,
                  cudaStream_t stream) {
   constexpr int bytes = wg_smem_bytes<DM>();
@@ -632,30 +642,30 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd_wgmma_kernel<DM><<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hk, D,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq, Hk, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+int dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
                int Hq, int Hk, int D, const long long* st, float scale, int causal,
                int window, cudaStream_t s) {
-  if (D <= 32) return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
-  if (D <= 64) return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
-  if (D <= 128) return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
-  if (D <= 256) return launch<T, 256>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 32) return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 64) return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 128) return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 256) return launch<T, 256>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
                    int Hq, int Hk, int D, const long long* st, float scale, int causal,
                    int window, cudaStream_t s) {
   if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows
-  if (D <= 64) return launch_wgmma<64>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
-  if (D <= 128) return launch_wgmma<128>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
-  if (D <= 256) return launch_wgmma<256>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 64) return launch_wgmma<64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 128) return launch_wgmma<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
+  if (D <= 256) return launch_wgmma<256>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, st, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -690,23 +700,24 @@ extern "C" int repro_flash_attention_tile(int path, int D, int which) {
 
 // path: 0 = ffma, 1 = wgmma (bf16 only).  dtype: 0 = float32, 1 =
 // bfloat16.  strides: (batch, seq, head) of q, k, v and o in elements, 12
-// values; the head dimension is unit-stride.  Launches on `stream` and
+// values; the head dimension is unit-stride.  lse: null, or (B, Hq, Sq) f32
+// contiguous, each row's log-sum-exp (natural log).  Launches on `stream` and
 // returns the CUDA error of the launch (0 on success).
 extern "C" int repro_flash_attention(int path, int dtype, const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq, int Skv, int Hq,
+                                     const void* v, void* o, float* lse, int B, int Sq, int Skv, int Hq,
                                      int Hk, int D, const long long* strides, float scale,
                                      int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (path == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_wgmma(q, k, v, o, B, Sq, Skv, Hq, Hk, D, strides, scale, causal, window, s);
+    return dispatch_wgmma(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, strides, scale, causal, window, s);
   }
   if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, strides, scale, causal, window, s);
+    return dispatch_d<float>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, strides, scale, causal, window, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hk, D, strides, scale, causal,
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Skv, Hq, Hk, D, strides, scale, causal,
                                      window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-"""Flash-attention forward: the Hopper kernel and its dispatch.
+"""Flash attention with its gradient: the Hopper kernels and their dispatch.
 
 ``flash_attention(q, k, v, ...)`` takes the model's ``(B, S, H, D)`` layout,
 as ``repro.kernels.flash_attention.ops.flash_attention`` does, with the
@@ -9,19 +9,26 @@ arguments are accepted and ignored, as the reference ignores them.  The
 tensor's device picks the implementation:
 
 * a CUDA tensor launches ``csrc/flash_attention.cu`` or raises; nothing
-  falls back to the plain version;
-* a CPU tensor takes the plain version in ``ref.py``.
+  falls back to the plain version.  Under grad (grad mode on and an input
+  that requires it) the call goes through ``FlashAttention``, whose forward
+  also saves each row's log-sum-exp and whose backward launches the three
+  kernels of ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``);
+* a CPU tensor takes the plain version in ``ref.py``, with torch's own
+  autograd.
 
-The kernel has two paths, picked by ``choose_path`` before the launch from
-the dtype, D and the operands' alignment: ``wgmma`` (bf16 with 16-byte
+The forward has two paths, picked by ``choose_path`` before the launch
+from the dtype, D and the operands' alignment: ``wgmma`` (bf16 with 16-byte
 rows, both products on the tensor cores) and ``ffma`` (f32, and bf16 that
-is not aligned so).  ``LAUNCHES`` counts kernel launches and
-``PATH_LAUNCHES`` the same launches by path, so a run can show which path
-its attention went through.  ``kv_tiles`` is the kernel's block-skip: the
-KV tiles a query tile visits.  The kernel is a forward: on the card it
-refuses inputs that need a gradient until its backward is written
-(ROADMAP queue 2 B1); training runs ``attention_chunked``, as the
-reference's does.
+is not aligned so).  ``LAUNCHES["flash_attention"]`` counts forward
+launches and ``PATH_LAUNCHES`` the same launches by path, so a run can show
+which path its attention went through.  The backward has one path, ``ffma`` (f32 and
+bf16, D <= 256): ``LAUNCHES["flash_attention_bwd"]`` and
+``PATH_LAUNCHES["bwd_ffma"]`` count its calls, ``BWD_LAUNCHES`` each of its
+three kernels.  ``kv_tiles`` is the kernels' block-skip: the KV tiles a
+query tile visits; ``q_tiles`` its mirror, the query tiles that see a KV
+tile.  A config with ``attn_impl="pallas"`` trains through the kernels;
+the reference's own training default, ``attention_chunked``, stays the
+default here too.
 """
 from __future__ import annotations
 
@@ -37,13 +44,16 @@ from repro_torch.kernels import vector_rows
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import ref
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu")
 
-#: kernel launches so far; callers reset it to 0 to count a run
-LAUNCHES = {"flash_attention": 0}
-#: the same launches by path
-PATH_LAUNCHES = {"ffma": 0, "wgmma": 0}
-#: the kernel's paths: code of the C entry
+#: forward launches and backward calls so far; callers reset them to 0 to count a run
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+#: the same by path: the forward's paths, and the backward's
+PATH_LAUNCHES = {"ffma": 0, "wgmma": 0, "bwd_ffma": 0}
+#: the backward's kernels, one launch each a backward call that needs them
+BWD_LAUNCHES = {"preprocess": 0, "dkdv": 0, "dq": 0}
+#: the forward's paths: code of the C entry
 PATHS = {"ffma": 0, "wgmma": 1}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,26 +62,41 @@ _MAX_GRID_YZ = 65535
 _INT32_MAX = 2 ** 31 - 1
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_Strides = ctypes.c_longlong * 12
+_LL = ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel's library."""
     lib = load_library("flash_attention", SOURCES)
-    lib.repro_flash_attention.argtypes = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                          _Strides, _F, _I, _I, _P]
-    lib.repro_flash_attention.restype = _I
+    lib.repro_flash_attention.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _LL, _F, _I, _I, _P]
+    lib.repro_flash_attention_bwd_preprocess.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _LL,
+                                                         _P]
+    lib.repro_flash_attention_bwd_dkdv.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                                   _I, _I, _I, _I, _LL, _F, _I, _I, _P]
+    lib.repro_flash_attention_bwd_dq.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                                 _I, _I, _LL, _F, _I, _I, _P]
     lib.repro_flash_attention_smem_bytes.argtypes = [_I, _I]
-    lib.repro_flash_attention_smem_bytes.restype = _I
     lib.repro_flash_attention_tile.argtypes = [_I, _I, _I]
-    lib.repro_flash_attention_tile.restype = _I
+    lib.repro_flash_attention_bwd_smem_bytes.argtypes = [_I, _I]
+    lib.repro_flash_attention_bwd_tile.argtypes = [_I, _I]
+    for fn in (lib.repro_flash_attention, lib.repro_flash_attention_bwd_preprocess,
+               lib.repro_flash_attention_bwd_dkdv, lib.repro_flash_attention_bwd_dq,
+               lib.repro_flash_attention_smem_bytes, lib.repro_flash_attention_tile,
+               lib.repro_flash_attention_bwd_smem_bytes, lib.repro_flash_attention_bwd_tile):
+        fn.restype = _I
     for path, code in PATHS.items():
         for d in (32, 64, 128, 256):
             got = (lib.repro_flash_attention_tile(code, d, 0), lib.repro_flash_attention_tile(code, d, 1))
             if got != tiles(path, d):
                 raise RuntimeError(f"flash path {path}, D={d}: the kernel's tile {got} differs "
                                    f"from {tiles(path, d)}")
+    for d in (32, 64, 128, 256):
+        got = (lib.repro_flash_attention_bwd_tile(d, 0), lib.repro_flash_attention_bwd_tile(d, 1))
+        if got != bwd_tiles(d):
+            raise RuntimeError(f"flash backward, D={d}: the kernel's tile {got} differs from "
+                               f"{bwd_tiles(d)}")
     return lib
 
 
@@ -80,6 +105,12 @@ def tiles(path: str, d: int) -> Tuple[int, int]:
     if path == "wgmma":
         return 128, 128 if d <= 128 else 64
     return 64, 64
+
+
+def bwd_tiles(d: int) -> Tuple[int, int]:
+    """(query rows, keys) of the backward's tiles at head size ``d``: 32 keys
+    at D = 256 keep q^, dO, K, V, P and dS in 227 KB of shared memory."""
+    return 64, 64 if d <= 128 else 32
 
 
 def kv_tiles(q_tile: int, sq: int, skv: int, causal: bool, window: Optional[int],
@@ -97,6 +128,27 @@ def kv_tiles(q_tile: int, sq: int, skv: int, causal: bool, window: Optional[int]
     if window is not None and q_lo - window + 1 > 0:
         begin = (q_lo - window + 1) // tk
     return begin, end
+
+
+def q_tiles(kv_tile: int, sq: int, skv: int, causal: bool, window: Optional[int],
+            tq: int, tk: int) -> Tuple[int, int]:
+    """[begin, end) of the query tiles that can see a key of KV tile
+    ``kv_tile`` (< ceil(skv / tk)): the dK/dV kernel's block-skip, the mirror
+    of ``kv_tiles``.  Query row i sits at position i + skv - sq; the rows
+    that see some key of the tile are one interval (causal: at or past its
+    first key; window: before its last key + window), and each of them holds
+    a live pair with it."""
+    q_offset = skv - sq
+    k_lo = kv_tile * tk
+    k_hi = min(k_lo + tk, skv) - 1
+    lo, hi = 0, sq - 1
+    if causal:
+        lo = max(lo, k_lo - q_offset)
+    if window is not None:
+        hi = min(hi, k_hi + window - 1 - q_offset)
+    if lo > hi:
+        return 0, 0
+    return lo // tq, hi // tq + 1
 
 
 def choose_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -138,9 +190,156 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: the head dimension must be unit-stride")
     if max(sq, skv) > _INT32_MAX or hq > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention: shapes exceed the kernel's grid: {tuple(q.shape)}")
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError("flash_attention: the kernel's backward is not ported yet "
-                                  "(ROADMAP queue 2 B1)")
+
+
+
+
+def _strides(*tensors: torch.Tensor) -> ctypes.Array:
+    """(batch, seq, head) strides of each tensor, in order, for a C entry."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _refuse_rows_without_keys(sq: int, skv: int, causal: bool) -> None:
+    """Under the causal mask with Sq > Skv the first rows see no key; the
+    forward's output there depends on its tiles, so no gradient goes
+    through them (the model never routes such a row)."""
+    if causal and sq > skv:
+        raise ValueError(f"flash_attention: Sq {sq} > Skv {skv} under the causal mask leaves "
+                         "rows with no live key; the kernel takes no gradient through them")
+
+
+def _path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, path: Optional[str]) -> str:
+    chosen = choose_path(q, k, v)
+    if path is None:
+        return chosen
+    if path not in PATHS:
+        raise ValueError(f"flash_attention: unknown path {path!r}, not one of {sorted(PATHS)}")
+    if path == "wgmma" and chosen != "wgmma":
+        raise ValueError("flash_attention: the wgmma path takes bfloat16 with 16-byte rows "
+                         "(D and the batch, sequence and head strides multiples of 8)")
+    return path
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        path: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): the forward launch ``FlashAttention`` makes, with each
+    row's log-sum-exp ((B, Hq, Sq) f32, natural log; ``ref.attention_lse_ref``
+    is its plain version).  CUDA tensors only."""
+    _check(q, k, v, window)
+    return _forward(q, k, v, causal, window, _path(q, k, v, path), with_lse=True)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: Optional[int], path: str,
+             with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One forward launch on ``path``: o, and each row's log-sum-exp
+    ((B, Hq, Sq) f32) when ``with_lse``.  Without it the kernel gets a null
+    pointer and stores none."""
+    (b, sq, hq, d), (skv, hk) = q.shape, k.shape[1:3]
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    if o.numel() == 0:
+        return o, lse
+    strides = _strides(q, k, v, o)
+    with torch.cuda.device(q.device):
+        err = library().repro_flash_attention(
+            PATHS[path], _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, skv, hq, hk, d, strides,
+            1.0 / math.sqrt(d), int(causal), 0 if window is None else int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_attention"] += 1
+    PATH_LAUNCHES[path] += 1
+    return o, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, causal: bool = True, window: Optional[int] = None,
+    need_dq: bool = True, need_dkdv: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dq, dk, dv) in q's dtype and the model's layout, from the forward's
+    inputs, its output ``o`` and ``lse`` and the output's cotangent ``do``
+    (any strides with a unit-stride head dimension).  Three launches:
+    delta = rowsum(dO * O), then dK/dV (``need_dkdv``), then dQ
+    (``need_dq``); what is not needed is None and not launched.  CUDA
+    tensors only: the plain version is ``ref.attention_bwd_ref``."""
+    _check(q, k, v, window)
+    (b, sq, hq, d), (skv, hk) = q.shape, k.shape[1:3]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype} must be "
+                             f"q's shape, dtype and device with a unit-stride head dimension")
+    if (lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} must be "
+                         f"({b}, {hq}, {sq}) float32, contiguous, on {q.device}")
+    _refuse_rows_without_keys(sq, skv, causal)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format) if need_dq else None
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format) if need_dkdv else None
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format) if need_dkdv else None
+    if q.numel() == 0 or k.numel() == 0:
+        return (None if dq is None else dq.zero_(), None if dk is None else dk.zero_(),
+                None if dv is None else dv.zero_())
+    lib, dtype = library(), _DTYPES[q.dtype]
+    scale, win = 1.0 / math.sqrt(d), 0 if window is None else int(window)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd_preprocess(
+            dtype, o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, hq, d,
+            _strides(o, do), stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd preprocess launch failed: CUDA error {err}")
+        BWD_LAUNCHES["preprocess"] += 1
+        if need_dkdv:
+            err = lib.repro_flash_attention_bwd_dkdv(
+                dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hk, d,
+                _strides(q, k, v, do, dk, dv), scale, int(causal), win, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_attention_bwd dK/dV launch failed: CUDA error {err}")
+            BWD_LAUNCHES["dkdv"] += 1
+        if need_dq:
+            err = lib.repro_flash_attention_bwd_dq(
+                dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), b, sq, skv, hq, hk, d,
+                _strides(q, k, v, do, dq), scale, int(causal), win, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_attention_bwd dQ launch failed: CUDA error {err}")
+            BWD_LAUNCHES["dq"] += 1
+    LAUNCHES["flash_attention_bwd"] += 1
+    PATH_LAUNCHES["bwd_ffma"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with its gradient (the reference's custom VJP,
+    ``repro/kernels/flash_attention/ops.py:18-46``, whose backward is the
+    vjp of ``attention_chunked``; here a kernel).  The forward saves q, k,
+    v, o and each row's log-sum-exp; under remat it runs again in the
+    backward's recompute, and each run is a forward launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, path):
+        o, lse = _forward(q, k, v, causal, window, path, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:    # e.g. an expanded zero cotangent: the one copy of dO
+            do = do.contiguous()
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                         window=ctx.window, need_dq=need_q,
+                                         need_dkdv=need_k or need_v)
+        return dq, dk if need_k else None, dv if need_v else None, None, None, None
 
 
 def flash_attention(
@@ -155,33 +354,16 @@ def flash_attention(
     path: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, Sq, Hq, D) attention output in ``q.dtype``.  ``path`` forces one
-    of ``PATHS`` on the card (every path computes the same function; tests
-    hold each); it raises where that path does not take the operands."""
+    of ``PATHS`` for the forward on the card (every path computes the same
+    function; tests hold each); it raises where that path does not take the
+    operands.  Under grad a CUDA call goes through ``FlashAttention``;
+    otherwise it is one forward launch that stores no log-sum-exp."""
     del q_positions, kv_positions  # contiguous positions assumed, as the reference does
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
-    chosen = choose_path(q, k, v)
-    if path is None:
-        path = chosen
-    elif path not in PATHS:
-        raise ValueError(f"flash_attention: unknown path {path!r}, not one of {sorted(PATHS)}")
-    elif path == "wgmma" and chosen != "wgmma":
-        raise ValueError("flash_attention: the wgmma path takes bfloat16 with 16-byte rows "
-                         "(D and the batch, sequence and head strides multiples of 8)")
-    (b, sq, hq, d), (skv, hk) = q.shape, k.shape[1:3]
-    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
-        return o
-    strides = _Strides(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        err = library().repro_flash_attention(
-            PATHS[path], _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, sq, skv, hq, hk, d, strides, 1.0 / math.sqrt(d), int(causal),
-            0 if window is None else int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    LAUNCHES["flash_attention"] += 1
-    PATH_LAUNCHES[path] += 1
-    return o
+    path = _path(q, k, v, path)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _refuse_rows_without_keys(q.shape[1], k.shape[1], causal)
+        return FlashAttention.apply(q, k, v, causal, window, path)
+    return _forward(q, k, v, causal, window, path, with_lse=False)[0]

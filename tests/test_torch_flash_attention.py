@@ -5,9 +5,14 @@
 flash_attention`` (the Pallas kernel, interpreted on the CPU) on the
 reference's own sweep (tests/test_kernels.py) and a suffix case, and
 against the reference's oracle where the Pallas kernel's tiling refuses the
-shape.  Tolerances are the reference's: f32 2e-5, bf16 2e-2.  The kernel is
-held against the plain version on the card by tests/test_torch_kernels_cuda.py
-and chip_smoke.py."""
+shape.  Tolerances are the reference's: f32 2e-5, bf16 2e-2.  The
+gradients (torch's autograd through the plain version, the CPU's path)
+against ``jax.vjp`` of the reference's ``flash_attention`` (the Pallas
+forward interpreted, its custom VJP through ``attention_chunked``) on the
+reference's grads case and the sweep: f32 1e-4 (the reference's grads
+tolerance), bf16 2e-2.  The kernels are held against the plain versions on
+the card by tests/test_torch_kernels_cuda.py and chip_smoke.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,6 +85,33 @@ def test_ragged_shapes_match_reference_oracle(b, sq, skv, hq, hk, d, causal, win
     np.testing.assert_allclose(got, np.asarray(want, np.float32), **_tol(dtype))
 
 
+# tests/test_kernels.py:46-54: q (1, 128, 4, 32), k/v with 2 heads, causal
+GRADS_CASE = (1, 128, 128, 4, 2, 32, True, None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hk,d,causal,window", [GRADS_CASE] + SWEEP)
+def test_grads_match_reference_vjp(b, sq, skv, hq, hk, d, causal, window, dtype):
+    arrays = _inputs(b, sq, skv, hq, hk, d, seed=3)
+    do = np.random.default_rng(4).normal(size=(b, sq, hq, d)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    _, vjp = jax.vjp(lambda q, k, v: ref_ops.flash_attention(q, k, v, causal=causal,
+                                                             window=window),
+                     *(jnp.asarray(a, jdt) for a in arrays))
+    want = vjp(jnp.asarray(do, jdt))
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(tdt).requires_grad_() for a in arrays)
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do).to(tdt))
+    assert ops.LAUNCHES == before          # the CPU launches no kernel, forward or backward
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else _tol(dtype)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tdt and g.shape == (q, k, v)["qkv".index(name)].shape
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **tol,
+                                   err_msg=f"d{name}")
+
+
 def test_positions_are_ignored_as_in_the_reference():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 2, 2, 8, seed=2))
     junk = torch.full((1, 16), 99)
@@ -93,4 +125,4 @@ def test_wrapper_refuses_tensors_off_the_cpu_and_the_card():
     q = torch.empty((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.flash_attention(q, q, q)
-    assert set(ops.LAUNCHES) == {"flash_attention"}
+    assert set(ops.LAUNCHES) == {"flash_attention", "flash_attention_bwd"}

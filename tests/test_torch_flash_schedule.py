@@ -3,11 +3,12 @@
 ``choose_path`` picks the kernel's path before the launch from the dtype,
 the head size and the operands' alignment: ``wgmma`` for bf16 whose rows
 16-byte copies can read, ``ffma`` for the rest.  ``kv_tiles`` is the
-kernel's block-skip: the KV tiles a query tile visits.  These tests hold
-the chooser on every condition it reads, and the tile range against a
-brute-force count of the live (query, key) pairs under causal, window and
-suffix masks: every live pair lies in a visited tile, and every visited
-tile holds one.
+kernel's block-skip: the KV tiles a query tile visits; ``q_tiles`` its
+mirror for the backward's dK/dV kernel, the query tiles that see a KV tile.
+These tests hold the chooser on every condition it reads, and both tile
+ranges against a brute-force count of the live (query, key) pairs under
+causal, window and suffix masks: every live pair lies in a visited tile,
+and every visited tile holds one.
 """
 import numpy as np
 import pytest
@@ -80,6 +81,8 @@ def test_tiles_by_path_and_head_size():
     assert ops.tiles("ffma", 256) == (64, 64)
     assert [ops.tiles("wgmma", d) for d in (8, 64, 128, 136, 256)] == \
         [(128, 128), (128, 128), (128, 128), (128, 64), (128, 64)]
+    assert [ops.bwd_tiles(d) for d in (8, 64, 128, 136, 256)] == \
+        [(64, 64), (64, 64), (64, 64), (64, 32), (64, 32)]
 
 
 def _live(sq, skv, causal, window):
@@ -109,7 +112,22 @@ def _check_tiles(sq, skv, causal, window, tq, tk):
     assert seen == int(live.sum())      # no live pair outside the visited tiles
 
 
-@pytest.mark.parametrize("sq,skv,causal,window", [
+def _check_q_tiles(sq, skv, causal, window, tq, tk):
+    live = _live(sq, skv, causal, window)
+    seen = 0
+    for kt in range(-(-skv // tk)):
+        begin, end = ops.q_tiles(kt, sq, skv, causal, window, tq, tk)
+        cols = live[:, kt * tk:(kt + 1) * tk]
+        holding = {qt for qt in range(-(-sq // tq)) if cols[qt * tq:(qt + 1) * tq].any()}
+        if holding:
+            assert set(range(begin, end)) == holding, (kt, begin, end, sorted(holding))
+        else:
+            assert begin >= end, (kt, begin, end)
+        seen += int(cols[begin * tq:max(begin, end) * tq].sum())
+    assert seen == int(live.sum())      # no live pair outside the visited tiles
+
+
+SHAPES = [
     (2048, 2048, True, None),           # qwen1.5-0.5b, olmoe-1b-7b prefill
     (2304, 2304, True, None),           # internvl2-26b prefill: 256 patches + 2048 tokens
     (2048, 2048, False, None),          # whisper-base's encoder: bidirectional
@@ -122,10 +140,22 @@ def _check_tiles(sq, skv, causal, window, tq, tk):
     (70, 70, False, 7),                 # a window without the causal mask
     (37, 150, True, 24),
     (150, 37, True, None),              # more queries than keys: early rows see none
-])
+]
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", SHAPES)
 @pytest.mark.parametrize("path,d", [("wgmma", 64), ("wgmma", 256), ("ffma", 64)])
 def test_kv_tiles_cover_exactly_the_live_pairs(sq, skv, causal, window, path, d):
     _check_tiles(sq, skv, causal, window, *ops.tiles(path, d))
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", SHAPES)
+@pytest.mark.parametrize("d", [64, 256])
+def test_backward_tiles_cover_exactly_the_live_pairs(sq, skv, causal, window, d):
+    """The dK/dV kernel's q tiles and the dQ kernel's KV tiles, at the
+    backward's tiles (64 x 64; 64 x 32 at D = 256)."""
+    _check_q_tiles(sq, skv, causal, window, *ops.bwd_tiles(d))
+    _check_tiles(sq, skv, causal, window, *ops.bwd_tiles(d))
 
 
 @settings(max_examples=60, deadline=None)
@@ -134,3 +164,11 @@ def test_kv_tiles_cover_exactly_the_live_pairs(sq, skv, causal, window, path, d)
        tk=st.sampled_from([64, 128]))
 def test_kv_tiles_cover_exactly_the_live_pairs_for_any_shape(sq, extra, causal, window, tq, tk):
     _check_tiles(sq, max(1, sq + extra), causal, window, tq, tk)
+
+
+@settings(max_examples=60, deadline=None)
+@given(sq=st.integers(1, 400), extra=st.integers(-50, 400), causal=st.booleans(),
+       window=st.one_of(st.none(), st.integers(1, 300)), tq=st.sampled_from([64, 128]),
+       tk=st.sampled_from([32, 64, 128]))
+def test_q_tiles_cover_exactly_the_live_pairs_for_any_shape(sq, extra, causal, window, tq, tk):
+    _check_q_tiles(sq, max(1, sq + extra), causal, window, tq, tk)

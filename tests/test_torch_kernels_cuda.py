@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-``gmm``/``tgmm``, ``flash_attention``, ``flash_decode_int8``, ``ssd_scan``
-and ``rglru_scan``.
+``gmm``/``tgmm``, ``flash_attention`` and its backward,
+``flash_decode_int8``, ``ssd_scan`` and ``rglru_scan``.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import neither JAX nor the reference package, so they
@@ -519,8 +519,117 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
         fa_ops.flash_attention(q, k, k, path="wgmma")               # f32
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, k, k, path="mma")                 # no such path
-    with pytest.raises(NotImplementedError, match="queue 2 B1"):
-        fa_ops.flash_attention(q.requires_grad_(), k, k)            # no backward yet
+    qg = q.clone().requires_grad_()
+    (dq,) = torch.autograd.grad(fa_ops.flash_attention(qg, k, k).sum(), qg)   # trains now
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
+    # the same refusals hold under grad
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(qg.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(qg, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(qg, k, k, window=0)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(qg, k, k, path="wgmma")
+    with pytest.raises(ValueError):                                 # rows with no live key
+        fa_ops.flash_attention(qg, k[:, :5], k[:, :5])
+
+
+# the backward: the reference's sweep and a suffix (FLASH_CASES[:6]), a
+# ragged window, internvl2's GQA 6:1 and MQA at D = 256 with a window edge
+# inside its 32-key tiles
+FLASH_BWD_CASES = FLASH_CASES[:6] + [
+    (2, 200, 200, 4, 2, 32, True, 48),
+    (1, 256, 256, 12, 2, 128, True, None),
+    (1, 65, 65, 2, 1, 256, True, 5),
+]
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _bwd_inputs(case, device, dtype, seed=9):
+    b, sq, skv, hq, hk, d = case[:6]
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(device, dtype) for shape in
+                 ((b, sq, hq, d), (b, skv, hk, d), (b, skv, hk, d), (b, sq, hq, d)))
+
+
+def _bwd_close(got, want32, dtype):
+    """f32: allclose 1e-4 (tests/test_kernels.py:56); bf16: relative norm
+    2e-2 against the plain version in f32 on the same bf16 inputs."""
+    if dtype == "float32":
+        return all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in zip(got, want32))
+    return max(_rel(a, b) for a, b in zip(got, want32)) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_version(card, case, dtype):
+    causal, window = case[6:]
+    q, k, v, do = _bwd_inputs(case, card, getattr(torch, dtype))
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(lse, fa_ref.attention_lse_ref(q, k, causal=causal, window=window),
+                               rtol=1e-5, atol=1e-5)
+    before, kernels = dict(fa_ops.LAUNCHES), dict(fa_ops.BWD_LAUNCHES)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {**before, "flash_attention_bwd": before["flash_attention_bwd"] + 1}
+    assert fa_ops.BWD_LAUNCHES == {key: n + 1 for key, n in kernels.items()}
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
+                                      causal=causal, window=window)
+    assert _bwd_close(got, want32, dtype), [_rel(a, b) for a, b in zip(got, want32)]
+    # control: K rolled by one position fails the limit
+    kr = k.roll(1, dims=1)
+    o_r, lse_r = fa_ops.flash_attention_fwd(q, kr, v, causal=causal, window=window)
+    rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, causal=causal, window=window)
+    for a, b in zip(rolled, want32):
+        assert not _bwd_close((a,), (b,), dtype)
+
+
+def test_flash_counts_with_and_without_grad(card):
+    """Without grad one forward launch that stores no lse (its output the
+    grad forward's bit for bit); with grad the Function's forward and one
+    backward call of three launches; an input that needs no gradient gets
+    none, and dQ alone skips the dK/dV kernel."""
+    q, k, v, do = _bwd_inputs((2, 160, 160, 8, 2, 64), card, torch.bfloat16)
+    counters = (fa_ops.LAUNCHES, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES)
+
+    def counted(fn):
+        for c in counters:
+            c.update({key: 0 for key in c})
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(dict(c) for c in counters)
+
+    plain, counts = counted(lambda: fa_ops.flash_attention(q, k, v, window=40))
+    assert counts == ({"flash_attention": 1, "flash_attention_bwd": 0},
+                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 0},
+                      {"preprocess": 0, "dkdv": 0, "dq": 0})
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        _, counts = counted(lambda: fa_ops.flash_attention(qg, kg, vg, window=40))
+    assert counts[0] == {"flash_attention": 1, "flash_attention_bwd": 0}
+
+    def step():
+        out = fa_ops.flash_attention(qg, kg, vg, window=40)
+        return out, torch.autograd.grad(out, (qg, kg, vg), do)
+
+    (out, grads), counts = counted(step)
+    assert torch.equal(out, plain)
+    assert counts == ({"flash_attention": 1, "flash_attention_bwd": 1},
+                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 1},
+                      {"preprocess": 1, "dkdv": 1, "dq": 1})
+    want = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), window=40)
+    assert max(_rel(a, b) for a, b in zip(grads, want)) <= 2e-2
+    qg = q.clone().requires_grad_()
+    (_, (dq,)), counts = counted(
+        lambda: (None, torch.autograd.grad(fa_ops.flash_attention(qg, k, v, window=40), qg, do)))
+    assert counts[2] == {"preprocess": 1, "dkdv": 0, "dq": 1}
+    assert _rel(dq, want[0]) <= 2e-2
 
 
 # SSD scan: (b, l, h, p, g, n) — the reference's sweep (tests/test_kernels.py:

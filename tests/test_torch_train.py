@@ -11,7 +11,10 @@ the encoder-decoder; loss 2e-5, grads 1e-4, the reference's tolerances),
 against ``none``, one ``make_train_step`` step (adamw with clip, adafactor),
 the token data bit for bit, and ``launch/train.py``'s rounds against the
 reference's ``main`` (losses 1e-4 relative, ``comm_MB`` exact) with a
-checkpoint resume."""
+checkpoint resume.  Under ``attn_impl="pallas"`` (the reference's Pallas
+forward interpreted, its custom VJP; the port's flash route, on the CPU its
+plain version) the dense, moe, hybrid, vlm and encoder-decoder families'
+loss and gradients too, at 128 positions (the Pallas kernel's row tile)."""
 import contextlib
 import functools
 import io
@@ -79,14 +82,14 @@ def _host_params(ref_cfg):
     return _arch_params(ref_cfg.name)
 
 
-def _batch(cfg, b=2, seed=1):
+def _batch(cfg, b=2, seed=1, seq=SEQ, frames=FRAMES):
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, SEQ)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, seq)).astype(np.int32)}
     if cfg.n_vision_tokens:
         batch["patch_embeds"] = rng.normal(
             size=(b, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
     if cfg.is_encdec:
-        batch["frames"] = rng.normal(size=(b, FRAMES, cfg.d_model)).astype(np.float32)
+        batch["frames"] = rng.normal(size=(b, frames, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -129,6 +132,25 @@ def test_loss_and_grads_match_the_reference(family):
     _assert_trees_close(got, want, GRAD, family)
     # every leaf gets a gradient; the loss reaches every leaf of these trees
     assert all(np.any(g != 0) for g in got.values()), [k for k, g in got.items() if not g.any()]
+
+
+# the Pallas kernel's row tile: every attention of these batches spans 128
+# positions (a VLM's patch prefix included; whisper's frames too)
+PALLAS_POSITIONS = 128
+
+
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid", "vlm", "encdec"])
+def test_loss_and_grads_under_the_flash_route_match_the_reference(family):
+    """``attn_impl="pallas"``: every self-attention through the flash route
+    (the hybrid's windowed, the encoder's bidirectional); whisper's
+    cross-attention stays on ``attention_chunked`` in both packages."""
+    ref_cfg, cfg = _cfgs(FAMILIES[family], attn_impl="pallas")
+    host = _host_params(ref_cfg)
+    batch = _batch(cfg, seq=PALLAS_POSITIONS - cfg.n_vision_tokens, frames=PALLAS_POSITIONS)
+    want_loss, _, want = _ref_value_and_grad(ref_cfg, host, batch)
+    got_loss, _, got = _port_value_and_grad(cfg, host, batch)
+    np.testing.assert_allclose(got_loss, want_loss, **LOSS)
+    _assert_trees_close(got, want, GRAD, f"{family}, pallas")
 
 
 def test_a_vlm_without_its_prefix_gets_zero_vis_proj_grads():
