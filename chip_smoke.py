@@ -242,8 +242,9 @@ Phases (any failure exits non-zero before the last line is printed):
              socket wall.
 26. hier   — the hierarchical tree of ``repro_torch.fed.hier``: a
              ``RootAggregator`` in this process, each leaf a process spawned
-             with ``run_leaf``.  Gates: (a) examples/hier_tree.py's world —
-             1,000 ``SimWorker``s on driver threads over 2 leaves (pods
+             with ``run_leaf``.  Gates: (a) examples/hier_tree.py's world,
+             cut to HIER_CLIENTS (500) ``SimWorker``s (1,000 there) on
+             driver threads over 2 leaves (pods
              ``cid % 2``), 2 rounds, template w 16x16 + b 16 — under none,
              int8 and topk: the root's params digest equal to
              ``run_flat_campaign``'s, and the ``none`` digest equal to
@@ -353,14 +354,43 @@ Phases (any failure exits non-zero before the last line is printed):
              forward under remat), cross-attention on
              ``attention_chunked``, every leaf changed.  Every other kernel
              reads 0 launches.  No earlier phase launches a backward
-             kernel (``ops.BWD_LAUNCHES`` is 0 when the phase starts).
+             kernel (``ops.BWD_LAUNCHES`` is 0 when the phase starts);
+31. train through ssd_scan — the backward of ``ssd_scan``
+             (``csrc/ssd_scan_bwd.cu``: states, dchunk, group_sum; FFMA) and
+             training on it under ``ssm_impl="pallas"``: (a) on every
+             SSD_CASES case in f32 and bf16, with and without a cotangent of
+             the final state, dx, ddt, da, dB, dC against ``ssd_bwd_ref``
+             (f32 allclose 1e-4 against it run in f64, relative norms at the
+             serve shape as phase 10 holds the forward there; bf16 relative
+             norms 2e-2 against it in f32 on the same inputs), the f32 plain
+             version's own distance to f64 printed, B and C rolled one step
+             together failing every limit, the strong decay's gradients
+             finite; (b) the backward timed at mamba2-1.3b's training shape
+             (8 x 128; f32 too) and its serve shape beside the plain version
+             (autograd through ``ssd_chunked`` at chunk 256) and the bound,
+             with the FLOPs it issues; (c) mamba2-1.3b at full width (48
+             layers, remat full, AdamW), 4 steps on the chunked route and 4
+             on the kernel route from the same parameters and batch: 96
+             forward launches a step (layers and remat recomputes, all
+             wgmma) and 48 backward calls, finite and falling losses, the
+             first within 2e-2 of chunked's, layers 0 and 47's backward on
+             their captured inputs within bf16's 2e-2 with B and C rolled
+             outside it, each route's walls, launches, busy share and peak;
+             (d) mamba2-1.3b cut to 2 layers in f32, one step card (kernels)
+             against CPU (plain versions): loss 1e-5, gradients 1e-4, tokens
+             rolled outside it.  Every other kernel reads 0 launches; no
+             earlier phase launches ``ssd_scan_bwd`` (``run_serve`` and
+             phase 29 (d) assert it, ``ssd_ops.BWD_LAUNCHES`` is 0 when the
+             phase starts).
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
 those of phases 7, 14, 18, 21, 27, 28 and 30 (and how many were bidirectional),
 ``flash_attention_bwd`` with phase 30's calls, worst errors by dtype and its
-times at the six shapes, ``ssd_scan`` with those of phase 12,
+times at the six shapes, ``ssd_scan`` with those of phases 12 and 31,
+``ssd_scan_bwd`` with phase 31's calls, worst errors by dtype and its times
+at the training and serve shapes,
 ``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
@@ -1067,7 +1097,7 @@ def run_serve(torch, cfg, counters, expected):
     # serving takes no gradient
     assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"], "bwd_ffma": 0}, \
         flash_paths
-    assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"]}, ssd_paths
+    assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"], "bwd_ffma": 0}, ssd_paths
     assert len(masks) == launches["flash_attention"], masks
     launches["flash_attention_by_path"] = flash_paths
     launches["flash_attention_noncausal"] = masks.count(False)
@@ -3087,15 +3117,17 @@ def run_multihost_phase(torch, counters, smi, device=None):
 
 # ---------------------------------------------------------------- phase 26
 
-#: phase 26(a)'s world, examples/hier_tree.py's: 1,000 simulated clients
-#: over 2 leaf processes (pods cid % 2), 2 rounds, template w 16x16 + b 16
-HIER_CLIENTS = 1000
+#: phase 26(a)'s world, examples/hier_tree.py's cut from 1,000 simulated
+#: clients to 500 for the script's time limit (the campaign's walls scale with
+#: the clients, the leaves' spawn does not): over 2 leaf processes (pods
+#: cid % 2), 2 rounds, template w 16x16 + b 16
+HIER_CLIENTS = 500
 HIER_ROUNDS = 2
 HIER_LEAVES = 2
 #: run_flat_campaign's params digest of that world under "none", as the
 #: reference computes it (tests/test_torch_hier.py holds it against
 #: repro.fed.hier: the card's machine has no JAX)
-HIER_FLAT_DIGEST = "5f02067f7ed4268a8ba21075a14bc06921d89d6f5a17cc1582e45b2df051ba02"
+HIER_FLAT_DIGEST = "0c0e768ae1e918fddd1af6043f95501ade4ef47e2f23e56a61774e0b48e24588"
 HIER_MLP_CLIENTS = 128     # (a) again with the main path's client (784->128->128->62) as template
 HIER_CHAOS_CLIENTS = 200   # examples/hier_tree.py --chaos --clients 200
 HIER_KILL_CLIENTS = 10     # tests/test_faults.py:376's leaf SIGKILL world
@@ -3785,17 +3817,20 @@ def grads_gap(torch, a, b):
     return math.sqrt(num / den)
 
 
-def run_train_twin(torch, device, attn_impl="chunked"):
+def run_train_twin(torch, device, attn_impl="chunked", cfg=None):
     """(b): one step of qwen-100m in f32 (TF32 off) on the card and on the CPU
     from the same parameters and batch; the tokens rolled by one as control.
     Phase 30 runs it on the flash route (``attn_impl="pallas"``): the card's
     attention on the ffma forward and the backward's kernels, the CPU's on
-    their plain versions."""
+    their plain versions; phase 31 runs ``cfg`` (mamba2-1.3b cut to 2
+    layers, ``ssm_impl="pallas"``) so."""
     from repro_torch.launch.train import train_config
     from repro_torch.models.registry import make_train_step, model_fns, value_and_grad
     from repro_torch.tree import tree_map
 
-    cfg = train_config("qwen-100m").replace(compute_dtype="float32", attn_impl=attn_impl)
+    if cfg is None:
+        cfg = train_config("qwen-100m").replace(attn_impl=attn_impl)
+    cfg = cfg.replace(compute_dtype="float32")
     fns = model_fns(cfg)
     host, _ = fns.init(torch.Generator().manual_seed(0), "cpu")
     card = tree_map(lambda t: t.to(device), host)
@@ -3815,8 +3850,8 @@ def run_train_twin(torch, device, attn_impl="chunked"):
     step_gap = abs(float(m_c["loss"]) - float(m_h["loss"])) / abs(float(m_h["loss"]))
     gap, control = grads_gap(torch, g_c, g_h), grads_gap(torch, g_r, g_h)
     rolled_gap = abs(float(loss_r) - float(loss_h)) / abs(float(loss_h))
-    say(f"  qwen-100m ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off, attention "
-        f"{attn_impl}), batch "
+    say(f"  {cfg.name} ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off, attention "
+        f"{cfg.attn_impl}, SSD scan {cfg.ssm_impl}), batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss card {float(loss_c):.7f} CPU {float(loss_h):.7f} "
         f"(relative {loss_gap:.2e}, tol {TRAIN_TWIN_LOSS_REL_TOL:g}; the train step's "
         f"{step_gap:.2e}, grad_norm {float(m_c['grad_norm']):.6f} vs {float(m_h['grad_norm']):.6f}); "
@@ -4415,6 +4450,312 @@ def run_flash_train_phase(torch, fa_ops, fa_ref, counters, smi, device="cuda"):
                                       "timings": {str(k): v for k, v in timings.items()}}
 
 
+# ---------------------------------------------------------------- phase 31
+
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+# dx, ddt, da, dB, dC against the plain backward (autograd through ssd_chunked):
+# f32 allclose (tests/test_kernels.py:56) against it run in f64 (in f32 it misses
+# f64 by more than the limit itself at served widths: printed beside), but at
+# the serve shape relative norms, as phase 10 holds the forward there (at L =
+# 2,048 ddt reaches 1e3 and da 3e4, and an element that cancels to ~0.3 carries
+# an ulp or two of those terms: 6e-5 each, past an absolute 1e-4; the
+# elementwise reading is printed); bf16 relative norms against it in f32 on
+# the same bf16 inputs
+SSD_BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_GRADS = ("dx", "ddt", "da", "dB", "dC")
+# mamba2-1.3b's scan in a train step of batch 8 x 128
+SSD_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 64, 64, 1, 128)
+SSD_TRAIN_STEPS = 4
+SSD_TRAIN_LOSS_REL_TOL = 2e-2   # the first step's loss, kernel route against chunked (bf16)
+SSD_TWIN_LAYERS = 2             # mamba2-1.3b cut to 2 layers for the f32 step, card against CPU
+
+
+def ssd_grads_close(torch, got, want, dtype, elementwise=True):
+    """(passes, errors) for each gradient: f32 max |got - want| / (tol + tol
+    |want|) (allclose fails above 1), bf16 and f32 not ``elementwise``
+    relative norms."""
+    tol = SSD_BWD_TOLS[str(dtype)[6:]]
+    if dtype == torch.float32 and elementwise:
+        errs = [float(((g.double() - w.double()).abs() / (tol + tol * w.double().abs())).max())
+                for g, w in zip(got, want)]
+        return [e <= 1.0 for e in errs], errs
+    errs = [rel_norm(g, w) for g, w in zip(got, want)]
+    return [e <= tol for e in errs], errs
+
+
+def ssd_bwd_plain(torch, ssd_ref, args, dy, ds, work):
+    """The plain backward at the config's chunk, run in ``work``."""
+    return ssd_ref.ssd_bwd_ref(*(t.to(work) for t in args), dy.to(work),
+                               None if ds is None else ds.to(work), chunk=SSD_CHUNK)
+
+
+def ssd_cotangents(torch, case, dtype, with_state, seed=0):
+    b, l, h, p, g, n = case
+    gen = torch.Generator(device="cuda").manual_seed(seed + 200)
+    dy = torch.randn((b, l, h, p), generator=gen, device="cuda").to(dtype)
+    ds = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_state else None
+    return dy, ds
+
+
+def roll_bc(args):
+    """B and C rolled one step along L together (each gradient is linear in
+    the inputs other than its own: dB does not see B, nor dC C)."""
+    return (*args[:3], args[3].roll(1, dims=1), args[4].roll(1, dims=1))
+
+
+def check_ssd_bwd(torch, ssd_ops, ssd_ref):
+    """(a): dx, ddt, da, dB, dC of the backward kernels against the plain
+    backward on every SSD_CASES case in f32 and bf16, with and without a
+    cotangent of the final state; B and C rolled by one step must fail every
+    limit.  Returns the largest errors by dtype."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for name, case, strong in SSD_CASES:
+            args = ssd_inputs(torch, case, dtype, strong=strong)
+            for with_state in (False, True):
+                dy, ds = ssd_cotangents(torch, case, dtype, with_state)
+                before = dict(ssd_ops.BWD_LAUNCHES)
+                got = ssd_ops.ssd_bwd(*args, dy, ds)
+                torch.cuda.synchronize()
+                assert ssd_ops.BWD_LAUNCHES == {k: v + 1 for k, v in before.items()}, name
+                for g_, t in zip(got, args):
+                    assert g_.dtype == t.dtype and g_.shape == t.shape, name
+                    assert torch.isfinite(g_.float()).all(), (name, name_dt)
+                work = torch.float64 if dtype == torch.float32 else torch.float32
+                want = ssd_bwd_plain(torch, ssd_ref, args, dy, ds, work)
+                elementwise = case != SSD_SERVE_SHAPE
+                ok, errs = ssd_grads_close(torch, got, want, dtype, elementwise)
+                abs_err = max(float((g_.double() - w.double()).abs().max())
+                              for g_, w in zip(got, want))
+                rolled = ssd_ops.ssd_bwd(*roll_bc(args), dy, ds)
+                ctl_ok, ctl = ssd_grads_close(torch, rolled, want, dtype, elementwise)
+                how = "rel" if dtype == torch.bfloat16 or not elementwise else "of tol"
+                extra = ""
+                if dtype == torch.float32:   # how far the f32 plain version is from f64
+                    _, plain = ssd_grads_close(
+                        torch, ssd_bwd_plain(torch, ssd_ref, args, dy, ds, torch.float32), want,
+                        dtype)
+                    extra = f"; the f32 plain version {' '.join(f'{e:.2f}' for e in plain)} of tol"
+                    row = worst.setdefault(name_dt, {"plain_f32_over_tol": 0.0})
+                    row["plain_f32_over_tol"] = max(row["plain_f32_over_tol"], max(plain))
+                    if not elementwise:
+                        _, over = ssd_grads_close(torch, got, want, dtype)
+                        extra += f"; elementwise {' '.join(f'{e:.2f}' for e in over)} of tol"
+                        row["serve_shape_elementwise_over_tol"] = max(over)
+                say(f"  {name_dt:>8} {name:<28} {str(case):<28} "
+                    f"{'dstate' if with_state else '      '} {'/'.join(SSD_GRADS)} "
+                    f"{' '.join(f'{e:.2e}' for e in errs)} ({how}; max|err| {abs_err:.2e}); B, C "
+                    f"rolled {' '.join(f'{e:.2e}' for e in ctl)}" + extra)
+                assert all(ok), (name, name_dt, with_state, errs)
+                assert not any(ctl_ok), (name, name_dt, with_state, ctl)
+                row = worst.setdefault(name_dt, {})
+                key = "grads" if elementwise else "serve_shape_rel"
+                row[key] = max(row.get(key, 0.0), max(errs))
+                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
+                del dy, ds, got, want, rolled
+            del args
+            free_card(torch)
+    return worst
+
+
+def ssd_bwd_issued(ssd_ops, shape):
+    """FLOPs the backward kernels issue at ``shape``: each chunk of Q rows a
+    (b, h) with P and N padded to the kernels' buckets, the states kernel's
+    update, the chunk kernel's G, D, dx, dB, dC and dS products, the group sum."""
+    b, l, h, p, g, n = shape
+    q = ssd_ops.library().repro_ssd_scan_bwd_chunk_rows()
+    pm, nm = (16 if p <= 16 else 64), (32 if n <= 32 else 128)
+    per_chunk = 2 * (q * q * (3 * nm + 2 * pm) + 5 * q * pm * nm)
+    return b * h * -(-l // q) * per_chunk + 2 * b * l * h * n
+
+
+def time_ssd_bwd(torch, ssd_ops, ssd_ref, shape, f32=False):
+    """(b): the backward at ``shape`` in bf16 (and f32 with ``f32``) beside
+    its plain version (autograd through ssd_chunked at the config's chunk,
+    forward included) and its bound: x, dt, B, C and dY read and dx, ddt,
+    dB, dC written at 3.35 TB/s against the step recurrence's gradient (14
+    P N FLOP a row and head: the adjoint's update, dx, dB, dC, the state
+    recomputed, d(a dt)) at the bf16 peak.  No single PyTorch call computes
+    it: no library time."""
+    b, l, h, p, g, n = shape
+    args = ssd_inputs(torch, shape, torch.bfloat16, seed=5)
+    dy, _ = ssd_cotangents(torch, shape, torch.bfloat16, False, seed=5)
+    row = {"ms": median_ms(torch, lambda: ssd_ops.ssd_bwd(*args, dy)),
+           "plain_ms": median_ms(torch, lambda: ssd_ref.ssd_bwd_ref(*args, dy, chunk=SSD_CHUNK),
+                                 reps=3, warm=1),
+           "library_ms": None}
+    flops = 14 * b * l * h * p * n
+    issued = ssd_bwd_issued(ssd_ops, shape)
+    io_bytes = 2 * (3 * b * l * h * p + 4 * b * l * g * n) + 4 * (2 * b * l * h + 2 * h)
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, issued_gflop=issued / 1e9, io_mb=io_bytes / 1e6,
+               tflops_issued=issued / row["ms"] / 1e9, shape=list(shape))
+    f32_note = ""
+    if f32:   # the same work in f32: twice the bytes of x, B, C, dY and their gradients, f32 FFMA
+        args32, dy32 = [t.float() for t in args], dy.float()
+        row["f32_ms"] = median_ms(torch, lambda: ssd_ops.ssd_bwd(*args32, dy32))
+        del args32, dy32
+        t_ops32 = flops / F32_FLOPS * 1e3
+        t_bytes32 = (io_bytes + 2 * (3 * b * l * h * p + 4 * b * l * g * n)) / HBM_BYTES_PER_S * 1e3
+        row.update(f32_bound_ms=max(t_ops32, t_bytes32),
+                   f32_bound_by="operations" if t_ops32 >= t_bytes32 else "bytes")
+        f32_note = (f", f32 {row['f32_ms']:.4f} ms (bound {row['f32_bound_ms']:.4f} ms, "
+                    f"{row['f32_bound_by']} at 67 TFLOP/s of f32 FFMA and 3.35 TB/s)")
+    say(f"  ssd_scan_bwd {shape}, bf16: {row['ms']:.4f} ms ({issued / 1e9:.2f} GFLOP issued on "
+        f"FFMA, {row['tflops_issued']:.1f} TFLOP/s)" + f32_note
+        + f"; plain {row['plain_ms']:.4f} ms; library null (no single PyTorch call); bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {io_bytes / 1e6:.1f} MB at 3.35 TB/s, "
+        f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s); kernel / bound {row['ms'] / row['bound_ms']:.1f}")
+    del args, dy
+    free_card(torch)
+    return row
+
+
+@contextlib.contextmanager
+def capture_ssd_bwd_calls(ssd_ops, caps, keep):
+    """Record the inputs of the backward calls whose index is in ``keep``
+    (clones: x, dt, a, B, C, dY, dstate)."""
+    real, n = ssd_ops.ssd_bwd, [0]
+
+    def spy(*args, **kw):
+        if n[0] in keep:
+            caps[n[0]] = [None if t is None else t.detach().clone() for t in args]
+        n[0] += 1
+        return real(*args, **kw)
+
+    with mock.patch.object(ssd_ops, "ssd_bwd", spy):
+        yield
+
+
+def run_ssd_mamba_train(torch, ssd_ops, ssd_ref, counters, device):
+    """(c) mamba2-1.3b at full width: SSD_TRAIN_STEPS train steps on the
+    chunked route and on the kernel route from the same parameters and
+    batch; the kernel route's launches counted; layers 0 and 47's captured
+    backward inputs held against the plain backward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import make_train_step
+
+    cfg = get_config(MAMBA_ARCH)
+    n = cfg.total_layers
+    params0 = params_init(torch, cfg, device)
+    batch = train_batch(torch, cfg, device)
+    rows, caps = {}, {}
+    for impl in ("chunked", "pallas"):
+        t_route = time.perf_counter()
+        step, opt = make_train_step(cfg.replace(ssm_impl=impl))
+        params, state = params0, opt.init(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches((*counters, ssd_ops.PATH_LAUNCHES, ssd_ops.BWD_LAUNCHES))
+        losses, walls = [], []
+        with capture_ssd_bwd_calls(ssd_ops, caps, (0, n - 1) if impl == "pallas" else ()):
+            for _ in range(SSD_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+        launches, paths, kernels = counts_now(counters, ssd_ops)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile_call(torch, f"one {impl} train step", lambda: step(params, state, batch),
+                            share_of=("ssd_bwd", "ssd_wgmma_kernel"))
+        rows[impl] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
+                      "ssd_by_path": paths, "bwd_kernels": kernels,
+                      **{f"step_{k}": v for k, v in prof.items()}}
+        say(f"  {impl}: {SSD_TRAIN_STEPS} steps, walls {', '.join(f'{w:.3f}' for w in walls)} s "
+            f"(median {statistics.median(walls) * 1e3:.1f} ms), losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, peak allocated {peak:.2f} GB; launches "
+            f"{launches}, ssd_scan by path {paths}, backward kernels {kernels}")
+        assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+        del params, state, step, opt
+        free_card(torch)
+        say(f"  the {impl} route's run, profile included: {time.perf_counter() - t_route:.1f} s")
+    want = {k: 0 for k in rows["pallas"]["launches"]}
+    assert rows["chunked"]["launches"] == want, rows["chunked"]["launches"]
+    s = SSD_TRAIN_STEPS
+    want.update({"ssd_scan": 2 * n * s, "ssd_scan_bwd": n * s})   # forward, remat recompute
+    assert rows["pallas"]["launches"] == want, (rows["pallas"]["launches"], want)
+    assert rows["pallas"]["ssd_by_path"] == {"ffma": 0, "wgmma": 2 * n * s, "bwd_ffma": n * s}
+    assert rows["pallas"]["bwd_kernels"] == {"states": n * s, "dchunk": n * s, "group_sum": n * s}
+    first = [rows[impl]["losses"][0] for impl in ("chunked", "pallas")]
+    gap = abs(first[1] - first[0]) / abs(first[0])
+    say(f"  first step's loss: kernels {first[1]:.6f} against chunked {first[0]:.6f} (relative "
+        f"{gap:.2e}, tol {SSD_TRAIN_LOSS_REL_TOL:g})")
+    assert gap <= SSD_TRAIN_LOSS_REL_TOL, gap
+    layers = {}
+    for i, layer in ((n - 1, 0), (0, n - 1)):      # the backward walks the layers last first
+        args, (dy, ds) = caps[i][:5], caps[i][5:]
+        got = ssd_ops.ssd_bwd(*args, dy, ds)
+        want32 = ssd_bwd_plain(torch, ssd_ref, args, dy, ds, torch.float32)
+        ok, errs = ssd_grads_close(torch, got, want32, args[0].dtype)
+        ctl_ok, ctl = ssd_grads_close(torch, ssd_ops.ssd_bwd(*roll_bc(args), dy, ds), want32,
+                                      args[0].dtype)
+        say(f"  layer {layer}'s backward on its captured inputs {tuple(args[0].shape)} "
+            f"{args[0].dtype}: {'/'.join(SSD_GRADS)} relative {' '.join(f'{e:.2e}' for e in errs)} "
+            f"(tol {SSD_BWD_TOLS['bfloat16']:g}); B, C rolled: {' '.join(f'{e:.2e}' for e in ctl)}")
+        assert args[0].dtype == torch.bfloat16 and all(ok), (layer, errs)
+        assert not any(ctl_ok), (layer, ctl)
+        layers[layer] = {"rel": errs, "bc_rolled": ctl}
+    rows["layers"] = layers
+    del caps, params0, batch
+    free_card(torch)
+    return rows
+
+
+def mamba_twin_config():
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(MAMBA_ARCH)
+    return cfg.replace(n_layers=SSD_TWIN_LAYERS, ssm_impl="pallas",
+                       groups=(LayerGroup(cfg.groups[0].pattern, SSD_TWIN_LAYERS),))
+
+
+def run_ssd_train_phase(torch, ssd_ops, ssd_ref, counters, smi, device="cuda"):
+    """Phase 31: train through ssd_scan.  (a) kernel gates, (b) timings, (c)
+    mamba2-1.3b at full width on both routes, (d) its f32 twin, card
+    against CPU."""
+    free_card(torch)
+    say("PHASE 31 train through ssd_scan: the backward of ssd_scan (three FFMA kernels) against "
+        "its plain version, timed, and training on it under ssm_impl=\"pallas\"")
+    say(f"  card: {smi}")
+    t0 = time.perf_counter()
+    # BWD_LAUNCHES is never reset before this phase: no earlier phase launched the backward
+    assert not any(ssd_ops.BWD_LAUNCHES.values()), ssd_ops.BWD_LAUNCHES
+    zero_launches(counters)
+    say("  (a) dx, ddt, da, dB, dC against the plain backward, every SSD_CASES case")
+    worst = check_ssd_bwd(torch, ssd_ops, ssd_ref)
+    say(f"  (b) timings; (a) took {time.perf_counter() - t0:.1f} s")
+    timings = {"train bf16": time_ssd_bwd(torch, ssd_ops, ssd_ref, SSD_TRAIN_SHAPE, f32=True),
+               "serve bf16": time_ssd_bwd(torch, ssd_ops, ssd_ref, SSD_SERVE_SHAPE)}
+    quiet = {k: v for counts in counters for k, v in counts.items() if k != "ssd_scan_bwd"}
+    assert not any(quiet.values()), quiet        # (a) and (b) launch the backward alone
+    say(f"  (c) {MAMBA_ARCH} at full width, {SSD_TRAIN_STEPS} steps on each route; so far "
+        f"{time.perf_counter() - t0:.1f} s")
+    mamba = run_ssd_mamba_train(torch, ssd_ops, ssd_ref, counters, device)
+    say(f"  (d) {MAMBA_ARCH} cut to {SSD_TWIN_LAYERS} layers, f32: card (kernels) against CPU "
+        f"(plain versions); so far {time.perf_counter() - t0:.1f} s")
+    zero_launches((*counters, ssd_ops.PATH_LAUNCHES, ssd_ops.BWD_LAUNCHES))
+    twin_cfg = mamba_twin_config()
+    twin = run_train_twin(torch, device, cfg=twin_cfg)
+    twin_launches, twin_paths, _ = counts_now(counters, ssd_ops)
+    n, fwd = SSD_TWIN_LAYERS, 2 if twin_cfg.remat == "full" else 1
+    # on the card two value_and_grad (the batch, the rolled control) and one step
+    want = {**{k: 0 for k in twin_launches}, "ssd_scan": 3 * n * fwd, "ssd_scan_bwd": 3 * n}
+    say(f"  {twin_cfg.name} ({n} layers) launches on the card {twin_launches}, ssd_scan by path "
+        f"{twin_paths}")
+    assert twin_launches == want, (twin_launches, want)
+    assert twin_paths == {"ffma": 3 * n * fwd, "wgmma": 0, "bwd_ffma": 3 * n}, twin_paths
+    say(f"  phase 31 {time.perf_counter() - t0:.1f} s")
+    runs = {f"{MAMBA_ARCH} train steps": (mamba["pallas"]["launches"],
+                                          mamba["pallas"]["ssd_by_path"]),
+            f"{MAMBA_ARCH} ({n} layers) f32 twin (card)": (twin_launches, twin_paths)}
+    return worst, timings, runs, {"card": smi, MAMBA_ARCH: mamba, "f32 twin": twin,
+                                  "timings": timings}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4476,6 +4817,10 @@ def main() -> int:
         f"{path}: " + ", ".join(f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(code, p, n)} B"
                                 for p, n in ((16, 32), (16, 128), (64, 32), (64, 64), (64, 128)))
         for path, code in ssd_ops.PATHS.items()))
+    say("  ssd_scan backward dynamic shared memory a block (states, dchunk): " + ", ".join(
+        f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_bwd_smem_bytes(0, p, n)}, "
+        f"{ssd_ops.library().repro_ssd_scan_bwd_smem_bytes(1, p, n)} B"
+        for p, n in ((16, 32), (16, 128), (64, 32), (64, 128))))
     say("  flash_decode_int8 a block: " + "; ".join(
         f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B dynamic "
         f"shared memory, clusters that fit at once by size {decode_ops.cluster_fit(0, g, d)}"
@@ -4712,6 +5057,10 @@ def main() -> int:
     bwd_errs, bwd_rows, bwd_runs, flash_train_row = run_flash_train_phase(
         torch, fa_ops, fa_ref, counters, smi)
     say(json.dumps({"train through flash": flash_train_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    ssd_bwd_errs, ssd_bwd_rows, ssd_bwd_runs, ssd_train_row = run_ssd_train_phase(
+        torch, ssd_ops, ssd_ref, counters, smi)
+    say(json.dumps({"train through ssd_scan": ssd_train_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -4827,11 +5176,31 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    ssd_train = {f"{k} (phase 31)": (counts, paths) for k, (counts, paths) in ssd_bwd_runs.items()}
     kernels[-2].update({
+        "launches": mamba_launches["ssd_scan"] + sum(c["ssd_scan"] for c, _ in ssd_train.values()),
+        "launches_by_path": {MAMBA_ARCH: mamba_launches["ssd_scan"],
+                             **{k: c["ssd_scan"] for k, (c, _) in ssd_train.items()}},
         "path": scan_rows["ssd_scan"]["path"], "dtype": "bfloat16",
-        "launches_by_kernel_path": mamba_launches["ssd_scan_by_path"],
+        "launches_by_kernel_path": {p: mamba_launches["ssd_scan_by_path"][p]
+                                    + sum(paths[p] for _, paths in ssd_train.values())
+                                    for p in ssd_ops.PATHS},
         "max_abs_err_by_path": ssd_errs,
         "by_path": scan_rows["ssd_scan"]["by_path"],
+    })
+    ssd_bwd_row = ssd_bwd_rows["train bf16"]
+    kernels.insert(len(kernels) - 1, {
+        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": "src/repro/kernels/ssd_scan/ops.py:44",
+        "launches": sum(c["ssd_scan_bwd"] for c, _ in ssd_train.values()),
+        "launches_by_path": {k: c["ssd_scan_bwd"] for k, (c, _) in ssd_train.items()},
+        "launches_note": "backward calls of phase 31's training runs, three kernel launches "
+                         "each (states, dchunk, group_sum); 0 in phases 1-30",
+        "path": "ffma", "dtype": "bfloat16",
+        "max_abs_err": ssd_bwd_errs["bfloat16"]["max_abs_err"], "max_err_by_dtype": ssd_bwd_errs,
+        **{k: ssd_bwd_row[k] for k in bwd_keys},
+        **{k: ssd_bwd_row[k] for k in ("f32_ms", "f32_bound_ms", "f32_bound_by")},
+        f"{MAMBA_ARCH} serve shape": {k: ssd_bwd_rows["serve bf16"][k] for k in bwd_keys},
     })
     kernels.append({
         "name": "flash_decode_int8", "route": "cuda", "source": DECODE_SOURCE,
@@ -4847,8 +5216,7 @@ def main() -> int:
         "decode_32k": {k: decode_long[k] for k in (*timing_keys, "sdpa_dequantized_ms", "tb_per_s",
                                                    "host_ms", "splits", "shape", "max_abs_err")},
     })
-    served_by = {"ssd_scan": MAMBA_ARCH, "rglru_scan": RGEMMA_ARCH,
-                 "flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
+    served_by = {"rglru_scan": RGEMMA_ARCH, "flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
     for k in kernels:
         k.setdefault("launches_by_path", {served_by.get(k["name"]): k["launches"]})
         k["launches_by_path"]["hierarchical tree (phase 26, script process)"] = \

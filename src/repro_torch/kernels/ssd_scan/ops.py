@@ -25,12 +25,21 @@ exact.  It runs its own internal chunk: the chunk length does not change
 the function, only the order of its sums, so ``chunk`` sizes the plain
 version alone.
 
-``LAUNCHES`` counts kernel launches and ``PATH_LAUNCHES`` the same launches
-by path, so a run can show which path its scan went through.  The kernel is
-a forward: on the card it refuses inputs that need a gradient until its
-backward is written (ROADMAP queue 2 B2); training runs ``ssd_chunked``, as
-the reference's does.  ``ssd_decode_step`` is the one-token update of
-decode, plain torch as in the reference.
+Under grad (grad mode on and an input that requires it) a CUDA call goes
+through ``SSDScan``, whose forward is one launch of the kernel and whose
+backward launches the three kernels of ``csrc/ssd_scan_bwd.cu``
+(``ssd_bwd``: the state entering each chunk, the chunks walked last first,
+then dB, dC and da summed over heads and batch); on the CPU the route stays
+``ssd_chunked`` with torch's autograd.  A config with ``ssm_impl="pallas"``
+trains through the kernels; the reference's own default, ``"chunked"``,
+stays the default here too.
+
+``LAUNCHES["ssd_scan"]`` counts forward launches and ``PATH_LAUNCHES`` the
+same launches by path, so a run can show which path its scan went through.
+The backward has one path, ``ffma`` (f32 and bf16, P <= 64, N <= 128):
+``LAUNCHES["ssd_scan_bwd"]`` and ``PATH_LAUNCHES["bwd_ffma"]`` count its
+calls, ``BWD_LAUNCHES`` each of its three kernels.  ``ssd_decode_step`` is
+the one-token update of decode, plain torch as in the reference.
 """
 from __future__ import annotations
 
@@ -45,13 +54,16 @@ from repro_torch.kernels import vector_rows
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ssd_scan import ref
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_bwd.cu")
 
-#: kernel launches so far; callers reset it to 0 to count a run
-LAUNCHES = {"ssd_scan": 0}
-#: the same launches by path
-PATH_LAUNCHES = {"ffma": 0, "wgmma": 0}
-#: the kernel's paths: code of the C entry
+#: forward launches and backward calls so far; callers reset them to 0 to count a run
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
+#: the same by path: the forward's paths, and the backward's
+PATH_LAUNCHES = {"ffma": 0, "wgmma": 0, "bwd_ffma": 0}
+#: the backward's kernels, one launch each a backward call that needs them
+BWD_LAUNCHES = {"states": 0, "dchunk": 0, "group_sum": 0}
+#: the forward's paths: code of the C entry
 PATHS = {"ffma": 0, "wgmma": 1}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,7 +72,7 @@ _MAX_GRID_YZ = 65535
 _INT32_MAX = 2 ** 31 - 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_Strides = ctypes.c_longlong * 15
+_LL = ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.cache
@@ -68,12 +80,24 @@ def library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel's library."""
     lib = load_library("ssd_scan", SOURCES)
     lib.repro_ssd_scan.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _Strides, _P]
+                                   _LL, _P]
     lib.repro_ssd_scan.restype = _I
     lib.repro_ssd_scan_smem_bytes.argtypes = [_I, _I, _I]
     lib.repro_ssd_scan_smem_bytes.restype = _I
     lib.repro_ssd_scan_wgmma_tile.argtypes = [_I]
     lib.repro_ssd_scan_wgmma_tile.restype = _I
+    lib.repro_ssd_scan_bwd_states.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                              _LL, _P]
+    lib.repro_ssd_scan_bwd_dchunk.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                              _P, _I, _I, _I, _I, _I, _I, _LL, _P]
+    lib.repro_ssd_scan_bwd_group_sum.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                                 _P]
+    lib.repro_ssd_scan_bwd_smem_bytes.argtypes = [_I, _I, _I]
+    lib.repro_ssd_scan_bwd_chunk_rows.argtypes = []
+    for fn in (lib.repro_ssd_scan_bwd_states, lib.repro_ssd_scan_bwd_dchunk,
+               lib.repro_ssd_scan_bwd_group_sum, lib.repro_ssd_scan_bwd_smem_bytes,
+               lib.repro_ssd_scan_bwd_chunk_rows):
+        fn.restype = _I
     return lib
 
 
@@ -121,9 +145,25 @@ def _check(x, dt, a, b_mat, c_mat) -> None:
         raise ValueError("ssd_scan: the last dimension of x, B and C must be unit-stride")
     if l > _INT32_MAX or bsz > _MAX_GRID_YZ:
         raise ValueError(f"ssd_scan: shapes exceed the kernel's grid: {tuple(x.shape)}")
-    if any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)) and torch.is_grad_enabled():
-        raise NotImplementedError("ssd_scan: the kernel's backward is not ported yet "
-                                  "(ROADMAP queue 2 B2)")
+
+
+def _path(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor, path: Optional[str]) -> str:
+    chosen = choose_path(x, b_mat, c_mat)
+    if path is None:
+        return chosen
+    if path not in PATHS:
+        raise ValueError(f"ssd_scan: unknown path {path!r}, not one of {sorted(PATHS)}")
+    if path == "wgmma" and chosen != "wgmma":
+        raise ValueError("ssd_scan: the wgmma path takes bfloat16 with 16-byte rows (P, N and "
+                         "the batch, length and head or group strides multiples of 8) and N "
+                         "above 32")
+    return path
+
+
+def _strides(*tensors: torch.Tensor) -> ctypes.Array:
+    """(batch, length, head-or-group) strides of each tensor, in order, for a C entry."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
@@ -133,32 +173,117 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.
     ``path`` forces one of ``PATHS`` (every path computes the same function;
     tests hold each); it raises where that path does not take the operands."""
     _check(x, dt, a, b_mat, c_mat)
-    chosen = choose_path(x, b_mat, c_mat)
-    if path is None:
-        path = chosen
-    elif path not in PATHS:
-        raise ValueError(f"ssd_scan: unknown path {path!r}, not one of {sorted(PATHS)}")
-    elif path == "wgmma" and chosen != "wgmma":
-        raise ValueError("ssd_scan: the wgmma path takes bfloat16 with 16-byte rows (P, N and "
-                         "the batch, length and head or group strides multiples of 8) and N "
-                         "above 32")
+    path = _path(x, b_mat, c_mat, path)
     dt, a = dt.float(), a.float().contiguous()   # the kernel reads both in f32, as the reference does
     (bsz, l, h, p), (g, n) = x.shape, b_mat.shape[2:]
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if state.numel() == 0:
         return y, state
-    strides = _Strides(*(s for t in (x, dt, b_mat, c_mat, y) for s in t.stride()[:3]))
     with torch.cuda.device(x.device):
         err = library().repro_ssd_scan(
             PATHS[path], _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, l, h, p, g,
-            n, strides, torch.cuda.current_stream(x.device).cuda_stream)
+            n, _strides(x, dt, b_mat, c_mat, y), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan"] += 1
     PATH_LAUNCHES[path] += 1
     return y, state
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+            c_mat: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor] = None, *,
+            need_bc: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dx, ddt, da, dB, dC) of the scan for the cotangents ``dy`` of y (x's
+    shape and dtype, any strides with a unit-stride last dimension) and
+    ``dstate`` of the final state ((B, H, P, N), or None for 0): dx, dB and
+    dC in x's dtype, ddt and da in f32.  Three launches: the f32 state
+    entering each chunk, then the chunks walked last first (dx, ddt, and
+    each head's dB, dC and da), then dB and dC summed over each group's
+    heads and da over the batch (``need_bc``; without it dB, dC and da are
+    None and not launched).  CUDA tensors only: the plain version is
+    ``ref.ssd_bwd_ref``."""
+    _check(x, dt, a, b_mat, c_mat)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or dy.stride(-1) != 1:
+        raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} {dy.dtype} must be x's shape, dtype and "
+                         "device with a unit-stride last dimension")
+    (bsz, l, h, p), (g, n) = x.shape, b_mat.shape[2:]
+    if dstate is not None:
+        if dstate.shape != (bsz, h, p, n) or dstate.device != x.device:
+            raise ValueError(f"ssd_bwd: dstate {tuple(dstate.shape)} must be ({bsz}, {h}, {p}, "
+                             f"{n}) on {x.device}")
+        dstate = dstate.float().contiguous()
+    dt, a = dt.float(), a.float().contiguous()
+    dev = x.device
+    dx = torch.empty((bsz, l, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((bsz, l, h), dtype=torch.float32, device=dev)
+    db = torch.empty((bsz, l, g, n), dtype=x.dtype, device=dev) if need_bc else None
+    dc = torch.empty((bsz, l, g, n), dtype=x.dtype, device=dev) if need_bc else None
+    da = torch.zeros((h,), dtype=torch.float32, device=dev) if need_bc else None
+    if x.numel() == 0 or b_mat.numel() == 0:
+        return (dx.zero_(), ddt.zero_(), da, None if db is None else db.zero_(),
+                None if dc is None else dc.zero_())
+    lib, dtype = library(), _DTYPES[x.dtype]
+    rows = lib.repro_ssd_scan_bwd_chunk_rows()
+    states = torch.empty((bsz, h, -(-l // rows), p, n), dtype=torch.float32, device=dev)
+    dbp = torch.empty((bsz, l, h, n), dtype=torch.float32, device=dev)
+    dcp = torch.empty((bsz, l, h, n), dtype=torch.float32, device=dev)
+    da_part = torch.empty((bsz, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_ssd_scan_bwd_states(
+            dtype, x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), states.data_ptr(),
+            bsz, l, h, p, g, n, _strides(x, dt, b_mat), stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd states launch failed: CUDA error {err}")
+        BWD_LAUNCHES["states"] += 1
+        err = lib.repro_ssd_scan_bwd_dchunk(
+            dtype, x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            dy.data_ptr(), states.data_ptr(), None if dstate is None else dstate.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), da_part.data_ptr(),
+            bsz, l, h, p, g, n, _strides(x, dt, b_mat, c_mat, dy, dx), stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd dchunk launch failed: CUDA error {err}")
+        BWD_LAUNCHES["dchunk"] += 1
+        if need_bc:
+            err = lib.repro_ssd_scan_bwd_group_sum(
+                dtype, dbp.data_ptr(), dcp.data_ptr(), da_part.data_ptr(), db.data_ptr(),
+                dc.data_ptr(), da.data_ptr(), bsz, l, h, g, n, stream)
+            if err != 0:
+                raise RuntimeError(f"ssd_scan_bwd group_sum launch failed: CUDA error {err}")
+            BWD_LAUNCHES["group_sum"] += 1
+    LAUNCHES["ssd_scan_bwd"] += 1
+    PATH_LAUNCHES["bwd_ffma"] += 1
+    return dx, ddt, da, db, dc
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD kernel with its gradient (the reference's custom VJP,
+    ``repro/kernels/ssd_scan/ops.py:22-49``, whose backward is the vjp of
+    ``ssd_chunked``; here the kernels of ``ssd_bwd``).  The forward is one
+    launch and saves x, dt, a, B and C (dt and a in f32, cast outside so
+    that the gradients reach the caller's tensors); under remat it runs
+    again in the backward's recompute, and each run is a forward launch.
+    A cotangent autograd leaves out (the final state's, in training) is 0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, path):
+        ctx.set_materialize_grads(False)
+        y, state = ssd_kernel(x, dt, a, b_mat, c_mat, path)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b_mat, c_mat = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        elif dy.stride(-1) != 1:    # e.g. an expanded zero cotangent: the one copy of dY
+            dy = dy.contiguous()
+        need = ctx.needs_input_grad[:5]
+        grads = ssd_bwd(x, dt, a, b_mat, c_mat, dy, dstate, need_bc=any(need[2:]))
+        return (*(gr if nd else None for gr, nd in zip(grads, need)), None)
 
 
 def ssd(
@@ -175,7 +300,8 @@ def ssd(
     """SSD scan.  x (B,L,H,P), dt (B,L,H), a (H,), B/C (B,L,G,N).
 
     Returns (y (B,L,H,P), final_state (B,H,P,N)).  ``path`` forces one of
-    the kernel's ``PATHS`` on the card (``impl="pallas"``)."""
+    the kernel's ``PATHS`` on the card (``impl="pallas"``).  Under grad a
+    CUDA call goes through ``SSDScan``; otherwise it is one forward launch."""
     if impl == "sequential":
         return ref.ssd_sequential(x, dt, a, b_mat, c_mat)
     if impl == "chunked":
@@ -183,6 +309,10 @@ def ssd(
     if impl == "pallas":
         if all(t.device.type == "cpu" for t in (x, dt, a, b_mat, c_mat)):
             return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk=chunk)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)):
+            _check(x, dt, a, b_mat, c_mat)
+            return SSDScan.apply(x, dt.float(), a.float(), b_mat, c_mat,
+                                 _path(x, b_mat, c_mat, path))
         return ssd_kernel(x, dt, a, b_mat, c_mat, path)
     raise ValueError(f"unknown ssd impl: {impl}")
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
 ``gmm``/``tgmm``, ``flash_attention`` and its backward,
-``flash_decode_int8``, ``ssd_scan`` and ``rglru_scan``.
+``flash_decode_int8``, ``ssd_scan`` and its backward, and ``rglru_scan``.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import neither JAX nor the reference package, so they
@@ -753,8 +753,141 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
         ssd_ops.ssd(big, dt[:, :, :1], a[:1], bm[:, :, :1], cm[:, :, :1], impl="pallas")
     with pytest.raises(ValueError):
         ssd_ops.ssd(x[..., ::2], dt, a, bm, cm, impl="pallas")       # P not unit-stride
-    with pytest.raises(NotImplementedError, match="queue 2 B2"):
-        ssd_ops.ssd(x.requires_grad_(), dt, a, bm, cm, impl="pallas")   # no backward yet
+    # under grad a CUDA input gets its gradients from the backward kernels,
+    # and the wrapper still refuses what the kernels do not take
+    xg = x.clone().requires_grad_()
+    y, _ = ssd_ops.ssd(xg, dt, a, bm, cm, impl="pallas")
+    (dx,) = torch.autograd.grad(y.sum(), xg)
+    assert dx.shape == x.shape and dx.dtype == x.dtype and torch.isfinite(dx).all()
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(xg.half(), dt, a, bm.half(), cm.half(), impl="pallas")
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xg[:, :, :3], dt[:, :, :3], a[:3], bm, cm, impl="pallas")   # G does not divide H
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 1, 72), device=card, requires_grad=True)
+        ssd_ops.ssd(big, dt[:, :, :1], a[:1], bm[:, :, :1], cm[:, :, :1], impl="pallas")
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(xg[..., ::2], dt, a, bm, cm, impl="pallas")      # P not unit-stride
+
+
+# the backward: the sweep, G > 1 with a ragged L, a length shorter than the
+# chunk with P and N off the buckets, served widths, and G = 2 at served
+# widths under a strong decay
+SSD_BWD_CASES = [
+    ((1, 64, 2, 8, 1, 8), False),
+    ((2, 45, 4, 8, 2, 16), False),
+    ((1, 7, 2, 24, 1, 40), False),
+    ((2, 100, 8, 64, 1, 128), False),
+    ((2, 70, 4, 64, 2, 128), True),
+]
+
+
+def _ssd_grads_plain(args, dy, ds):
+    """The plain backward (autograd through ``ssd_chunked``): in f64 for f32
+    inputs (the f32 plain version at served widths misses f64 by more than
+    1e-4 itself), in f32 for bf16 inputs."""
+    work = torch.float64 if args[0].dtype == torch.float32 else torch.float32
+    return ssd_ref.ssd_bwd_ref(*(t.to(work) for t in args), dy.to(work),
+                               None if ds is None else ds.to(work), chunk=64)
+
+
+def _ssd_grad_ok(got, want, dtype):
+    """f32: allclose 1e-4 (tests/test_kernels.py:56); bf16: relative norm 2e-2."""
+    if dtype == "float32":
+        return torch.allclose(got.double(), want, rtol=1e-4, atol=1e-4)
+    return _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,strong", SSD_BWD_CASES)
+def test_ssd_backward_matches_plain_version(card, case, strong, dtype, with_state):
+    """dx, ddt, da, dB, dC of the three backward kernels against the plain
+    backward; B and C rolled one step along L together fail every limit (each
+    gradient is linear in the inputs other than its own: dB does not see B)."""
+    b, l, h, p, g, n = case
+    args = _ssd_inputs(case, card, getattr(torch, dtype), strong=strong)
+    gen = torch.Generator().manual_seed(11)
+    dy = torch.randn((b, l, h, p), generator=gen).to(card, args[0].dtype)
+    ds = torch.randn((b, h, p, n), generator=gen).to(card) if with_state else None
+    before, kernels = dict(ssd_ops.LAUNCHES), dict(ssd_ops.BWD_LAUNCHES)
+    got = ssd_ops.ssd_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {**before, "ssd_scan_bwd": before["ssd_scan_bwd"] + 1}
+    assert ssd_ops.BWD_LAUNCHES == {key: v + 1 for key, v in kernels.items()}
+    for gr, t in zip(got, args):
+        assert gr.dtype == t.dtype and gr.shape == t.shape and torch.isfinite(gr.float()).all()
+    want = _ssd_grads_plain(args, dy, ds)
+    assert all(_ssd_grad_ok(gr, w, dtype) for gr, w in zip(got, want)), \
+        [float((gr.double() - w.double()).abs().max()) for gr, w in zip(got, want)]
+    rolled = ssd_ops.ssd_bwd(*args[:3], args[3].roll(1, dims=1), args[4].roll(1, dims=1), dy, ds)
+    assert not any(_ssd_grad_ok(gr, w, dtype) for gr, w in zip(rolled, want))
+
+
+def test_ssd_backward_reads_strided_layouts_in_place(card):
+    """x, B and C as slices of one fused projection, dt and dY as slices of
+    wider tensors: the backward follows the strides and gives the contiguous
+    inputs' gradients exactly."""
+    b, l, h, p, g, n = 2, 70, 4, 16, 2, 16
+    args = _ssd_inputs((b, l, h, p, g, n), card, torch.float32)
+    x, dt, a, bm, cm = args
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(13)).to(card)
+    xv, bv, cv = _fused_projection(x, bm, cm, extra=8)
+    dtv = torch.cat([dt, torch.zeros((b, l, 3), device=card)], dim=-1)[..., :h]
+    dyv = torch.cat([dy.flatten(2), torch.zeros((b, l, 8), device=card)], dim=-1)[..., :h * p]
+    dyv = dyv.unflatten(2, (h, p))
+    assert not any(t.is_contiguous() for t in (xv, dtv, bv, cv, dyv))
+    want = ssd_ops.ssd_bwd(*args, dy)
+    got = ssd_ops.ssd_bwd(xv, dtv, a, bv, cv, dyv)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+def test_ssd_counts_with_and_without_grad(card):
+    """Without grad one forward launch; with grad the Function's forward (its
+    outputs the plain launch's bit for bit) and one backward call of three
+    launches; a cotangent of the final state alone; x alone needing a
+    gradient skips the group sum."""
+    args = _ssd_inputs((2, 200, 4, 32, 1, 64), card, torch.bfloat16)
+    x, dt, a, bm, cm = args
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(12)).to(card, x.dtype)
+    counters = (ssd_ops.LAUNCHES, ssd_ops.PATH_LAUNCHES, ssd_ops.BWD_LAUNCHES)
+
+    def counted(fn):
+        for c in counters:
+            c.update({key: 0 for key in c})
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(dict(c) for c in counters)
+
+    plain, counts = counted(lambda: ssd_ops.ssd(*args, impl="pallas"))
+    assert counts == ({"ssd_scan": 1, "ssd_scan_bwd": 0}, {"ffma": 0, "wgmma": 1, "bwd_ffma": 0},
+                      {"states": 0, "dchunk": 0, "group_sum": 0})
+    leaves = [t.clone().requires_grad_() for t in args]
+    with torch.no_grad():
+        _, counts = counted(lambda: ssd_ops.ssd(*leaves, impl="pallas"))
+    assert counts[0] == {"ssd_scan": 1, "ssd_scan_bwd": 0}
+
+    def step():
+        y, s = ssd_ops.ssd(*leaves, impl="pallas")
+        return (y, s), torch.autograd.grad(y, leaves, dy)
+
+    ((y, s), grads), counts = counted(step)
+    assert torch.equal(y, plain[0]) and torch.equal(s, plain[1])
+    assert counts == ({"ssd_scan": 1, "ssd_scan_bwd": 1}, {"ffma": 0, "wgmma": 1, "bwd_ffma": 1},
+                      {"states": 1, "dchunk": 1, "group_sum": 1})
+    want = _ssd_grads_plain(args, dy, None)
+    assert all(_ssd_grad_ok(gr, w, "bfloat16") for gr, w in zip(grads, want))
+    ds = torch.ones((2, 4, 32, 64), device=card)
+    grads = torch.autograd.grad(ssd_ops.ssd(*leaves, impl="pallas")[1], leaves, ds)
+    want = _ssd_grads_plain(args, torch.zeros_like(dy), ds)
+    assert not grads[4].any()           # C reaches the final state through no product
+    assert all(_ssd_grad_ok(gr, w, "bfloat16") for gr, w in zip(grads[:4], want[:4]))
+    xg = x.clone().requires_grad_()
+    (dx,), counts = counted(
+        lambda: torch.autograd.grad(ssd_ops.ssd(xg, dt, a, bm, cm, impl="pallas")[0], xg, dy))
+    assert counts[2] == {"states": 1, "dchunk": 1, "group_sum": 0}
+    assert _ssd_grad_ok(dx, _ssd_grads_plain(args, dy, None)[0], "bfloat16")
 
 
 def _fused_projection(x, bm, cm, extra=0):

@@ -7,8 +7,15 @@ interpreted on the CPU) on the reference's sweep (tests/test_kernels.py),
 the plain versions with an initial state and a ragged tail, the decode step
 chained over a sequence, and ``mamba2_forward``/``mamba2_decode`` on bridged
 parameters.  Tolerances are the reference's: f32 2e-5, bf16 2e-2.  The
-kernel is held against the plain version on the card by
-tests/test_torch_kernels_cuda.py and chip_smoke.py."""
+backward's two plain versions, ``ref.ssd_bwd_ref`` (autograd through
+``ssd_chunked``) and ``ref.ssd_bwd_chunked`` (written out, in the backward
+kernels' loop structure), are held against ``jax.vjp`` of the reference's
+Pallas route (its custom VJP) and of its ``ssd_chunked``: f32 1e-4 (the
+reference's grads tolerance), bf16 2e-2.  The kernels are held against the
+plain versions on the card by tests/test_torch_kernels_cuda.py and
+chip_smoke.py."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,9 +124,59 @@ def test_wrapper_refuses_tensors_off_the_cpu_and_the_card():
     bc = torch.empty((1, 8, 1, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.ssd(x, dt, a, bc, bc, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA tensors"):      # under grad too
+        ops.ssd(x.requires_grad_(), dt, a, bc, bc, impl="pallas")
     with pytest.raises(ValueError, match="unknown ssd impl"):
         ops.ssd(x, dt, a, bc, bc, impl="scan")
-    assert set(ops.LAUNCHES) == {"ssd_scan"}
+    assert set(ops.LAUNCHES) == {"ssd_scan", "ssd_scan_bwd"}
+
+
+# ---------------------------------------------------------------- the backward
+
+# the sweep, and G = 2 with L = 45 against a chunk of 16 (a ragged tail)
+GRAD_CASES = SWEEP + [(2, 45, 4, 8, 2, 16, 16)]
+GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("reference", ["pallas", "ssd_chunked"])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", GRAD_CASES)
+def test_grads_match_reference_vjp(b, l, h, p, g, n, chunk, reference, with_state, dtype):
+    """dx, ddt, da, dB, dC of both plain backwards against ``jax.vjp`` of the
+    reference's ``ssd(impl="pallas")`` (its Pallas forward interpreted and
+    its custom VJP) or of its ``ssd_chunked``, for a cotangent of y and, with
+    ``with_state``, of the final state (else 0 there, None here)."""
+    jx, tx = _both(_inputs(b, l, h, p, g, n, seed=4), dtype)
+    rng = np.random.default_rng(5)
+    dy = rng.normal(size=(b, l, h, p)).astype(np.float32)
+    ds = rng.normal(size=(b, h, p, n)).astype(np.float32) * with_state
+    if reference == "pallas":
+        fn = functools.partial(ref_ops.ssd, chunk=chunk, impl="pallas", interpret=True)
+    else:
+        fn = functools.partial(ref_ref.ssd_chunked, chunk=chunk)
+    _, vjp = jax.vjp(fn, *jx)
+    want = vjp((jnp.asarray(dy, jx[0].dtype), jnp.asarray(ds)))
+    tdy, tds = torch.from_numpy(dy).to(tx[0].dtype), torch.from_numpy(ds) if with_state else None
+    for how, got in (("ssd_bwd_ref", ref.ssd_bwd_ref(*tx, tdy, tds, chunk=chunk)),
+                     ("ssd_bwd_chunked", ref.ssd_bwd_chunked(*tx, tdy, tds))):
+        for name, gr, t, w in zip(("dx", "ddt", "da", "dB", "dC"), got, tx, want):
+            assert gr.dtype == t.dtype and gr.shape == t.shape, (how, name)
+            np.testing.assert_allclose(gr.float().numpy(), np.asarray(w, np.float32),
+                                       **GRAD_TOL[dtype], err_msg=f"{how} {name}")
+
+
+def test_the_chunked_backward_does_not_depend_on_its_chunk():
+    """``ssd_bwd_chunked`` at the kernels' 32 rows, at 8 and at one chunk
+    over the whole length compute one gradient (the chunk orders the sums)."""
+    _, tx = _both(_inputs(2, 45, 4, 8, 2, 16, seed=6), "float32")
+    rng = np.random.default_rng(7)
+    dy = torch.from_numpy(rng.normal(size=(2, 45, 4, 8)).astype(np.float32))
+    ds = torch.from_numpy(rng.normal(size=(2, 4, 8, 16)).astype(np.float32))
+    want = ref.ssd_bwd_chunked(*tx, dy, ds)
+    for chunk in (8, 45):
+        for w, gr in zip(want, ref.ssd_bwd_chunked(*tx, dy, ds, chunk=chunk)):
+            np.testing.assert_allclose(gr.numpy(), w.numpy(), **GRAD_TOL["float32"])
 
 
 # ---------------------------------------------------------------- the mixer

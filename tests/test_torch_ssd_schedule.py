@@ -251,4 +251,6 @@ def test_the_cpu_takes_the_plain_version_on_every_path():
         for g_, w_ in zip(got, want):
             torch.testing.assert_close(g_, w_, rtol=0, atol=0)
     assert (ops.LAUNCHES["ssd_scan"], ops.PATH_LAUNCHES) == before
-    assert set(ops.PATH_LAUNCHES) == set(ops.PATHS) == {"ffma", "wgmma"}
+    # the forward's paths, and the backward's one
+    assert set(ops.PATH_LAUNCHES) == set(ops.PATHS) | {"bwd_ffma"}
+    assert set(ops.PATHS) == {"ffma", "wgmma"}

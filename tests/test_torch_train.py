@@ -153,6 +153,19 @@ def test_loss_and_grads_under_the_flash_route_match_the_reference(family):
     _assert_trees_close(got, want, GRAD, f"{family}, pallas")
 
 
+@pytest.mark.parametrize("positions", [SEQ, PALLAS_POSITIONS])
+def test_loss_and_grads_under_the_ssd_route_match_the_reference(positions):
+    """``ssm_impl="pallas"``: mamba2's scan through the reference's custom
+    VJP (its Pallas forward interpreted, the vjp of ``ssd_chunked``) and
+    through the port's CPU route (``ssd_chunked`` with torch's autograd)."""
+    ref_cfg, cfg = _cfgs(FAMILIES["ssm"], ssm_impl="pallas")
+    host, batch = _host_params(ref_cfg), _batch(cfg, seq=positions)
+    want_loss, _, want = _ref_value_and_grad(ref_cfg, host, batch)
+    got_loss, _, got = _port_value_and_grad(cfg, host, batch)
+    np.testing.assert_allclose(got_loss, want_loss, **LOSS)
+    _assert_trees_close(got, want, GRAD, f"ssm, pallas, {positions} positions")
+
+
 def test_a_vlm_without_its_prefix_gets_zero_vis_proj_grads():
     """jax.grad gives zeros for a leaf the loss does not reach; so must the port."""
     ref_cfg, cfg = _cfgs("internvl2-26b")
