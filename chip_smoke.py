@@ -382,16 +382,45 @@ Phases (any failure exits non-zero before the last line is printed):
              earlier phase launches ``ssd_scan_bwd`` (``run_serve`` and
              phase 29 (d) assert it, ``ssd_ops.BWD_LAUNCHES`` is 0 when the
              phase starts).
+32. train through rglru_scan — the backward of ``rglru_scan``
+             (``csrc/rglru_scan_bwd.cu``: one launch, h recomputed in f32,
+             then one reverse scan) and training on it and flash under
+             ``rglru_impl="pallas"``, ``attn_impl="pallas"``: (a) on every
+             RGLRU_CASES case in f32 and bf16, with and without a cotangent
+             of the final state, dlog_a and db against ``rglru_bwd`` (f32
+             allclose 1e-4 against it run in f64, the serve shape too;
+             bf16 relative norms 2e-2 against it in f32), log_a
+             and b rolled one step together failing every limit; (b) the
+             backward timed at recurrentgemma-9b's training shape (8 x 128 x
+             4096) and its serve shape, f32, beside the plain version
+             (autograd through ``rglru_associative``) and the bound, and the
+             flash backward at its training shape (MQA, D = 256); (c)
+             recurrentgemma-9b at full width cut to 5 of its 38 layers (its
+             two groups once each; bf16 parameters, AdamW), 4 steps on the
+             plain routes and 4 on the kernel routes from the same
+             parameters and batch: 8 ``rglru_scan`` and 2 flash forward
+             launches a step (layers and remat recomputes), 4 and 1 backward
+             calls, finite and falling losses, the first within 2e-2 of the
+             plain routes', the first and last RG-LRU layers' backward on
+             their captured inputs (relative norms 1e-4 against f64, log_a
+             and b rolled outside it), each route's walls, launches, busy
+             share and peak; (d) its (rglru, rglru) group in f32 at full
+             width, one step card (kernels) against CPU (plain versions):
+             loss 1e-5, gradients 1e-4, tokens
+             rolled outside it.  Every other kernel reads 0 launches; no
+             earlier phase launches ``rglru_scan_bwd``.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
-those of phases 7, 14, 18, 21, 27, 28 and 30 (and how many were bidirectional),
-``flash_attention_bwd`` with phase 30's calls, worst errors by dtype and its
+those of phases 7, 14, 18, 21, 27, 28, 30 and 32 (and how many were bidirectional),
+``flash_attention_bwd`` with phases 30 and 32's calls, worst errors by dtype and its
 times at the six shapes, ``ssd_scan`` with those of phases 12 and 31,
 ``ssd_scan_bwd`` with phase 31's calls, worst errors by dtype and its times
 at the training and serve shapes,
-``rglru_scan`` with those of phase 14, ``flash_decode_int8`` with those of
+``rglru_scan`` with those of phases 14 and 32, ``rglru_scan_bwd`` with phase
+32's calls, worst errors by dtype and its times at the training and serve
+shapes, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
 ``launches_by_path`` also holds its launches in phase 26, 0),
@@ -3823,7 +3852,8 @@ def run_train_twin(torch, device, attn_impl="chunked", cfg=None):
     Phase 30 runs it on the flash route (``attn_impl="pallas"``): the card's
     attention on the ffma forward and the backward's kernels, the CPU's on
     their plain versions; phase 31 runs ``cfg`` (mamba2-1.3b cut to 2
-    layers, ``ssm_impl="pallas"``) so."""
+    layers, ``ssm_impl="pallas"``) so, and phase 32 recurrentgemma-9b's
+    (rglru, rglru) group (``rglru_impl="pallas"``)."""
     from repro_torch.launch.train import train_config
     from repro_torch.models.registry import make_train_step, model_fns, value_and_grad
     from repro_torch.tree import tree_map
@@ -3851,7 +3881,7 @@ def run_train_twin(torch, device, attn_impl="chunked", cfg=None):
     gap, control = grads_gap(torch, g_c, g_h), grads_gap(torch, g_r, g_h)
     rolled_gap = abs(float(loss_r) - float(loss_h)) / abs(float(loss_h))
     say(f"  {cfg.name} ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off, attention "
-        f"{cfg.attn_impl}, SSD scan {cfg.ssm_impl}), batch "
+        f"{cfg.attn_impl}, SSD scan {cfg.ssm_impl}, RG-LRU scan {cfg.rglru_impl}), batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss card {float(loss_c):.7f} CPU {float(loss_h):.7f} "
         f"(relative {loss_gap:.2e}, tol {TRAIN_TWIN_LOSS_REL_TOL:g}; the train step's "
         f"{step_gap:.2e}, grad_norm {float(m_c['grad_norm']):.6f} vs {float(m_h['grad_norm']):.6f}); "
@@ -4470,7 +4500,7 @@ SSD_TRAIN_LOSS_REL_TOL = 2e-2   # the first step's loss, kernel route against ch
 SSD_TWIN_LAYERS = 2             # mamba2-1.3b cut to 2 layers for the f32 step, card against CPU
 
 
-def ssd_grads_close(torch, got, want, dtype, elementwise=True):
+def grads_close(torch, got, want, dtype, elementwise=True):
     """(passes, errors) for each gradient: f32 max |got - want| / (tol + tol
     |want|) (allclose fails above 1), bf16 and f32 not ``elementwise``
     relative norms."""
@@ -4525,22 +4555,22 @@ def check_ssd_bwd(torch, ssd_ops, ssd_ref):
                 work = torch.float64 if dtype == torch.float32 else torch.float32
                 want = ssd_bwd_plain(torch, ssd_ref, args, dy, ds, work)
                 elementwise = case != SSD_SERVE_SHAPE
-                ok, errs = ssd_grads_close(torch, got, want, dtype, elementwise)
+                ok, errs = grads_close(torch, got, want, dtype, elementwise)
                 abs_err = max(float((g_.double() - w.double()).abs().max())
                               for g_, w in zip(got, want))
                 rolled = ssd_ops.ssd_bwd(*roll_bc(args), dy, ds)
-                ctl_ok, ctl = ssd_grads_close(torch, rolled, want, dtype, elementwise)
+                ctl_ok, ctl = grads_close(torch, rolled, want, dtype, elementwise)
                 how = "rel" if dtype == torch.bfloat16 or not elementwise else "of tol"
                 extra = ""
                 if dtype == torch.float32:   # how far the f32 plain version is from f64
-                    _, plain = ssd_grads_close(
+                    _, plain = grads_close(
                         torch, ssd_bwd_plain(torch, ssd_ref, args, dy, ds, torch.float32), want,
                         dtype)
                     extra = f"; the f32 plain version {' '.join(f'{e:.2f}' for e in plain)} of tol"
                     row = worst.setdefault(name_dt, {"plain_f32_over_tol": 0.0})
                     row["plain_f32_over_tol"] = max(row["plain_f32_over_tol"], max(plain))
                     if not elementwise:
-                        _, over = ssd_grads_close(torch, got, want, dtype)
+                        _, over = grads_close(torch, got, want, dtype)
                         extra += f"; elementwise {' '.join(f'{e:.2f}' for e in over)} of tol"
                         row["serve_shape_elementwise_over_tol"] = max(over)
                 say(f"  {name_dt:>8} {name:<28} {str(case):<28} "
@@ -4614,10 +4644,12 @@ def time_ssd_bwd(torch, ssd_ops, ssd_ref, shape, f32=False):
 
 
 @contextlib.contextmanager
-def capture_ssd_bwd_calls(ssd_ops, caps, keep):
-    """Record the inputs of the backward calls whose index is in ``keep``
-    (clones: x, dt, a, B, C, dY, dstate)."""
-    real, n = ssd_ops.ssd_bwd, [0]
+def capture_calls(module, name, caps, keep):
+    """Record the tensor arguments of the calls of ``module.name`` whose
+    index is in ``keep`` (clones; None stays None): phase 31's ``ssd_bwd``
+    (x, dt, a, B, C, dY, dstate), phase 32's ``rglru_bwd`` (log_a, b, dy,
+    dh_final)."""
+    real, n = getattr(module, name), [0]
 
     def spy(*args, **kw):
         if n[0] in keep:
@@ -4625,7 +4657,7 @@ def capture_ssd_bwd_calls(ssd_ops, caps, keep):
         n[0] += 1
         return real(*args, **kw)
 
-    with mock.patch.object(ssd_ops, "ssd_bwd", spy):
+    with mock.patch.object(module, name, spy):
         yield
 
 
@@ -4650,7 +4682,7 @@ def run_ssd_mamba_train(torch, ssd_ops, ssd_ref, counters, device):
         torch.cuda.reset_peak_memory_stats()
         zero_launches((*counters, ssd_ops.PATH_LAUNCHES, ssd_ops.BWD_LAUNCHES))
         losses, walls = [], []
-        with capture_ssd_bwd_calls(ssd_ops, caps, (0, n - 1) if impl == "pallas" else ()):
+        with capture_calls(ssd_ops, "ssd_bwd", caps, (0, n - 1) if impl == "pallas" else ()):
             for _ in range(SSD_TRAIN_STEPS):
                 t0 = time.perf_counter()
                 params, state, metrics = step(params, state, batch)
@@ -4689,8 +4721,8 @@ def run_ssd_mamba_train(torch, ssd_ops, ssd_ref, counters, device):
         args, (dy, ds) = caps[i][:5], caps[i][5:]
         got = ssd_ops.ssd_bwd(*args, dy, ds)
         want32 = ssd_bwd_plain(torch, ssd_ref, args, dy, ds, torch.float32)
-        ok, errs = ssd_grads_close(torch, got, want32, args[0].dtype)
-        ctl_ok, ctl = ssd_grads_close(torch, ssd_ops.ssd_bwd(*roll_bc(args), dy, ds), want32,
+        ok, errs = grads_close(torch, got, want32, args[0].dtype)
+        ctl_ok, ctl = grads_close(torch, ssd_ops.ssd_bwd(*roll_bc(args), dy, ds), want32,
                                       args[0].dtype)
         say(f"  layer {layer}'s backward on its captured inputs {tuple(args[0].shape)} "
             f"{args[0].dtype}: {'/'.join(SSD_GRADS)} relative {' '.join(f'{e:.2e}' for e in errs)} "
@@ -4754,6 +4786,278 @@ def run_ssd_train_phase(torch, ssd_ops, ssd_ref, counters, smi, device="cuda"):
             f"{MAMBA_ARCH} ({n} layers) f32 twin (card)": (twin_launches, twin_paths)}
     return worst, timings, runs, {"card": smi, MAMBA_ARCH: mamba, "f32 twin": twin,
                                   "timings": timings}
+
+
+# ---------------------------------------------------------------- phase 32
+
+RGLRU_BWD_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu"
+# dlog_a and db against the plain backward (ref.rglru_bwd): f32 allclose 1e-4
+# (tests/test_kernels.py:56) against it run in f64, the serve shape too; bf16
+# relative norms 2e-2 against it in f32 on the same bf16 inputs.  grads_close
+# reads SSD_BWD_TOLS, the same limits.
+RGLRU_GRADS = ("dlog_a", "db")
+# recurrentgemma-9b's scan and attention in a train step of batch 8 x 128
+RGLRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 4096)
+RG_TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 1, 256, True, 2048)
+RG_TRAIN_STEPS = 4
+RG_TRAIN_LOSS_REL_TOL = 2e-2    # the first step's loss, kernel routes against plain (bf16)
+
+
+def lru_cotangents(torch, case, dtype, with_state, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300)
+    dy = torch.randn(case, generator=gen, device="cuda").to(dtype)
+    dh = torch.randn((case[0], case[2]), generator=gen, device="cuda") if with_state else None
+    return dy, dh
+
+
+def roll_lru(args):
+    """log_a and b rolled one step along L together (db does not see b)."""
+    return tuple(t.roll(1, dims=1) for t in args)
+
+
+def lru_bwd_plain(lru_ref, args, dy, dh, work):
+    """The plain backward, run in ``work``."""
+    return lru_ref.rglru_bwd(*(t.to(work) for t in args), dy.to(work),
+                             None if dh is None else dh.to(work))
+
+
+def check_lru_bwd(torch, lru_ops, lru_ref):
+    """(a): dlog_a and db of the backward kernel against the plain backward
+    on every RGLRU_CASES case in f32 and bf16, with and without a cotangent
+    of the final state; log_a and b rolled by one step must fail every
+    limit.  Returns the largest errors by dtype."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for name, case in RGLRU_CASES:
+            args = rglru_inputs(torch, case, dtype)
+            for with_state in (False, True):
+                dy, dh = lru_cotangents(torch, case, dtype, with_state)
+                before = dict(lru_ops.BWD_LAUNCHES)
+                got = lru_ops.rglru_bwd(*args, dy, dh)
+                torch.cuda.synchronize()
+                assert lru_ops.BWD_LAUNCHES == {k: v + 1 for k, v in before.items()}, name
+                for g_, t in zip(got, args):
+                    assert g_.dtype == t.dtype and g_.shape == t.shape, name
+                    assert torch.isfinite(g_.float()).all(), (name, name_dt)
+                work = torch.float64 if dtype == torch.float32 else torch.float32
+                want = lru_bwd_plain(lru_ref, args, dy, dh, work)
+                ok, errs = grads_close(torch, got, want, dtype)
+                abs_err = max(float((g_.double() - w.double()).abs().max())
+                              for g_, w in zip(got, want))
+                rolled = lru_ops.rglru_bwd(*roll_lru(args), dy, dh)
+                ctl_ok, ctl = grads_close(torch, rolled, want, dtype)
+                how = "rel" if dtype == torch.bfloat16 else "of tol"
+                say(f"  {name_dt:>8} {name:<32} {str(case):<18} "
+                    f"{'dh_final' if with_state else '        '} {'/'.join(RGLRU_GRADS)} "
+                    f"{' '.join(f'{e:.2e}' for e in errs)} ({how}; max|err| {abs_err:.2e}); "
+                    f"log_a, b rolled {' '.join(f'{e:.2e}' for e in ctl)}")
+                assert all(ok), (name, name_dt, with_state, errs)
+                assert not any(ctl_ok), (name, name_dt, with_state, ctl)
+                row = worst.setdefault(name_dt, {})
+                row["grads"] = max(row.get("grads", 0.0), max(errs))
+                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
+                del dy, dh, got, want, rolled
+            del args
+            free_card(torch)
+    return worst
+
+
+def time_lru_bwd(torch, lru_ops, lru_ref, shape):
+    """(b): the backward at ``shape`` in f32 beside its plain version
+    (torch.autograd.grad through ``rglru_associative``, forward included)
+    and its bound: log_a, b and dy read and dlog_a and db written at 3.35
+    TB/s against 6 flops an element (h's update, dh's, dlog_a's, the carry)
+    at the f32 FFMA rate.  No single PyTorch call computes it: no library
+    time."""
+    log_a, b = rglru_inputs(torch, shape, torch.float32, seed=6)
+    dy, _ = lru_cotangents(torch, shape, torch.float32, False, seed=6)
+
+    def plain():
+        la, bb = log_a.detach().requires_grad_(), b.detach().requires_grad_()
+        return torch.autograd.grad(lru_ref.rglru_associative(la, bb)[0], (la, bb), dy)
+
+    row = {"ms": median_ms(torch, lambda: lru_ops.rglru_bwd(log_a, b, dy)),
+           "plain_ms": median_ms(torch, plain, reps=5, warm=1), "library_ms": None}
+    n = log_a.numel()
+    io_bytes, flops = 4 * 5 * n, 6 * n
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               io_mb=io_bytes / 1e6, tb_per_s=io_bytes / row["ms"] / 1e9, shape=list(shape))
+    say(f"  rglru_scan_bwd {shape}, f32: {row['ms']:.4f} ms ({row['tb_per_s']:.2f} TB/s of the "
+        f"{io_bytes / 1e6:.1f} MB it must move); plain {row['plain_ms']:.4f} ms; library null (no "
+        f"single PyTorch call); bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+        f"{io_bytes / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s of f32 "
+        f"FFMA); kernel / bound {row['ms'] / row['bound_ms']:.2f}")
+    del log_a, b, dy
+    free_card(torch)
+    return row
+
+
+def rg_train_config():
+    """recurrentgemma-9b at full width cut to its two groups once each:
+    (rglru, rglru, local attention) + (rglru, rglru), 5 of its 38 layers."""
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(RGEMMA_ARCH)
+    groups = tuple(LayerGroup(g.pattern, 1) for g in cfg.groups)
+    return cfg.replace(n_layers=sum(g.n_layers for g in groups), groups=groups)
+
+
+def rg_twin_config():
+    """recurrentgemma-9b's (rglru, rglru) group once at full width, f32
+    parameters, on the kernel route."""
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(RGEMMA_ARCH)
+    return cfg.replace(n_layers=2, groups=(LayerGroup(cfg.groups[-1].pattern, 1),),
+                       param_dtype="float32", rglru_impl="pallas")
+
+
+def lru_layers(cfg):
+    return sum(g.repeat for g in cfg.groups for spec in g.pattern if spec.mixer == "rglru")
+
+
+def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
+    """(c) recurrentgemma-9b at full width, cut to 5 layers: RG_TRAIN_STEPS
+    train steps on the plain routes and on the kernel routes from the same
+    parameters and batch; the kernel routes' launches counted; the first and
+    last RG-LRU layers' captured backward inputs held against the plain
+    backward."""
+    from repro_torch.models.registry import make_train_step
+
+    cfg = rg_train_config()
+    n_lru = lru_layers(cfg)
+    n_attn = cfg.total_layers - n_lru
+    say(f"  {RGEMMA_ARCH} at full width cut to {cfg.total_layers} of its 38 layers (its two "
+        f"groups once each: {n_lru} RG-LRU, {n_attn} local attention; {cfg.param_count() / 1e9:.2f} "
+        f"B parameters, {cfg.param_dtype}; {cfg.compute_dtype} compute, remat {cfg.remat}, "
+        f"{cfg.optimizer} clip {cfg.grad_clip:g}), batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    params0 = params_init(torch, cfg, device)
+    batch = train_batch(torch, cfg, device)
+    rows, caps = {}, {}
+    routes = {"plain": dict(attn_impl="chunked", rglru_impl="associative"),
+              "kernels": dict(attn_impl="pallas", rglru_impl="pallas")}
+    for label, over in routes.items():
+        t_route = time.perf_counter()
+        step, opt = make_train_step(cfg.replace(**over))
+        params, state = params0, opt.init(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES, lru_ops.BWD_LAUNCHES))
+        losses, walls = [], []
+        keep = (0, n_lru - 1) if label == "kernels" else ()
+        with capture_calls(lru_ops, "rglru_bwd", caps, keep):
+            for _ in range(RG_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+        launches, paths, _ = counts_now(counters, fa_ops)
+        lru_kernels = dict(lru_ops.BWD_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile_call(torch, f"one {label} train step", lambda: step(params, state, batch),
+                            share_of=("rglru_bwd_kernel", "rglru_kernel", "flash_fwd", "flash_bwd"))
+        rows[label] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
+                       "flash_by_path": paths, "rglru_bwd_kernels": lru_kernels,
+                       **{f"step_{k}": v for k, v in prof.items()}}
+        say(f"  {label} ({over}): {RG_TRAIN_STEPS} steps, walls "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s (median "
+            f"{statistics.median(walls) * 1e3:.1f} ms), losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, peak allocated {peak:.2f} GB; launches "
+            f"{launches}, flash by path {paths}, RG-LRU backward kernel {lru_kernels}")
+        assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+        del params, state, step, opt
+        free_card(torch)
+        say(f"  the {label} routes' run, profile included: {time.perf_counter() - t_route:.1f} s")
+    want = {k: 0 for k in rows["kernels"]["launches"]}
+    assert rows["plain"]["launches"] == want, rows["plain"]["launches"]
+    s = RG_TRAIN_STEPS
+    want.update({"rglru_scan": 2 * n_lru * s, "rglru_scan_bwd": n_lru * s,   # forward, remat
+                 "flash_attention": 2 * n_attn * s, "flash_attention_bwd": n_attn * s})
+    assert rows["kernels"]["launches"] == want, (rows["kernels"]["launches"], want)
+    paths = rows["kernels"]["flash_by_path"]
+    assert paths["ffma"] + paths["wgmma"] == 2 * n_attn * s and paths["bwd_ffma"] == n_attn * s, paths
+    assert rows["kernels"]["rglru_bwd_kernels"] == {"reverse_scan": n_lru * s}
+    first = [rows[label]["losses"][0] for label in routes]
+    gap = abs(first[1] - first[0]) / abs(first[0])
+    say(f"  first step's loss: kernels {first[1]:.6f} against plain {first[0]:.6f} (relative "
+        f"{gap:.2e}, tol {RG_TRAIN_LOSS_REL_TOL:g})")
+    assert gap <= RG_TRAIN_LOSS_REL_TOL, gap
+    layers = {}
+    for i, layer in ((n_lru - 1, 0), (0, n_lru - 1)):   # the backward walks the layers last first
+        args, (dy, dh) = caps[i][:2], caps[i][2:]
+        got = lru_ops.rglru_bwd(*args, dy, dh)
+        want64 = lru_bwd_plain(lru_ref, args, dy, dh, torch.float64)
+        # relative norms: the gradients of a train step are far below an absolute 1e-4
+        ok, errs = grads_close(torch, got, want64, args[1].dtype, elementwise=False)
+        _, over = grads_close(torch, got, want64, args[1].dtype)
+        ctl_ok, ctl = grads_close(torch, lru_ops.rglru_bwd(*roll_lru(args), dy, dh), want64,
+                                  args[1].dtype, elementwise=False)
+        scale = max(float(w.abs().max()) for w in want64)
+        say(f"  RG-LRU layer {layer}'s backward on its captured inputs {tuple(args[1].shape)} "
+            f"{args[1].dtype}, dh_final {'none' if dh is None else 'given'}: "
+            f"{'/'.join(RGLRU_GRADS)} relative {' '.join(f'{e:.2e}' for e in errs)} (tol "
+            f"{SSD_BWD_TOLS['float32']:g}; elementwise {' '.join(f'{e:.2f}' for e in over)} of "
+            f"tol, largest |gradient| {scale:.2e}); log_a, b rolled: "
+            f"{' '.join(f'{e:.2e}' for e in ctl)}")
+        assert args[1].dtype == torch.float32 and all(ok), (layer, errs)
+        assert not any(ctl_ok), (layer, ctl)
+        layers[layer] = {"rel": errs, "elementwise_over_tol": over, "rolled": ctl}
+    rows["layers"] = layers
+    del caps, params0, batch
+    free_card(torch)
+    return rows
+
+
+def run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi, device="cuda"):
+    """Phase 32: train through rglru_scan.  (a) kernel gates, (b) timings, (c)
+    recurrentgemma-9b at full width cut to 5 layers on both routes, (d) its
+    f32 twin, card against CPU."""
+    free_card(torch)
+    say("PHASE 32 train through rglru_scan: the backward of rglru_scan (one kernel) against its "
+        "plain version, timed, and training on it and flash under rglru_impl=\"pallas\", "
+        "attn_impl=\"pallas\"")
+    say(f"  card: {smi}")
+    t0 = time.perf_counter()
+    # BWD_LAUNCHES is never reset before this phase: no earlier phase launched the backward
+    assert not any(lru_ops.BWD_LAUNCHES.values()), lru_ops.BWD_LAUNCHES
+    zero_launches(counters)
+    say("  (a) dlog_a and db against the plain backward, every RGLRU_CASES case")
+    worst = check_lru_bwd(torch, lru_ops, lru_ref)
+    say(f"  (b) timings; (a) took {time.perf_counter() - t0:.1f} s")
+    timings = {"train f32": time_lru_bwd(torch, lru_ops, lru_ref, RGLRU_TRAIN_SHAPE),
+               "serve f32": time_lru_bwd(torch, lru_ops, lru_ref, RGLRU_SERVE_SHAPE)}
+    quiet = {k: v for counts in counters for k, v in counts.items() if k != "rglru_scan_bwd"}
+    assert not any(quiet.values()), quiet        # (a) and (b) launch the backward alone
+    say(f"  the flash backward at {RGEMMA_ARCH}'s training shape")
+    flash_row = time_flash_bwd(torch, fa_ops, fa_ref, RG_TRAIN_ATTN_SHAPE)
+    say(f"  (c) {RGEMMA_ARCH}, {RG_TRAIN_STEPS} steps on each route; so far "
+        f"{time.perf_counter() - t0:.1f} s")
+    rg = run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device)
+    twin_cfg = rg_twin_config()
+    n = lru_layers(twin_cfg)
+    say(f"  (d) {RGEMMA_ARCH} cut to one (rglru, rglru) group ({n} layers) at full width, f32: "
+        f"card (kernels) against CPU (plain versions); so far {time.perf_counter() - t0:.1f} s")
+    zero_launches((*counters, fa_ops.PATH_LAUNCHES, lru_ops.BWD_LAUNCHES))
+    twin = run_train_twin(torch, device, cfg=twin_cfg)
+    twin_launches, twin_paths, _ = counts_now(counters, fa_ops)
+    fwd = 2 if twin_cfg.remat == "full" else 1
+    # on the card two value_and_grad (the batch, the rolled control) and one step
+    want = {**{k: 0 for k in twin_launches}, "rglru_scan": 3 * n * fwd, "rglru_scan_bwd": 3 * n}
+    say(f"  {twin_cfg.name} ({n} layers) launches on the card {twin_launches}")
+    assert twin_launches == want, (twin_launches, want)
+    assert lru_ops.BWD_LAUNCHES == {"reverse_scan": 3 * n}, lru_ops.BWD_LAUNCHES
+    say(f"  phase 32 {time.perf_counter() - t0:.1f} s")
+    runs = {f"{RGEMMA_ARCH} (5 layers) train steps": (rg["kernels"]["launches"],
+                                                       rg["kernels"]["flash_by_path"]),
+            f"{RGEMMA_ARCH} ({n} layers) f32 twin (card)": (twin_launches, twin_paths)}
+    return worst, timings, flash_row, runs, {
+        "card": smi, f"{RGEMMA_ARCH} (5 layers)": rg, "f32 twin": twin, "timings": timings,
+        f"flash_attention_bwd {list(RG_TRAIN_ATTN_SHAPE)}": flash_row}
 
 
 # ---------------------------------------------------------------- main
@@ -4910,7 +5214,7 @@ def main() -> int:
     say(f"  so far {time.perf_counter() - t_all:.1f} s")
 
     cfg = get_config(RGEMMA_ARCH)
-    n_lru = sum(g.repeat for g in cfg.groups for spec in g.pattern if spec.mixer == "rglru")
+    n_lru = lru_layers(cfg)
     n_attn = cfg.total_layers - n_lru
     say(f"PHASE 14 serve path: {RGEMMA_ARCH} at its published width ({cfg.total_layers} layers: "
         f"{n_lru} RG-LRU, {n_attn} local attention, d_model {cfg.d_model}, {cfg.n_heads} heads of "
@@ -5061,6 +5365,10 @@ def main() -> int:
     ssd_bwd_errs, ssd_bwd_rows, ssd_bwd_runs, ssd_train_row = run_ssd_train_phase(
         torch, ssd_ops, ssd_ref, counters, smi)
     say(json.dumps({"train through ssd_scan": ssd_train_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    lru_bwd_errs, lru_bwd_rows, rg_flash_bwd, lru_bwd_runs, rg_train_row = run_rglru_train_phase(
+        torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi)
+    say(json.dumps({"train through rglru_scan": rg_train_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -5126,6 +5434,10 @@ def main() -> int:
     flash_train = {f"{k} (phase 30)": {"flash_attention": counts["flash_attention"],
                                        "flash_attention_by_path": paths}
                    for k, (counts, paths) in bwd_runs.items()}
+    lru_train = {f"{k} (phase 32)": (counts, paths) for k, (counts, paths) in lru_bwd_runs.items()}
+    flash_train.update({k: {"flash_attention": counts["flash_attention"],
+                            "flash_attention_by_path": paths}
+                        for k, (counts, paths) in lru_train.items()})
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
@@ -5151,11 +5463,14 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/ops.py:43",
-        "launches": sum(counts["flash_attention_bwd"] for counts, _ in bwd_runs.values()),
-        "launches_by_path": {f"{k} (phase 30)": counts["flash_attention_bwd"]
-                             for k, (counts, _) in bwd_runs.items()},
-        "launches_note": "backward calls of phase 30's training runs, three kernel launches "
-                         "each (preprocess, dK/dV, dQ); 0 in phases 1-29",
+        "launches": sum(counts["flash_attention_bwd"]
+                        for counts, _ in (*bwd_runs.values(), *lru_train.values())),
+        "launches_by_path": {**{f"{k} (phase 30)": counts["flash_attention_bwd"]
+                                for k, (counts, _) in bwd_runs.items()},
+                             **{k: counts["flash_attention_bwd"]
+                                for k, (counts, _) in lru_train.items()}},
+        "launches_note": "backward calls of phases 30 and 32's training runs, three kernel "
+                         "launches each (preprocess, dK/dV, dQ); 0 in phases 1-29",
         "path": "ffma", "dtype": "bfloat16",
         "max_abs_err": bwd_errs["bfloat16"]["max_abs_err"], "max_err_by_dtype": bwd_errs,
         **{k: bwd_row[k] for k in bwd_keys}, "f32_ms": bwd_row["f32_ms"],
@@ -5164,6 +5479,7 @@ def main() -> int:
         OLMOE_ARCH: {k: bwd_rows[OLMOE_ATTN_SHAPE][k] for k in bwd_keys},
         f"{WHISPER_ARCH} encoder": {k: bwd_rows[WHISPER_ENC_SHAPE][k] for k in bwd_keys},
         INTERNVL_ARCH: {k: bwd_rows[INTERNVL_ATTN_SHAPE][k] for k in bwd_keys},
+        f"{RGEMMA_ARCH} training shape": {k: rg_flash_bwd[k] for k in bwd_keys},
     })
     for name, source, replaces_at, path_launches in (
             ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:63", mamba_launches),
@@ -5202,6 +5518,25 @@ def main() -> int:
         **{k: ssd_bwd_row[k] for k in ("f32_ms", "f32_bound_ms", "f32_bound_by")},
         f"{MAMBA_ARCH} serve shape": {k: ssd_bwd_rows["serve bf16"][k] for k in bwd_keys},
     })
+    kernels[-1].update({
+        "launches": (rgemma_launches["rglru_scan"]
+                     + sum(c["rglru_scan"] for c, _ in lru_train.values())),
+        "launches_by_path": {RGEMMA_ARCH: rgemma_launches["rglru_scan"],
+                             **{k: c["rglru_scan"] for k, (c, _) in lru_train.items()}},
+    })
+    lru_keys = (*timing_keys, "io_mb", "tb_per_s", "shape")
+    kernels.append({
+        "name": "rglru_scan_bwd", "route": "cuda", "source": RGLRU_BWD_SOURCE,
+        "replaces": "src/repro/kernels/rglru_scan/ops.py:23",
+        "launches": sum(c["rglru_scan_bwd"] for c, _ in lru_train.values()),
+        "launches_by_path": {k: c["rglru_scan_bwd"] for k, (c, _) in lru_train.items()},
+        "launches_note": "backward calls of phase 32's training runs, one kernel launch each; "
+                         "0 in phases 1-31",
+        "dtype": "float32",
+        "max_abs_err": lru_bwd_errs["float32"]["max_abs_err"], "max_err_by_dtype": lru_bwd_errs,
+        **{k: lru_bwd_rows["train f32"][k] for k in lru_keys},
+        f"{RGEMMA_ARCH} serve shape": {k: lru_bwd_rows["serve f32"][k] for k in lru_keys},
+    })
     kernels.append({
         "name": "flash_decode_int8", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/decode_kernel.py:70",
@@ -5216,7 +5551,7 @@ def main() -> int:
         "decode_32k": {k: decode_long[k] for k in (*timing_keys, "sdpa_dequantized_ms", "tb_per_s",
                                                    "host_ms", "splits", "shape", "max_abs_err")},
     })
-    served_by = {"rglru_scan": RGEMMA_ARCH, "flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
+    served_by = {"flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
     for k in kernels:
         k.setdefault("launches_by_path", {served_by.get(k["name"]): k["launches"]})
         k["launches_by_path"]["hierarchical tree (phase 26, script process)"] = \

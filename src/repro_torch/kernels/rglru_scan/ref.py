@@ -10,7 +10,8 @@ with per-(time, lane) decay a_t in (0, 1] given as ``log_a`` and the input
 ``rglru_associative`` combines the monoid ((a1·a2), (a2·b1 + b2)) by
 recursive doubling: log2(L) whole-tensor steps, no loop over time.  It is
 the CPU path of ``ops.rglru_scan(impl="pallas")`` and the oracle the kernel
-is held against on the card.
+is held against on the card.  ``rglru_bwd`` is the backward written out as
+a reverse scan over time, the oracle of the backward kernel.
 """
 from __future__ import annotations
 
@@ -53,3 +54,29 @@ def rglru_associative(
         a = a * prev_a
         shift *= 2
     return hs.to(b.dtype), hs[:, -1].float()
+
+
+def rglru_bwd(
+    log_a: torch.Tensor,
+    b: torch.Tensor,
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dlog_a in log_a's dtype, db in b's dtype) of the scan for the
+    cotangents ``dy`` of y and ``dh_final`` of the final state (None for 0):
+    with g_t = dy_t (+ dh_final at t = L-1), dh_t = g_t + a_{t+1}·dh_{t+1},
+    db_t = dh_t and dlog_a_t = dh_t·a_t·h_{t-1}.  h is recomputed from h = 0,
+    then one reverse loop over time; f32 inside (f64 where an input is)."""
+    work = torch.promote_types(torch.promote_types(log_a.dtype, b.dtype),
+                               torch.promote_types(dy.dtype, torch.float32))
+    a = torch.exp(log_a.to(work))
+    bw, g = b.to(work), dy.to(work)
+    h_prev = torch.zeros_like(bw)      # h_{t-1}
+    for t in range(1, bw.shape[1]):
+        h_prev[:, t] = a[:, t - 1] * h_prev[:, t - 1] + bw[:, t - 1]
+    dh = torch.empty_like(bw)
+    carry = torch.zeros_like(bw[:, 0]) if dh_final is None else dh_final.to(work)
+    for t in reversed(range(bw.shape[1])):
+        dh[:, t] = g[:, t] + carry
+        carry = a[:, t] * dh[:, t]
+    return (dh * a * h_prev).to(log_a.dtype), dh.to(b.dtype)

@@ -6,7 +6,10 @@ conv + RG-LRU; gate branch with GELU), elementwise merge, output projection.
 RG-LRU: r/i gates from the post-conv branch, log-decay
 ``log a = -c·softplus(Λ)·r`` (c = 8), input scaled by sqrt(1 - a²).  The
 scan is ``cfg.rglru_impl``: the plain versions, or ``"pallas"``, the
-hand-written Hopper kernel in ``repro_torch.kernels.rglru_scan``.
+hand-written Hopper kernels in ``repro_torch.kernels.rglru_scan``; under
+grad on the card its forward and backward are both kernels, so the hybrid
+family trains on them (with ``attn_impl="pallas"``, its local attention on
+the flash kernels too).
 """
 from __future__ import annotations
 

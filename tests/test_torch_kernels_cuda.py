@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 ``gmm``/``tgmm``, ``flash_attention`` and its backward,
-``flash_decode_int8``, ``ssd_scan`` and its backward, and ``rglru_scan``.
+``flash_decode_int8``, ``ssd_scan`` and its backward, and ``rglru_scan``
+and its backward.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import neither JAX nor the reference package, so they
@@ -1021,8 +1022,83 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(card):
         lru_ops.rglru_scan(log_a, x.cpu(), impl="pallas")            # mixed devices
     with pytest.raises(ValueError):
         lru_ops.rglru_scan(log_a[..., ::2], x[..., ::2], impl="pallas")   # W not unit-stride
-    with pytest.raises(NotImplementedError, match="queue 2 B3"):
-        lru_ops.rglru_scan(log_a, x.requires_grad_(), impl="pallas")    # no backward yet
+    with pytest.raises(ValueError):
+        lru_ops.rglru_bwd(log_a, x, x[:, :8])                         # dy not b's shape
+    with pytest.raises(ValueError):
+        lru_ops.rglru_bwd(log_a, x, x, torch.zeros((2, 7), device=card))   # dh_final's shape
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_backward_matches_plain_version(card, case, dtype, with_state):
+    """dlog_a and db of the backward kernel against ``ref.rglru_bwd`` (f32
+    allclose 1e-4 against it in f64; bf16 relative norms 2e-2 against it in
+    f32 on the same inputs); log_a and b rolled one step along L together
+    fail both limits (db does not see b)."""
+    log_a, x = _rglru_inputs(case, card, getattr(torch, dtype))
+    gen = torch.Generator().manual_seed(10)
+    dy = torch.randn(case, generator=gen).to(card, x.dtype)
+    dhf = torch.randn((case[0], case[2]), generator=gen).to(card) if with_state else None
+    before, kernels = dict(lru_ops.LAUNCHES), dict(lru_ops.BWD_LAUNCHES)
+    got = lru_ops.rglru_bwd(log_a, x, dy, dhf)
+    torch.cuda.synchronize()
+    assert lru_ops.LAUNCHES == {**before, "rglru_scan_bwd": before["rglru_scan_bwd"] + 1}
+    assert lru_ops.BWD_LAUNCHES == {key: v + 1 for key, v in kernels.items()}
+    for gr, t in zip(got, (log_a, x)):
+        assert gr.dtype == t.dtype and gr.shape == t.shape and torch.isfinite(gr.float()).all()
+    work = torch.float64 if dtype == "float32" else torch.float32
+    want = lru_ref.rglru_bwd(log_a.to(work), x.to(work), dy.to(work),
+                             None if dhf is None else dhf.to(work))
+
+    def ok(gr, w):
+        if dtype == "float32":
+            return torch.allclose(gr.double(), w, rtol=1e-4, atol=1e-4)
+        return float((gr.float() - w).norm() / w.norm().clamp_min(1e-30)) <= 2e-2
+
+    assert all(ok(gr, w) for gr, w in zip(got, want)), \
+        [float((gr.double() - w.double()).abs().max()) for gr, w in zip(got, want)]
+    if case[1] > 1:
+        rolled = lru_ops.rglru_bwd(log_a.roll(1, dims=1), x.roll(1, dims=1), dy, dhf)
+        assert not any(ok(gr, w) for gr, w in zip(rolled, want))
+
+
+def test_rglru_backward_reads_strided_layouts_in_place(card):
+    """log_a, b and dy as slices of wider tensors: the backward follows the
+    strides and gives the contiguous inputs' gradients exactly."""
+    log_a, x = _rglru_inputs((2, 70, 40), card, torch.float32)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(14)).to(card)
+    want = lru_ops.rglru_bwd(log_a, x, dy)
+    wide = [torch.cat([t, torch.zeros((2, 70, 24), device=card)], dim=-1)[..., :40]
+            for t in (log_a, x, dy)]
+    assert not any(t.is_contiguous() for t in wide)
+    for g_, w_ in zip(lru_ops.rglru_bwd(*wide), want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+def test_rglru_counts_with_and_without_grad(card):
+    """Without grad one forward launch; with grad the Function's forward (its
+    outputs the plain launch's bit for bit) and one backward call, its
+    gradients ``rglru_bwd``'s bit for bit, a cotangent of the final state
+    alone too."""
+    log_a, x = _rglru_inputs((2, 200, 64), card, torch.bfloat16)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(15)).to(card, x.dtype)
+    y0, h0 = lru_ops.rglru_scan(log_a, x, impl="pallas")
+    before = dict(lru_ops.LAUNCHES)
+    la, xx = log_a.clone().requires_grad_(), x.clone().requires_grad_()
+    y, h = lru_ops.rglru_scan(la, xx, impl="pallas")
+    torch.cuda.synchronize()
+    assert lru_ops.LAUNCHES == {**before, "rglru_scan": before["rglru_scan"] + 1}
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    y.backward(dy)
+    assert lru_ops.LAUNCHES["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 1
+    for g_, w_ in zip((la.grad, xx.grad), lru_ops.rglru_bwd(log_a, x, dy)):
+        assert torch.equal(g_, w_)
+    la.grad = xx.grad = None
+    dh = torch.randn(h.shape, generator=torch.Generator().manual_seed(16)).to(card)
+    lru_ops.rglru_scan(la, xx, impl="pallas")[1].backward(dh)
+    for g_, w_ in zip((la.grad, xx.grad), lru_ops.rglru_bwd(log_a, x, torch.zeros_like(x), dh)):
+        assert torch.equal(g_, w_)
 
 
 # gmm in bf16 at MoE-like splits (M, K, N, group sizes): a prefill split

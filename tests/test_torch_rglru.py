@@ -9,8 +9,14 @@ Pallas kernel interpreted on the CPU) on the reference's sweep
 its oracle, an initial state, the decode step chained over a sequence, and
 ``rglru_forward``/``rglru_decode`` on bridged parameters.  Tolerances are
 the reference's: y at f32 2e-5 or bf16 2e-2, the final state at 1e-4.  The
-kernel is held against the plain version on the card by
-tests/test_torch_kernels_cuda.py and chip_smoke.py."""
+backward's plain version ``ref.rglru_bwd`` (and torch's autograd through the
+CPU route) against ``jax.vjp`` of the reference's Pallas route (its custom
+VJP) and of ``rglru_associative``, with and without a cotangent of the final
+state: gradients at f32 1e-4 and bf16 2e-2.  The kernels are held against
+the plain versions on the card by tests/test_torch_kernels_cuda.py and
+chip_smoke.py."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,7 +111,57 @@ def test_wrapper_refuses_tensors_off_the_cpu_and_the_card():
         ops.rglru_scan(t, t, impl="pallas")
     with pytest.raises(ValueError, match="unknown rglru impl"):
         ops.rglru_scan(t, t, impl="scan")
-    assert set(ops.LAUNCHES) == {"rglru_scan"}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.rglru_bwd(t, t, t)
+    assert set(ops.LAUNCHES) == {"rglru_scan", "rglru_scan_bwd"}
+
+
+# ---------------------------------------------------------------- the backward
+
+GRAD_F32 = dict(rtol=1e-4, atol=1e-4)
+
+
+@functools.partial(jax.jit, static_argnames="route")
+def _ref_vjp(log_a, x, dy, dh_final, route):
+    """(dlog_a, db) of the reference: ``jax.vjp`` of its Pallas route (the
+    kernel interpreted, its custom VJP) or of ``rglru_associative``."""
+    if route == "pallas":
+        fn = functools.partial(ref_ops._rglru_pallas_dif, interpret=True)
+    else:
+        fn = ref_ref.rglru_associative
+    _, vjp = jax.vjp(fn, log_a, x)
+    return vjp((dy.astype(x.dtype), dh_final))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["dy", "dy+dh_final"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["pallas", "associative"])
+@pytest.mark.parametrize("b,l,w", SWEEP + RAGGED[:2])
+def test_backward_matches_reference_vjp(b, l, w, route, dtype, with_state):
+    jx, tx = _inputs(b, l, w, dtype, seed=7)
+    rng = np.random.default_rng(8)
+    dy = rng.normal(size=(b, l, w)).astype(np.float32)
+    dh_final = rng.normal(size=(b, w)).astype(np.float32) if with_state else None
+    want = _ref_vjp(*jx, jnp.asarray(dy), jnp.asarray(
+        dh_final if with_state else np.zeros((b, w), np.float32)), route=route)
+    dy_t = torch.from_numpy(dy).to(tx[1].dtype)
+    dh_t = None if dh_final is None else torch.from_numpy(dh_final)
+    plain = ref.rglru_bwd(*tx, dy_t, dh_t)
+    # the CPU route of impl="pallas" under grad: torch's autograd, no launch
+    la, x = (t.clone().requires_grad_() for t in tx)
+    before = dict(ops.LAUNCHES)
+    y, h = ops.rglru_scan(la, x, impl="pallas")
+    assert ops.LAUNCHES == before
+    outs, cots = (y, h), (dy_t, dh_t)
+    used = [i for i in range(2) if cots[i] is not None]
+    routed = torch.autograd.grad([outs[i] for i in used], (la, x), [cots[i] for i in used],
+                                 allow_unused=True, materialize_grads=True)
+    tol = GRAD_F32 if dtype == "float32" else BF16
+    for name, got in (("ref.rglru_bwd", plain), ("autograd, pallas route", routed)):
+        for what, g, wt, t in zip(("dlog_a", "db"), got, want, tx):
+            assert g.dtype == t.dtype and g.shape == t.shape, (name, what)
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(wt, np.float32), **tol,
+                                       err_msg=f"{name} {what}")
 
 
 # ---------------------------------------------------------------- the block

@@ -14,7 +14,11 @@ reference's ``main`` (losses 1e-4 relative, ``comm_MB`` exact) with a
 checkpoint resume.  Under ``attn_impl="pallas"`` (the reference's Pallas
 forward interpreted, its custom VJP; the port's flash route, on the CPU its
 plain version) the dense, moe, hybrid, vlm and encoder-decoder families'
-loss and gradients too, at 128 positions (the Pallas kernel's row tile)."""
+loss and gradients too, at 128 positions (the Pallas kernel's row tile);
+under ``ssm_impl="pallas"`` mamba2's, and under ``rglru_impl="pallas"`` the
+hybrid's (the reference's scans through their custom VJPs; the port's CPU
+routes, the plain scans with torch's autograd), at 24 and 128 positions,
+the hybrid's also with ``attn_impl="pallas"`` at 128."""
 import contextlib
 import functools
 import io
@@ -164,6 +168,23 @@ def test_loss_and_grads_under_the_ssd_route_match_the_reference(positions):
     got_loss, _, got = _port_value_and_grad(cfg, host, batch)
     np.testing.assert_allclose(got_loss, want_loss, **LOSS)
     _assert_trees_close(got, want, GRAD, f"ssm, pallas, {positions} positions")
+
+
+@pytest.mark.parametrize("positions,over", [
+    (SEQ, {}), (PALLAS_POSITIONS, {}), (PALLAS_POSITIONS, {"attn_impl": "pallas"})],
+    ids=["24", "128", "128-flash"])
+def test_loss_and_grads_under_the_rglru_route_match_the_reference(positions, over):
+    """``rglru_impl="pallas"``: the hybrid's scan through the reference's
+    custom VJP (its Pallas forward interpreted, the vjp of
+    ``rglru_associative``) and through the port's CPU route
+    (``rglru_associative`` with torch's autograd); with the flash route
+    too, every kernel route the hybrid trains through on the card."""
+    ref_cfg, cfg = _cfgs(FAMILIES["hybrid"], rglru_impl="pallas", **over)
+    host, batch = _host_params(ref_cfg), _batch(cfg, seq=positions)
+    want_loss, _, want = _ref_value_and_grad(ref_cfg, host, batch)
+    got_loss, _, got = _port_value_and_grad(cfg, host, batch)
+    np.testing.assert_allclose(got_loss, want_loss, **LOSS)
+    _assert_trees_close(got, want, GRAD, f"hybrid, rglru pallas {over}, {positions} positions")
 
 
 def test_a_vlm_without_its_prefix_gets_zero_vis_proj_grads():
