@@ -326,33 +326,42 @@ Phases (any failure exits non-zero before the last line is printed):
              and mamba2-1.3b at full width: a finite loss, every parameter
              leaf changed, walls and peak memory.  Every other kernel reads
              0 launches in the phase, ``flash_attention_bwd`` too;
-30. train through flash — the backward of ``flash_attention``
-             (``csrc/flash_attention_bwd.cu``: delta, dK/dV, dQ; FFMA) and
-             training on it under ``attn_impl="pallas"``: (a) on every
-             FLASH_CASES case in f32 and bf16 (the forward on the path its
-             dtype takes), the forward's lse within 1e-5 of
-             ``attention_lse_ref`` and dq, dk, dv against
-             ``attention_bwd_ref`` (f32 allclose 1e-4; bf16 relative norms
-             2e-2 against the plain version in f32 on the same inputs), K
-             rolled by one position failing every limit (the lse's only
-             where a mask makes the roll visible); (b) the backward timed
-             at the training shape (8 x 128, qwen's heads; f32 too) and the
-             five serve shapes beside its plain version, the library
-             (``torch.autograd.grad`` over one SDPA output) and its bound,
-             with the FLOPs it issues; (c) phase 29's qwen-100m twin on the
-             flash route (card: the ffma forward and the backward; CPU: the
-             plain versions), 24 forward and 24 backward launches;
-             qwen1.5-0.5b at full width, 4 steps on the chunked route and 4
-             on the flash route from the same parameters and batch: 48
-             forward launches a step (24 layers, 24 remat recomputes, all
-             wgmma) and 24 backward calls (three launches each), finite and
+30. train through flash — the backward of ``flash_attention`` on its
+             two paths (``bwd_wgmma``, ``csrc/flash_attention_bwd_wgmma.cu``:
+             delta and q / sqrt(D), dK/dV with a head split's reduce where
+             the grid is small, dQ, every product on the tensor cores;
+             ``bwd_ffma``, ``csrc/flash_attention_bwd.cu``: delta, dK/dV,
+             dQ on FFMA) and training on it under ``attn_impl="pallas"``:
+             (a) on every FLASH_CASES case and the four training shapes
+             the steps below give the backward (qwen's, recurrentgemma's
+             with its 16 head splits, whisper's encoder and decoder) in
+             f32 (``bwd_ffma``) and bf16 (both paths, forced; the forward
+             on the path its dtype takes),
+             the forward's lse within 1e-5 of ``attention_lse_ref`` and dq,
+             dk, dv against ``attention_bwd_ref`` (f32 allclose 1e-4; bf16
+             relative norms 2e-2 against the plain version in f32 on the
+             same inputs), K rolled by one position failing every limit
+             (the lse's only where a mask makes the roll visible), the
+             ``bwd_wgmma`` backward called twice bit-identical; (b) the
+             backward timed on ``bwd_wgmma`` at the training shape (8 x
+             128, qwen's heads; f32 on ``bwd_ffma`` too) and the five serve
+             shapes, and bf16 forced on ``bwd_ffma`` at the training shape,
+             beside its plain version, the library (``torch.autograd.grad``
+             over one SDPA output) and its bound, with the FLOPs it issues;
+             (c) phase 29's qwen-100m twin on the flash route (card: the
+             ffma forward and the bwd_ffma backward; CPU: the plain
+             versions), 24 forward and 24 backward launches; qwen1.5-0.5b
+             at full width, 4 steps on the chunked route and 4 on the flash
+             route from the same parameters and batch: 48 forward launches
+             a step (24 layers, 24 remat recomputes, all wgmma) and 24
+             backward calls (all ``bwd_wgmma``, three launches each), finite and
              falling losses, the first within 2e-2 of the chunked route's,
              layers 0 and 23's backward on their captured inputs within
              bf16's 2e-2 with K rolled outside it, each route's walls,
              launches, busy share and peak memory; one whisper-base step:
              12 self-attentions on the kernels (6 bidirectional; twice each
-             forward under remat), cross-attention on
-             ``attention_chunked``, every leaf changed.  Every other kernel
+             forward under remat; every backward ``bwd_wgmma``),
+             cross-attention on ``attention_chunked``, every leaf changed.  Every other kernel
              reads 0 launches.  No earlier phase launches a backward
              kernel (``ops.BWD_LAUNCHES`` is 0 when the phase starts);
 31. train through ssd_scan — the backward of ``ssd_scan``
@@ -400,8 +409,8 @@ Phases (any failure exits non-zero before the last line is printed):
              plain routes and 4 on the kernel routes from the same
              parameters and batch: 8 ``rglru_scan`` and 2 flash forward
              launches a step (layers and remat recomputes), 4 and 1 backward
-             calls, finite and falling losses, the first within 2e-2 of the
-             plain routes', the first and last RG-LRU layers' backward on
+             calls (the flash one on ``bwd_wgmma``), finite and falling
+             losses, the first within 2e-2 of the plain routes', the first and last RG-LRU layers' backward on
              their captured inputs (relative norms 1e-4 against f64, log_a
              and b rolled outside it), each route's walls, launches, busy
              share and peak; (d) its (rglru, rglru) group in f32 at full
@@ -414,8 +423,10 @@ The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
 those of phases 7, 14, 18, 21, 27, 28, 30 and 32 (and how many were bidirectional),
-``flash_attention_bwd`` with phases 30 and 32's calls, worst errors by dtype and its
-times at the six shapes, ``ssd_scan`` with those of phases 12 and 31,
+``flash_attention_bwd_wgmma`` (the ``bwd_wgmma`` path) with phases 30 and 32's bf16
+calls, worst errors and its times at the seven shapes, ``flash_attention_bwd`` (the
+``bwd_ffma`` path) with their f32 calls, worst errors by dtype and its bf16 and f32
+times at the training shape, ``ssd_scan`` with those of phases 12 and 31,
 ``ssd_scan_bwd`` with phase 31's calls, worst errors by dtype and its times
 at the training and serve shapes,
 ``rglru_scan`` with those of phases 14 and 32, ``rglru_scan_bwd`` with phase
@@ -1124,7 +1135,8 @@ def run_serve(torch, cfg, counters, expected):
     assert launches == expected, (launches, expected)   # every launch in the prefill
     # every served prefill computes in bf16 with 16-byte rows: all on the tensor cores;
     # serving takes no gradient
-    assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"], "bwd_ffma": 0}, \
+    assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"], "bwd_ffma": 0,
+                           "bwd_wgmma": 0}, \
         flash_paths
     assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"], "bwd_ffma": 0}, ssd_paths
     assert len(masks) == launches["flash_attention"], masks
@@ -2289,12 +2301,25 @@ def nchw_flatten(torch):
     return mock.patch.object(small, "_apply_single", wrong)
 
 
-def run_client_model(torch, name, fields, dataset, opt_name, lr):
-    """Two rounds of ``name`` through the trainer on the card (MeasuredRuntime),
-    one warm wave profiled, and the twin: TWIN_CLIENTS clients of round 2's
-    wave on the card against the CPU from round 2's globals (the CNN with
-    NCHW-flattened features as the control).  Returns the row PERF.md reads."""
-    from repro_torch.fed.batch_exec import BatchedExecutor
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN restricted to deterministic algorithms inside the block, the
+    setting restored after it."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def client_rounds(torch, fields, dataset, opt_name, lr, deterministic=True):
+    """(mcfg, trainer, rounds, peak bytes): two rounds of a client model
+    through the trainer on the card (MeasuredRuntime), under deterministic
+    cuDNN: the host's walls still pick each round's finishers and so round
+    2's globals, but no convolution algorithm adds its own drift
+    (``deterministic=False`` leaves cuDNN free, as
+    ``tools/torch_client_twin.py --wave`` runs it to show that drift)."""
     from repro_torch.fed.trainer import FedConfig, FederatedTrainer
     from repro_torch.models.small import SmallModelConfig
 
@@ -2307,30 +2332,52 @@ def run_client_model(torch, name, fields, dataset, opt_name, lr):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()     # what earlier phases still hold
-    rounds = run_rounds(torch, trainer, fed.rounds)
-    peak = torch.cuda.max_memory_allocated() - base
+    with cudnn_deterministic(torch) if deterministic else contextlib.nullcontext():
+        rounds = run_rounds(torch, trainer, fed.rounds)
+    return mcfg, trainer, rounds, torch.cuda.max_memory_allocated() - base
+
+
+def twin_clients(wave_cids):
+    """The twin's clients: the TWIN_CLIENTS lowest ids of a round's wave, a
+    rule that does not read the order in which the host's walls finished them."""
+    return sorted(wave_cids)[:TWIN_CLIENTS]
+
+
+def run_client_model(torch, name, fields, dataset, opt_name, lr):
+    """Two rounds of ``name`` through the trainer on the card (MeasuredRuntime),
+    one warm wave profiled, and the twin: TWIN_CLIENTS clients of round 2's
+    wave (``twin_clients``) on the card against the CPU from round 2's
+    globals, the card's wave under deterministic cuDNN (the CNN with
+    NCHW-flattened features as the control).  Returns the row PERF.md reads."""
+    from repro_torch.fed.batch_exec import BatchedExecutor
+
+    mcfg, trainer, rounds, peak = client_rounds(torch, fields, dataset, opt_name, lr)
+    fed = trainer.fed
     stats = trainer.batch_exec.stats
     assert stats.dense_clients == stats.clients == fed.rounds * CLIENTS_PARTICIPANTS, stats
     for i, r in enumerate(rounds, 1):
         say(f"  {name} round {i}: " + json.dumps(r["rec"]))
-        say(f"  {name} round {i} phase wall s: "
+        say(f"  {name} round {i} phase wall s (deterministic cuDNN): "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["walls"].items()))
     last = rounds[-1]
     fresh, _ = client_world(mcfg, dataset)
     by_id = {c.client_id: c for c in fresh}
     ex = BatchedExecutor(mcfg, trainer.opt, device="cuda")
     prof = profile_call(torch, f"{name}: one warm dense wave ({len(last['cids'])} clients x "
-                               f"{CLIENTS_PROFILE_STEPS} steps x batch {CLIENTS_BATCH})",
+                               f"{CLIENTS_PROFILE_STEPS} steps x batch {CLIENTS_BATCH}, free "
+                               f"cuDNN)",
                         lambda: ex.run_wave(last["start"], [by_id[c] for c in last["cids"]],
                                             CLIENTS_PROFILE_STEPS))
-    cids = last["cids"][:TWIN_CLIENTS]
+    cids = twin_clients(last["cids"])
     want = kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cpu")
-    sound = wave_gap(kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cuda"), want)
-    line = (f"  {name} twin, {len(cids)} clients x {CLIENTS_STEPS} steps, card against CPU: "
+    with cudnn_deterministic(torch):
+        sound = wave_gap(kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"], "cuda"),
+                         want)
+    line = (f"  {name} twin, clients {cids} x {CLIENTS_STEPS} steps, card against CPU: "
             f"relative {sound[0]:.3e}, max abs {sound[1]:.3e}")
     wrong = None
     if mcfg.kind == "cnn" and not mcfg.extra_local_model:
-        with nchw_flatten(torch):
+        with nchw_flatten(torch), cudnn_deterministic(torch):
             wrong = wave_gap(kind_wave(torch, mcfg, dataset, trainer.opt, cids, last["start"],
                                        "cuda"), want)
         line += f"; fc fed NCHW-flattened features: relative {wrong[0]:.3e}"
@@ -2465,9 +2512,7 @@ def check_resume(torch, directory):
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True   # one convolution algorithm in both runs
-    try:
+    with cudnn_deterministic(torch):   # one convolution algorithm in both runs
         full = trainer(*client_world(mcfg, dataset, n_clients=16), fed)
         full.run_round()
         full.run_round()
@@ -2480,8 +2525,6 @@ def check_resume(torch, directory):
         assert resumed.maybe_restore() and resumed.round == 2
         assert same(resumed.params, after_two), "restored params differ from the run's"
         resumed.run_round()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     assert (resumed.round, resumed.sim_clock, resumed.comm_bytes) == (
         full.round, full.sim_clock, full.comm_bytes)
     assert resumed.history == full.history
@@ -4152,12 +4195,24 @@ def run_train_phase(torch, ops, ref, counters, smi, device="cuda"):
 # ---------------------------------------------------------------- phase 30
 
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+FLASH_BWD_WGMMA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu"
 # dq, dk, dv against the plain backward: f32 allclose (tests/test_kernels.py:56), bf16
 # relative norm against the plain version in f32 on the same bf16 inputs; the lse allclose
 FLASH_BWD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_LSE_TOL = 1e-5
 # qwen1.5-0.5b's attention in phase 29's train step (batch 8 x 128)
 TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, None)
+# recurrentgemma-9b's in phase 32's (MQA 16/1 at D = 256: bwd_wgmma splits the heads)
+RG_TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 1, 256, True, 2048)
+# every shape a train step of phases 30 and 32 gives the backward, gated in (a) beside FLASH_CASES
+FLASH_BWD_TRAIN_CASES = [
+    ("training shape (qwen1.5-0.5b)", TRAIN_ATTN_SHAPE),
+    ("training shape (recurrentgemma-9b)", RG_TRAIN_ATTN_SHAPE),
+    ("training shape (whisper-base encoder)",
+     (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, 64, False, None)),
+    ("training shape (whisper-base decoder)",
+     (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, 64, True, None)),
+]
 FLASH_TRAIN_STEPS = 4
 FLASH_TRAIN_LOSS_REL_TOL = 2e-2   # the first step's loss, flash route against chunked (bf16)
 
@@ -4181,72 +4236,99 @@ def bwd_inputs(torch, case, dtype, seed=0):
 
 def check_flash_bwd(torch, fa_ops, fa_ref):
     """(a): the forward's lse and the backward's dq, dk, dv against their
-    plain versions on every FLASH_CASES case in f32 and bf16, the forward on
-    the path the dtype takes (f32 ffma, bf16 wgmma); K rolled by one
-    position must fail the limits.  Returns the largest errors by dtype."""
+    plain versions on every FLASH_CASES and FLASH_BWD_TRAIN_CASES case:
+    bf16 on both backward paths,
+    forced (against the plain version in f32), f32 on bwd_ffma, the forward
+    on the path the dtype takes (f32 ffma, bf16 wgmma); K rolled by one
+    position must fail the limits; bwd_wgmma called twice gives the same
+    bits.  Returns the largest errors by dtype and path."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name_dt = str(dtype)[6:]
-        for name, case in FLASH_CASES:
+        paths = ("bwd_ffma",) if dtype == torch.float32 else ("bwd_wgmma", "bwd_ffma")
+        for name, case in FLASH_CASES + FLASH_BWD_TRAIN_CASES:
             causal, window = case[6:]
+            mask = dict(causal=causal, window=window)
             q, k, v, do = bwd_inputs(torch, case, dtype)
-            before = dict(fa_ops.BWD_LAUNCHES)
-            o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
-            got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
-            torch.cuda.synchronize()
-            assert fa_ops.BWD_LAUNCHES == {key: n + 1 for key, n in before.items()}, name
-            lse_want = fa_ref.attention_lse_ref(q, k, causal=causal, window=window)
-            want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
-                                              causal=causal, window=window)
-            ok, errs = bwd_close(torch, got, want32, dtype)
-            abs_err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want32))
+            o, lse = fa_ops.flash_attention_fwd(q, k, v, **mask)
+            lse_want = fa_ref.attention_lse_ref(q, k, **mask)
+            want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), **mask)
             lse_err = float((lse - lse_want).abs().max())
-            kr = k.roll(1, dims=1)
-            o_r, lse_r = fa_ops.flash_attention_fwd(q, kr, v, causal=causal, window=window)
-            rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, causal=causal,
-                                                window=window)
-            ctl = [bwd_close(torch, (a,), (b,), dtype) for a, b in zip(rolled, want32)]
-            lse_ctl = float((lse_r - lse_want).abs().max())
-            say(f"  {name_dt:>8} {name:<38} {str(case):<40} dq/dk/dv "
-                f"{' '.join(f'{e:.2e}' for e in errs)} (max|err| {abs_err:.2e}), lse max|err| "
-                f"{lse_err:.2e}; K rolled: {' '.join(f'{c[1][0]:.2e}' for c in ctl)}, lse "
-                f"{lse_ctl:.2e}")
-            assert ok, (name, name_dt, errs)
             torch.testing.assert_close(lse, lse_want, rtol=FLASH_LSE_TOL, atol=FLASH_LSE_TOL,
                                        msg=lambda m_: f"lse {name} {name_dt}: {m_}")
-            assert not any(c[0] for c in ctl), (name, name_dt, ctl)
+            kr = k.roll(1, dims=1)
+            o_r, lse_r = fa_ops.flash_attention_fwd(q, kr, v, **mask)
+            lse_ctl = float((lse_r - lse_want).abs().max())
             # without a mask every row sums over all keys: a roll permutes them, lse stays
             if causal or window is not None:
                 assert not torch.allclose(lse_r, lse_want, rtol=FLASH_LSE_TOL,
                                           atol=FLASH_LSE_TOL), name
-            row = worst.setdefault(name_dt, {"grads": 0.0, "max_abs_err": 0.0, "lse": 0.0})
-            row["grads"] = max(row["grads"], max(errs))
-            row["max_abs_err"] = max(row["max_abs_err"], abs_err)
-            row["lse"] = max(row["lse"], lse_err)
-            del q, k, v, do, o, lse, got, want32, rolled, o_r, lse_r
+            for path in paths:
+                before, by_path = dict(fa_ops.BWD_LAUNCHES), dict(fa_ops.PATH_LAUNCHES)
+                got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **mask, path=path)
+                torch.cuda.synchronize()
+                # one more launch sums a head split's partials
+                reduce = int(path == "bwd_wgmma" and fa_ops.bwd_splits(q, k)[0] > 1)
+                assert fa_ops.BWD_LAUNCHES == {**{key: n + 1 for key, n in before.items()},
+                                               "reduce": before["reduce"] + reduce}, name
+                assert fa_ops.PATH_LAUNCHES == {**by_path, path: by_path[path] + 1}, name
+                ok, errs = bwd_close(torch, got, want32, dtype)
+                abs_err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want32))
+                rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, **mask, path=path)
+                ctl = [bwd_close(torch, (a,), (b,), dtype) for a, b in zip(rolled, want32)]
+                same = None
+                if path == "bwd_wgmma":     # no atomics: the same inputs give the same bits
+                    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **mask, path=path)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    del again
+                say(f"  {name_dt:>8} {path:<9} {name:<38} {str(case):<40} dq/dk/dv "
+                    f"{' '.join(f'{e:.2e}' for e in errs)} (max|err| {abs_err:.2e}), lse max|err| "
+                    f"{lse_err:.2e}; K rolled: {' '.join(f'{c[1][0]:.2e}' for c in ctl)}, lse "
+                    f"{lse_ctl:.2e}" + (f"; split reduce {reduce}, twice bit-identical {same}"
+                                        if same is not None else ""))
+                assert ok, (name, name_dt, path, errs)
+                assert not any(c[0] for c in ctl), (name, name_dt, path, ctl)
+                assert same is not False, (name, path, "two calls differ")
+                row = worst.setdefault(f"{name_dt} {path}",
+                                       {"grads": 0.0, "max_abs_err": 0.0, "lse": 0.0})
+                row["grads"] = max(row["grads"], max(errs))
+                row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+                row["lse"] = max(row["lse"], lse_err)
+                del got, rolled
+            del q, k, v, do, o, lse, want32, kr, o_r, lse_r
             free_card(torch)
     return worst
 
 
-def bwd_tile_pairs(fa_ops, sq, skv, causal, window, d):
-    """(query tile, KV tile) pairs the backward visits (each kernel the same)."""
-    tq, tk = fa_ops.bwd_tiles(d)
-    return sum(max(0, end - begin) for begin, end in (
-        fa_ops.kv_tiles(qt, sq, skv, causal, window, tq, tk) for qt in range(-(-sq // tq))))
+def bwd_issued(fa_ops, path, shape):
+    """FLOP the backward issues on ``path`` at ``shape``: S, dP, dV and dK
+    on every (KV tile, q tile) pair the dK/dV kernel visits, S, dP and dQ on
+    every pair the dQ kernel visits (each product 2 D a pair of its tiles),
+    and delta's 2 D a row."""
+    b, sq, skv, hq, _, d, causal, window = shape
+    (tq, tk), (tq2, tk2) = fa_ops.bwd_tiles(path, d)
+    dkdv = sum(max(0, end - begin) for begin, end in (
+        fa_ops.q_tiles(kt, sq, skv, causal, window, tq, tk) for kt in range(-(-skv // tk))))
+    dq = sum(max(0, end - begin) for begin, end in (
+        fa_ops.kv_tiles(qt, sq, skv, causal, window, tq2, tk2) for qt in range(-(-sq // tq2))))
+    return 2 * d * b * hq * (4 * dkdv * tq * tk + 3 * dq * tq2 * tk2 + sq)
 
 
-def time_flash_bwd(torch, fa_ops, fa_ref, shape, f32=False):
-    """(b): the backward at ``shape`` in bf16 (and f32 with ``f32``) beside
-    its plain version, the library's backward (torch.autograd.grad over one
-    scaled_dot_product_attention output, built once) and its bound: the
-    four gradient products over the live pairs at the bf16 peak against q,
-    k, v, o, dO and lse read and dq, dk, dv written at 3.35 TB/s."""
+def time_flash_bwd(torch, fa_ops, fa_ref, shape, path="bwd_wgmma", f32=False):
+    """(b): the backward at ``shape`` in bf16 on ``path`` (and f32, on
+    bwd_ffma, with ``f32``) beside its plain version, the library's backward
+    (torch.autograd.grad over one scaled_dot_product_attention output, built
+    once) and its bound: the four gradient products over the live pairs at
+    the bf16 peak against q, k, v, o, dO and lse read and dq, dk, dv written
+    at 3.35 TB/s."""
     b, sq, skv, hq, hk, d, causal, window = shape
     assert window is None or window >= skv   # the library's causal mask is the same
     mask = dict(causal=causal, window=window)
     q, k, v, do = bwd_inputs(torch, shape, torch.bfloat16, seed=3)
     o, lse = fa_ops.flash_attention_fwd(q, k, v, **mask)
-    row = {"ms": median_ms(torch, lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **mask)),
+    row = {"path": path,
+           "ms": median_ms(torch, lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **mask,
+                                                                     path=path)),
            "plain_ms": median_ms(torch, lambda: fa_ref.attention_bwd_ref(q, k, v, do, **mask),
                                  reps=3, warm=1)}
     if f32:
@@ -4266,19 +4348,19 @@ def time_flash_bwd(torch, fa_ops, fa_ref, shape, f32=False):
         row["library_ms"], row["library_note"] = None, str(e)[:160]
     pairs = live_pairs(sq, skv, causal, window) * b * hq
     flops = 8 * d * pairs                                   # dV, dP, dQ, dK on each live pair
-    tq, tk = fa_ops.bwd_tiles(d)
-    issued = (14 * d * tq * tk * bwd_tile_pairs(fa_ops, sq, skv, causal, window, d) * b * hq
-              + 2 * d * b * sq * hq)                        # S, dP twice; dV, dK, dQ; delta
+    issued = bwd_issued(fa_ops, path, shape)
     io_bytes = 2 * (4 * b * sq * hq * d + 4 * b * skv * hk * d) + 4 * b * hq * sq
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
     row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                gflop=flops / 1e9, issued_gflop=issued / 1e9, io_mb=io_bytes / 1e6,
                tflops_issued=issued / row["ms"] / 1e9, shape=list(shape))
     lib = row["library_ms"]
+    unit = "the tensor cores" if path == "bwd_wgmma" else "FFMA"
     say(f"  flash_attention_bwd B={b} S={sq} Hq={hq} Hk={hk} D={d} "
-        f"{'causal' if causal else 'bidirectional'} window={window}, bf16: {row['ms']:.4f} ms "
-        f"({issued / 1e9:.2f} GFLOP issued on FFMA, {row['tflops_issued']:.1f} TFLOP/s)"
-        + (f", f32 {row['f32_ms']:.4f} ms" if f32 else "")
+        f"{'causal' if causal else 'bidirectional'} window={window}, bf16 on {path}: "
+        f"{row['ms']:.4f} ms ({issued / 1e9:.2f} GFLOP issued on {unit}, "
+        f"{row['tflops_issued']:.1f} TFLOP/s)"
+        + (f", f32 (bwd_ffma) {row['f32_ms']:.4f} ms" if f32 else "")
         + f"; plain {row['plain_ms']:.4f} ms; library (autograd.grad of scaled_dot_product_"
         f"attention, bf16) " + (f"{lib:.4f} ms" if lib else row["library_note"])
         + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP at 989 "
@@ -4291,20 +4373,31 @@ def time_flash_bwd(torch, fa_ops, fa_ref, shape, f32=False):
 
 
 @contextlib.contextmanager
-def capture_bwd_calls(fa_ops, caps, keep):
+def capture_bwd_calls(fa_ops, caps, keep, shapes=None):
     """Record the inputs of the backward calls whose index is in ``keep``
-    (clones: q, k, v, o, lse, dO, causal, window)."""
+    (clones: q, k, v, o, lse, dO, causal, window), and every call's shape
+    (B, Sq, Skv, Hq, Hk, D, causal, window) into the set ``shapes``."""
     real, n = fa_ops.flash_attention_bwd, [0]
 
     def spy(q, k, v, o, lse, do, **kw):
         if n[0] in keep:
             caps[n[0]] = [t.detach().clone() for t in (q, k, v, o, lse, do)] + \
                 [kw["causal"], kw["window"]]
+        if shapes is not None:
+            shapes.add((*q.shape[:2], k.shape[1], q.shape[2], *k.shape[2:], kw["causal"],
+                        kw["window"]))
         n[0] += 1
         return real(q, k, v, o, lse, do, **kw)
 
     with mock.patch.object(fa_ops, "flash_attention_bwd", spy):
         yield
+
+
+def assert_bwd_shapes_gated(shapes):
+    """Every shape a train step gave the flash backward is one that phase
+    30 (a) holds against the plain version."""
+    gated = {case for _, case in FLASH_BWD_TRAIN_CASES}
+    assert shapes and shapes <= gated, (sorted(shapes - gated, key=str), gated)
 
 
 def counts_now(counters, fa_ops):
@@ -4324,7 +4417,7 @@ def run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device):
     n = cfg.total_layers
     params0 = params_init(torch, cfg, device)
     batch = train_batch(torch, cfg, device)
-    rows, caps = {}, {}
+    rows, caps, shapes = {}, {}, set()
     for impl in ("chunked", "pallas"):
         step, opt = make_train_step(cfg.replace(attn_impl=impl))
         params, state = params0, opt.init(params0)
@@ -4332,7 +4425,7 @@ def run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device):
         torch.cuda.reset_peak_memory_stats()
         zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES))
         losses, walls = [], []
-        with capture_bwd_calls(fa_ops, caps, (0, n - 1) if impl == "pallas" else ()):
+        with capture_bwd_calls(fa_ops, caps, (0, n - 1) if impl == "pallas" else (), shapes):
             for _ in range(FLASH_TRAIN_STEPS):
                 t0 = time.perf_counter()
                 params, state, metrics = step(params, state, batch)
@@ -4357,8 +4450,12 @@ def run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device):
     s = FLASH_TRAIN_STEPS
     want.update({"flash_attention": 2 * n * s, "flash_attention_bwd": n * s})  # forward, remat recompute
     assert rows["pallas"]["launches"] == want, (rows["pallas"]["launches"], want)
-    assert rows["pallas"]["flash_by_path"] == {"ffma": 0, "wgmma": 2 * n * s, "bwd_ffma": n * s}
-    assert rows["pallas"]["bwd_kernels"] == {"preprocess": n * s, "dkdv": n * s, "dq": n * s}
+    # bf16 with 16-byte rows: every backward call on bwd_wgmma (MHA: no head split)
+    assert rows["pallas"]["flash_by_path"] == {"ffma": 0, "wgmma": 2 * n * s, "bwd_ffma": 0,
+                                               "bwd_wgmma": n * s}
+    assert rows["pallas"]["bwd_kernels"] == {"preprocess": n * s, "dkdv": n * s, "dq": n * s,
+                                             "reduce": 0}
+    assert_bwd_shapes_gated(shapes)
     first = [rows[impl]["losses"][0] for impl in ("chunked", "pallas")]
     gap = abs(first[1] - first[0]) / abs(first[0])
     say(f"  first step's loss: flash {first[1]:.6f} against chunked {first[0]:.6f} (relative "
@@ -4412,8 +4509,10 @@ def run_flash_whisper_train(torch, fa_ops, counters, device):
         masks.append(kw.get("causal", True))
         return real(q, k, v, *a, **kw)
 
+    shapes = set()
     t0 = time.perf_counter()
-    with mock.patch.object(fa_ops, "flash_attention", tally):
+    with mock.patch.object(fa_ops, "flash_attention", tally), \
+            capture_bwd_calls(fa_ops, {}, (), shapes):
         new, state, metrics = step(params, state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4430,8 +4529,9 @@ def run_flash_whisper_train(torch, fa_ops, counters, device):
         f"calls bidirectional, backward kernels {kernels}")
     want = {**{k: 0 for k in launches}, "flash_attention": n_fwd, "flash_attention_bwd": n_self}
     assert launches == want, (launches, want)
-    assert paths == {"ffma": 0, "wgmma": n_fwd, "bwd_ffma": n_self}, paths
+    assert paths == {"ffma": 0, "wgmma": n_fwd, "bwd_ffma": 0, "bwd_wgmma": n_self}, paths
     assert len(masks) == n_fwd and masks.count(False) == n_fwd // n_self * cfg.n_enc_layers, masks
+    assert_bwd_shapes_gated(shapes)
     assert math.isfinite(loss) and changed == n_leaves, (loss, changed, n_leaves)
     del params, new, state, batch
     free_card(torch)
@@ -4443,19 +4543,23 @@ def run_flash_train_phase(torch, fa_ops, fa_ref, counters, smi, device="cuda"):
     """Phase 30: train through flash.  (a) kernel gates, (b) timings, (c)
     training: qwen-100m's f32 twin, qwen1.5-0.5b at full width, whisper-base."""
     free_card(torch)
-    say("PHASE 30 train through flash: the backward of flash_attention (three FFMA kernels) "
-        "against its plain version, timed, and training on it under attn_impl=\"pallas\"")
+    say("PHASE 30 train through flash: the backward of flash_attention (bf16 on the tensor "
+        "cores, bwd_wgmma; f32 and bf16 forced on FFMA, bwd_ffma) against its plain version, "
+        "timed, and training on it under attn_impl=\"pallas\"")
     say(f"  card: {smi}")
     t0 = time.perf_counter()
     # BWD_LAUNCHES is never reset before this phase: no earlier phase launched a backward
     assert not any(fa_ops.BWD_LAUNCHES.values()), fa_ops.BWD_LAUNCHES
-    say("  (a) the lse and dq, dk, dv against their plain versions, every FLASH_CASES case")
+    say("  (a) the lse and dq, dk, dv against their plain versions, every FLASH_CASES case and "
+        "the steps' training shapes")
     worst = check_flash_bwd(torch, fa_ops, fa_ref)
     say("  (b) timings")
     timings = {TRAIN_ATTN_SHAPE: time_flash_bwd(torch, fa_ops, fa_ref, TRAIN_ATTN_SHAPE, f32=True)}
     for shape in (SERVE_SHAPE, RG_ATTN_SHAPE, OLMOE_ATTN_SHAPE, WHISPER_ENC_SHAPE,
                   INTERNVL_ATTN_SHAPE):
         timings[shape] = time_flash_bwd(torch, fa_ops, fa_ref, shape)
+    # bf16 forced onto the FFMA kernels once, at the training shape
+    timings["bwd_ffma"] = time_flash_bwd(torch, fa_ops, fa_ref, TRAIN_ATTN_SHAPE, path="bwd_ffma")
     say("  (c) training: qwen-100m card against CPU on the flash route")
     zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES))
     twin = run_train_twin(torch, device, attn_impl="pallas")
@@ -4465,7 +4569,8 @@ def run_flash_train_phase(torch, fa_ops, fa_ref, counters, smi, device="cuda"):
             "flash_attention_bwd": 3 * n}
     say(f"  qwen-100m launches on the card {twin_launches}, flash by path {twin_paths}")
     assert twin_launches == want, (twin_launches, want)
-    assert twin_paths == {"ffma": 3 * n, "wgmma": 0, "bwd_ffma": 3 * n}, twin_paths
+    # f32: the forward on ffma, the backward on bwd_ffma
+    assert twin_paths == {"ffma": 3 * n, "wgmma": 0, "bwd_ffma": 3 * n, "bwd_wgmma": 0}, twin_paths
     say(f"  (c) {TRAIN_ARCH} at full width, {FLASH_TRAIN_STEPS} steps on each route")
     qwen = run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device)
     say(f"  (c) {WHISPER_ARCH}, one step on the flash route")
@@ -4798,7 +4903,6 @@ RGLRU_BWD_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu"
 RGLRU_GRADS = ("dlog_a", "db")
 # recurrentgemma-9b's scan and attention in a train step of batch 8 x 128
 RGLRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 4096)
-RG_TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 1, 256, True, 2048)
 RG_TRAIN_STEPS = 4
 RG_TRAIN_LOSS_REL_TOL = 2e-2    # the first step's loss, kernel routes against plain (bf16)
 
@@ -4937,7 +5041,7 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
         f"{cfg.optimizer} clip {cfg.grad_clip:g}), batch {TRAIN_BATCH} x {TRAIN_SEQ}")
     params0 = params_init(torch, cfg, device)
     batch = train_batch(torch, cfg, device)
-    rows, caps = {}, {}
+    rows, caps, shapes = {}, {}, set()
     routes = {"plain": dict(attn_impl="chunked", rglru_impl="associative"),
               "kernels": dict(attn_impl="pallas", rglru_impl="pallas")}
     for label, over in routes.items():
@@ -4949,7 +5053,8 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
         zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES, lru_ops.BWD_LAUNCHES))
         losses, walls = [], []
         keep = (0, n_lru - 1) if label == "kernels" else ()
-        with capture_calls(lru_ops, "rglru_bwd", caps, keep):
+        with capture_calls(lru_ops, "rglru_bwd", caps, keep), \
+                capture_bwd_calls(fa_ops, {}, (), shapes):
             for _ in range(RG_TRAIN_STEPS):
                 t0 = time.perf_counter()
                 params, state, metrics = step(params, state, batch)
@@ -4980,7 +5085,9 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
                  "flash_attention": 2 * n_attn * s, "flash_attention_bwd": n_attn * s})
     assert rows["kernels"]["launches"] == want, (rows["kernels"]["launches"], want)
     paths = rows["kernels"]["flash_by_path"]
-    assert paths["ffma"] + paths["wgmma"] == 2 * n_attn * s and paths["bwd_ffma"] == n_attn * s, paths
+    assert paths["ffma"] + paths["wgmma"] == 2 * n_attn * s, paths
+    assert paths["bwd_wgmma"] == n_attn * s and paths["bwd_ffma"] == 0, paths    # bf16, aligned
+    assert_bwd_shapes_gated(shapes)
     assert rows["kernels"]["rglru_bwd_kernels"] == {"reverse_scan": n_lru * s}
     first = [rows[label]["losses"][0] for label in routes]
     gap = abs(first[1] - first[0]) / abs(first[0])
@@ -5114,9 +5221,12 @@ def main() -> int:
         f"{path}: " + ", ".join(f"D<={d} {fa_ops.library().repro_flash_attention_smem_bytes(code, d)} B"
                                 for d in (32, 64, 128, 256))
         for path, code in fa_ops.PATHS.items()))
-    say("  flash_attention backward dynamic shared memory a block (dK/dV, dQ): " + ", ".join(
+    say("  flash_attention backward dynamic shared memory a block (dK/dV, dQ): bwd_ffma: " + ", ".join(
         f"D<={d} {fa_ops.library().repro_flash_attention_bwd_smem_bytes(d, 0)}, "
-        f"{fa_ops.library().repro_flash_attention_bwd_smem_bytes(d, 1)} B" for d in (32, 64, 128, 256)))
+        f"{fa_ops.library().repro_flash_attention_bwd_smem_bytes(d, 1)} B" for d in (32, 64, 128, 256))
+        + "; bwd_wgmma: " + ", ".join(
+        f"D<={d} {fa_ops.library().repro_flash_attention_bwd_wgmma_smem_bytes(d, 0)}, "
+        f"{fa_ops.library().repro_flash_attention_bwd_wgmma_smem_bytes(d, 1)} B" for d in (64, 128, 256)))
     say("  ssd_scan dynamic shared memory a block: " + "; ".join(
         f"{path}: " + ", ".join(f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(code, p, n)} B"
                                 for p, n in ((16, 32), (16, 128), (64, 32), (64, 64), (64, 128)))
@@ -5458,29 +5568,37 @@ def main() -> int:
         INTERNVL_ARCH: {k: flash_rows[INTERNVL_ATTN_SHAPE][k] for k in flash_keys},
         "served_layers_bf16_rel_norm": {WHISPER_ARCH: whisper_layer_err},
     })
-    bwd_row = bwd_rows[TRAIN_ATTN_SHAPE]
     bwd_keys = (*timing_keys, "gflop", "issued_gflop", "io_mb", "tflops_issued", "shape")
-    kernels.append({
-        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SOURCE,
-        "replaces": "src/repro/kernels/flash_attention/ops.py:43",
-        "launches": sum(counts["flash_attention_bwd"]
-                        for counts, _ in (*bwd_runs.values(), *lru_train.values())),
-        "launches_by_path": {**{f"{k} (phase 30)": counts["flash_attention_bwd"]
-                                for k, (counts, _) in bwd_runs.items()},
-                             **{k: counts["flash_attention_bwd"]
-                                for k, (counts, _) in lru_train.items()}},
-        "launches_note": "backward calls of phases 30 and 32's training runs, three kernel "
-                         "launches each (preprocess, dK/dV, dQ); 0 in phases 1-29",
-        "path": "ffma", "dtype": "bfloat16",
-        "max_abs_err": bwd_errs["bfloat16"]["max_abs_err"], "max_err_by_dtype": bwd_errs,
-        **{k: bwd_row[k] for k in bwd_keys}, "f32_ms": bwd_row["f32_ms"],
-        SERVE_ARCH: {k: bwd_rows[SERVE_SHAPE][k] for k in bwd_keys},
-        RGEMMA_ARCH: {k: bwd_rows[RG_ATTN_SHAPE][k] for k in bwd_keys},
-        OLMOE_ARCH: {k: bwd_rows[OLMOE_ATTN_SHAPE][k] for k in bwd_keys},
-        f"{WHISPER_ARCH} encoder": {k: bwd_rows[WHISPER_ENC_SHAPE][k] for k in bwd_keys},
-        INTERNVL_ARCH: {k: bwd_rows[INTERNVL_ATTN_SHAPE][k] for k in bwd_keys},
-        f"{RGEMMA_ARCH} training shape": {k: rg_flash_bwd[k] for k in bwd_keys},
-    })
+    bwd_calls = {**{f"{k} (phase 30)": (counts, paths) for k, (counts, paths) in bwd_runs.items()},
+                 **lru_train}
+    for path, source, row in (("bwd_wgmma", FLASH_BWD_WGMMA_SOURCE, bwd_rows[TRAIN_ATTN_SHAPE]),
+                              ("bwd_ffma", FLASH_BWD_SOURCE, bwd_rows["bwd_ffma"])):
+        entry = {
+            "name": "flash_attention_bwd" + ("_wgmma" if path == "bwd_wgmma" else ""),
+            "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/flash_attention/ops.py:43",
+            "launches": sum(paths[path] for _, paths in bwd_calls.values()),
+            "launches_by_path": {k: paths[path] for k, (_, paths) in bwd_calls.items()},
+            "launches_note": "backward calls on this path in phases 30 and 32's training runs "
+                             "(bf16 on bwd_wgmma, the f32 twin on bwd_ffma), a launch each of "
+                             "preprocess, dK/dV and dQ (bwd_wgmma: and of the split reduce "
+                             "where the heads are split); 0 in phases 1-29",
+            "path": path, "dtype": "bfloat16",
+            "max_abs_err": bwd_errs[f"bfloat16 {path}"]["max_abs_err"],
+            "max_err_by_dtype": {k: v for k, v in bwd_errs.items() if k.endswith(path)},
+            **{k: row[k] for k in bwd_keys},
+        }
+        if path == "bwd_wgmma":
+            entry.update({
+                SERVE_ARCH: {k: bwd_rows[SERVE_SHAPE][k] for k in bwd_keys},
+                RGEMMA_ARCH: {k: bwd_rows[RG_ATTN_SHAPE][k] for k in bwd_keys},
+                OLMOE_ARCH: {k: bwd_rows[OLMOE_ATTN_SHAPE][k] for k in bwd_keys},
+                f"{WHISPER_ARCH} encoder": {k: bwd_rows[WHISPER_ENC_SHAPE][k] for k in bwd_keys},
+                INTERNVL_ARCH: {k: bwd_rows[INTERNVL_ATTN_SHAPE][k] for k in bwd_keys},
+                f"{RGEMMA_ARCH} training shape": {k: rg_flash_bwd[k] for k in bwd_keys}})
+        else:
+            entry["f32_ms"] = bwd_rows[TRAIN_ATTN_SHAPE]["f32_ms"]
+        kernels.append(entry)
     for name, source, replaces_at, path_launches in (
             ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:63", mamba_launches),
             ("rglru_scan", RGLRU_SOURCE, "src/repro/kernels/rglru_scan/kernel.py:44",
@@ -5552,11 +5670,14 @@ def main() -> int:
                                                    "host_ms", "splits", "shape", "max_abs_err")},
     })
     served_by = {"flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
+    # the counters count backward calls, not paths: both paths read the calls' 0 there
+    counter = {"flash_attention_bwd_wgmma": "flash_attention_bwd"}
     for k in kernels:
+        name = counter.get(k["name"], k["name"])
         k.setdefault("launches_by_path", {served_by.get(k["name"]): k["launches"]})
         k["launches_by_path"]["hierarchical tree (phase 26, script process)"] = \
-            hier_launches[k["name"]]
-        k["launches_by_path"].setdefault(train_key, train_launches[k["name"]])
+            hier_launches[name]
+        k["launches_by_path"].setdefault(train_key, train_launches[name])
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

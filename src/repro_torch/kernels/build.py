@@ -1,9 +1,11 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` compiles the ``.cu``
-files of the checkout into ``kernels/_build/`` (listed in ``.gitignore``),
-named by a hash of the sources and flags so an edited source never loads a
-stale library.  The library has a plain C interface and is loaded with
+``nvcc -gencode arch=compute_90a,code=sm_90a -c`` compiles each ``.cu`` file
+of a library into an object, one ``nvcc`` a source, all started together,
+and ``nvcc -shared`` links them into ``kernels/_build/`` (listed in
+``.gitignore``), named by a hash of the sources, the ``.cuh`` headers beside
+them and the flags, so an edited source or header never loads a stale
+library.  The library has a plain C interface and is loaded with
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.  Nothing is built at import: the first launch builds.
 """
@@ -17,12 +19,13 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()                 # guards _LOCKS
 _LOCKS: Dict[str, threading.Lock] = {}   # one per library: different libraries build in parallel
@@ -44,33 +47,44 @@ def _nvcc() -> str:
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     """Compile ``sources`` into ``lib<name>-<hash>.so`` once, then load it.
 
-    Concurrent builders (several processes on one checkout) each compile to
-    a private temporary file and rename it into place atomically; threads of
-    one process build different libraries at the same time."""
+    Concurrent builders (several processes on one checkout) each compile in
+    a private temporary directory and rename the library into place
+    atomically; threads of one process build different libraries, and the
+    sources of one library, at the same time."""
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib
+        sources = [Path(src) for src in sources]
+        headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
-            h.update(Path(src).read_bytes())
+        for src in (*sources, *headers):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
         BUILD_SECONDS[name] = 0.0
         if not target.exists():
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-            os.close(fd)
+            work = Path(tempfile.mkdtemp(dir=BUILD_DIR, suffix=".tmp"))
+            objs = [work / f"{i}-{src.stem}.o" for i, src in enumerate(sources)]
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-                capture_output=True, text=True)
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-            BUILD_LOG[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed for {name}:\n{BUILD_LOG[name]}")
-            os.replace(tmp, target)
+            try:
+                with ThreadPoolExecutor(len(sources)) as pool:
+                    procs = list(pool.map(lambda so: subprocess.run(
+                        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(so[1]), str(so[0])],
+                        capture_output=True, text=True), zip(sources, objs)))
+                if all(p.returncode == 0 for p in procs):
+                    procs.append(subprocess.run(
+                        [_nvcc(), "-shared", "-o", str(work / "lib.so"), *map(str, objs)],
+                        capture_output=True, text=True))
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                BUILD_LOG[name] = "".join(p.stdout + p.stderr for p in procs)
+                if any(p.returncode != 0 for p in procs):
+                    raise RuntimeError(f"nvcc failed for {name}:\n{BUILD_LOG[name]}")
+                os.replace(work / "lib.so", target)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
         lib = _LOADED[name] = ctypes.CDLL(str(target))
         return lib

@@ -11,8 +11,8 @@ tensor's device picks the implementation:
 * a CUDA tensor launches ``csrc/flash_attention.cu`` or raises; nothing
   falls back to the plain version.  Under grad (grad mode on and an input
   that requires it) the call goes through ``FlashAttention``, whose forward
-  also saves each row's log-sum-exp and whose backward launches the three
-  kernels of ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``);
+  also saves each row's log-sum-exp and whose backward launches the
+  backward's kernels (``flash_attention_bwd``);
 * a CPU tensor takes the plain version in ``ref.py``, with torch's own
   autograd.
 
@@ -21,14 +21,21 @@ from the dtype, D and the operands' alignment: ``wgmma`` (bf16 with 16-byte
 rows, both products on the tensor cores) and ``ffma`` (f32, and bf16 that
 is not aligned so).  ``LAUNCHES["flash_attention"]`` counts forward
 launches and ``PATH_LAUNCHES`` the same launches by path, so a run can show
-which path its attention went through.  The backward has one path, ``ffma`` (f32 and
-bf16, D <= 256): ``LAUNCHES["flash_attention_bwd"]`` and
-``PATH_LAUNCHES["bwd_ffma"]`` count its calls, ``BWD_LAUNCHES`` each of its
-three kernels.  ``kv_tiles`` is the kernels' block-skip: the KV tiles a
-query tile visits; ``q_tiles`` its mirror, the query tiles that see a KV
-tile.  A config with ``attn_impl="pallas"`` trains through the kernels;
-the reference's own training default, ``attention_chunked``, stays the
-default here too.
+which path its attention went through.  The backward has two paths, picked
+by ``choose_bwd_path`` from the same conditions on q, k, v, o and dO:
+``bwd_wgmma`` (bf16 with 16-byte rows: ``csrc/flash_attention_bwd_wgmma.cu``,
+every product on the tensor cores, a group's query heads split across
+blocks where the grid is too small for the card, ``bwd_head_splits``) and
+``bwd_ffma`` (f32, whose 1e-4 gradients one TF32 pass would miss, and bf16
+that is not aligned so: ``csrc/flash_attention_bwd.cu``, scalar FFMA).
+``LAUNCHES["flash_attention_bwd"]`` counts backward calls, ``PATH_LAUNCHES``
+the same calls by path, and ``BWD_LAUNCHES`` each kernel's launches
+(``preprocess``, ``dkdv``, ``dq``, and ``reduce``, the sum of a head
+split's partials, only where there is a split).  ``kv_tiles`` is the
+kernels' block-skip: the KV tiles a query tile visits; ``q_tiles`` its
+mirror, the query tiles that see a KV tile.  A config with
+``attn_impl="pallas"`` trains through the kernels; the reference's own
+training default, ``attention_chunked``, stays the default here too.
 """
 from __future__ import annotations
 
@@ -45,16 +52,19 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu")
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu",
+           _CSRC / "flash_attention_bwd_wgmma.cu")
 
 #: forward launches and backward calls so far; callers reset them to 0 to count a run
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 #: the same by path: the forward's paths, and the backward's
-PATH_LAUNCHES = {"ffma": 0, "wgmma": 0, "bwd_ffma": 0}
+PATH_LAUNCHES = {"ffma": 0, "wgmma": 0, "bwd_ffma": 0, "bwd_wgmma": 0}
 #: the backward's kernels, one launch each a backward call that needs them
-BWD_LAUNCHES = {"preprocess": 0, "dkdv": 0, "dq": 0}
+BWD_LAUNCHES = {"preprocess": 0, "dkdv": 0, "dq": 0, "reduce": 0}
 #: the forward's paths: code of the C entry
 PATHS = {"ffma": 0, "wgmma": 1}
+#: the backward's paths
+BWD_PATHS = ("bwd_ffma", "bwd_wgmma")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
@@ -77,14 +87,30 @@ def library() -> ctypes.CDLL:
                                                    _I, _I, _I, _I, _LL, _F, _I, _I, _P]
     lib.repro_flash_attention_bwd_dq.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                                  _I, _I, _LL, _F, _I, _I, _P]
+    lib.repro_flash_attention_bwd_wgmma_preprocess.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
+                                                               _I, _LL, _F, _P]
+    lib.repro_flash_attention_bwd_wgmma_dkdv.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                                         _I, _I, _I, _I, _I, _I, _I, _LL, _I, _I,
+                                                         _P]
+    lib.repro_flash_attention_bwd_wgmma_dq.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                                       _I, _I, _LL, _F, _I, _I, _P]
+    lib.repro_flash_attention_bwd_split_reduce.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _LL,
+                                                           _P]
     lib.repro_flash_attention_smem_bytes.argtypes = [_I, _I]
     lib.repro_flash_attention_tile.argtypes = [_I, _I, _I]
     lib.repro_flash_attention_bwd_smem_bytes.argtypes = [_I, _I]
     lib.repro_flash_attention_bwd_tile.argtypes = [_I, _I]
+    lib.repro_flash_attention_bwd_wgmma_smem_bytes.argtypes = [_I, _I]
+    lib.repro_flash_attention_bwd_wgmma_tile.argtypes = [_I, _I]
     for fn in (lib.repro_flash_attention, lib.repro_flash_attention_bwd_preprocess,
                lib.repro_flash_attention_bwd_dkdv, lib.repro_flash_attention_bwd_dq,
+               lib.repro_flash_attention_bwd_wgmma_preprocess,
+               lib.repro_flash_attention_bwd_wgmma_dkdv, lib.repro_flash_attention_bwd_wgmma_dq,
+               lib.repro_flash_attention_bwd_split_reduce,
                lib.repro_flash_attention_smem_bytes, lib.repro_flash_attention_tile,
-               lib.repro_flash_attention_bwd_smem_bytes, lib.repro_flash_attention_bwd_tile):
+               lib.repro_flash_attention_bwd_smem_bytes, lib.repro_flash_attention_bwd_tile,
+               lib.repro_flash_attention_bwd_wgmma_smem_bytes,
+               lib.repro_flash_attention_bwd_wgmma_tile):
         fn.restype = _I
     for path, code in PATHS.items():
         for d in (32, 64, 128, 256):
@@ -93,10 +119,12 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"flash path {path}, D={d}: the kernel's tile {got} differs "
                                    f"from {tiles(path, d)}")
     for d in (32, 64, 128, 256):
-        got = (lib.repro_flash_attention_bwd_tile(d, 0), lib.repro_flash_attention_bwd_tile(d, 1))
-        if got != bwd_tiles(d):
-            raise RuntimeError(f"flash backward, D={d}: the kernel's tile {got} differs from "
-                               f"{bwd_tiles(d)}")
+        ffma = (lib.repro_flash_attention_bwd_tile(d, 0), lib.repro_flash_attention_bwd_tile(d, 1))
+        wgmma = tuple(lib.repro_flash_attention_bwd_wgmma_tile(d, i) for i in range(4))
+        for path, got in (("bwd_ffma", (ffma, ffma)), ("bwd_wgmma", (wgmma[:2], wgmma[2:]))):
+            if got != bwd_tiles(path, d):
+                raise RuntimeError(f"flash backward {path}, D={d}: the kernels' tiles {got} "
+                                   f"differ from {bwd_tiles(path, d)}")
     return lib
 
 
@@ -107,10 +135,47 @@ def tiles(path: str, d: int) -> Tuple[int, int]:
     return 64, 64
 
 
-def bwd_tiles(d: int) -> Tuple[int, int]:
-    """(query rows, keys) of the backward's tiles at head size ``d``: 32 keys
-    at D = 256 keep q^, dO, K, V, P and dS in 227 KB of shared memory."""
-    return 64, 64 if d <= 128 else 32
+def bwd_tiles(path: str, d: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The backward's tiles on ``path`` at head size ``d``: (query rows,
+    keys) of the dK/dV kernel's (q tile a step, KV tile a block) and of the
+    dQ kernel's (q tile a block, KV tile a step).  ``bwd_ffma``: 64 x 64 in
+    both, 32 keys at D = 256 (q^, dO, K, V, P and dS as f32 in 227 KB of
+    shared memory).  ``bwd_wgmma``: 64 x 64 in both (one warpgroup a
+    block), and at D = 256 dK/dV steps 64 q rows over 64 keys (two
+    warpgroups) and dQ 64 rows over 32 keys."""
+    if path == "bwd_wgmma":
+        return ((64, 64), (64, 64)) if d <= 128 else ((64, 64), (64, 32))
+    if path != "bwd_ffma":
+        raise ValueError(f"flash backward: unknown path {path!r}, not one of {BWD_PATHS}")
+    tile = (64, 64 if d <= 128 else 32)
+    return tile, tile
+
+
+def bwd_head_splits(b: int, hk: int, group: int, n_kt: int, sms: int) -> Tuple[int, int]:
+    """(splits, query heads a split) of the ``bwd_wgmma`` dK/dV grid: one
+    block a (batch, KV head, key tile) walks every query head of its group
+    unless those ``b * hk * n_kt`` blocks are fewer than two a
+    multiprocessor (``sms`` of them): then the group's heads are cut into
+    as many splits as ``group // want`` heads a split make, where ``want``
+    splits would give two blocks a multiprocessor (at most one head a
+    split), the heads shared out as evenly as that count allows.  Each split
+    writes partial sums that one more launch adds.  Every head lies in
+    exactly one split, and no split is empty."""
+    blocks = b * hk * n_kt
+    if group <= 1 or blocks >= 2 * sms:
+        return 1, max(group, 1)
+    splits = -(-group // max(1, group // -(-2 * sms // max(blocks, 1))))
+    per = -(-group // splits)
+    return -(-group // per), per
+
+
+def bwd_splits(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int]:
+    """``bwd_head_splits`` of the ``bwd_wgmma`` dK/dV launch for CUDA
+    tensors q and k, on their card."""
+    (b, _, hq, d), (skv, hk) = q.shape, k.shape[1:3]
+    (_, tk), _ = bwd_tiles("bwd_wgmma", d)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return bwd_head_splits(b, hk, hq // hk, -(-skv // tk), sms)
 
 
 def kv_tiles(q_tile: int, sq: int, skv: int, causal: bool, window: Optional[int],
@@ -161,6 +226,20 @@ def choose_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             <= _INT32_MAX):
         return "wgmma"
     return "ffma"
+
+
+def choose_bwd_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    do: torch.Tensor) -> str:
+    """``bwd_wgmma`` for bf16 with 16-byte rows in all five operands (D and
+    the batch, sequence and head strides multiples of 8, pointers 16-byte
+    aligned) whose grids fit; ``bwd_ffma`` for the rest: f32, whose 1e-4
+    gradients a TF32 pass would miss, and bf16 that is not aligned so."""
+    (b, sq, hq, d), skv = q.shape, k.shape[1]
+    (tq, tk), (tq_dq, _) = bwd_tiles("bwd_wgmma", d)
+    if (q.dtype == torch.bfloat16 and d % 8 == 0 and vector_rows(q, k, v, o, do)
+            and b * hq * max(-(-sq // tq_dq), -(-skv // tk)) <= _INT32_MAX):
+        return "bwd_wgmma"
+    return "bwd_ffma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -259,14 +338,18 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, *, causal: bool = True, window: Optional[int] = None,
-    need_dq: bool = True, need_dkdv: bool = True,
+    need_dq: bool = True, need_dkdv: bool = True, path: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(dq, dk, dv) in q's dtype and the model's layout, from the forward's
     inputs, its output ``o`` and ``lse`` and the output's cotangent ``do``
-    (any strides with a unit-stride head dimension).  Three launches:
-    delta = rowsum(dO * O), then dK/dV (``need_dkdv``), then dQ
-    (``need_dq``); what is not needed is None and not launched.  CUDA
-    tensors only: the plain version is ``ref.attention_bwd_ref``."""
+    (any strides with a unit-stride head dimension).  Launches: delta =
+    rowsum(dO * O) (on ``bwd_wgmma`` with q / sqrt(D) rounded once), then
+    dK/dV (``need_dkdv``; on ``bwd_wgmma`` with a head split, one more
+    launch sums the partials), then dQ (``need_dq``); what is not needed is
+    None and not launched.  ``path`` forces one of ``BWD_PATHS`` (both
+    compute the same function; tests hold each); it raises where that path
+    does not take the operands.  CUDA tensors only: the plain version is
+    ``ref.attention_bwd_ref``."""
     _check(q, k, v, window)
     (b, sq, hq, d), (skv, hk) = q.shape, k.shape[1:3]
     for name, t in (("o", o), ("do", do)):
@@ -277,6 +360,15 @@ def flash_attention_bwd(
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} must be "
                          f"({b}, {hq}, {sq}) float32, contiguous, on {q.device}")
+    chosen = choose_bwd_path(q, k, v, o, do)
+    if path is None:
+        path = chosen
+    elif path not in BWD_PATHS:
+        raise ValueError(f"flash_attention_bwd: unknown path {path!r}, not one of {BWD_PATHS}")
+    elif path == "bwd_wgmma" and chosen != path:
+        raise ValueError("flash_attention_bwd: the bwd_wgmma path takes bfloat16 with 16-byte "
+                         "rows in q, k, v, o and do (D and the batch, sequence and head strides "
+                         "multiples of 8)")
     _refuse_rows_without_keys(sq, skv, causal)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) if need_dq else None
     dk = torch.empty_like(k, memory_format=torch.contiguous_format) if need_dkdv else None
@@ -284,36 +376,75 @@ def flash_attention_bwd(
     if q.numel() == 0 or k.numel() == 0:
         return (None if dq is None else dq.zero_(), None if dk is None else dk.zero_(),
                 None if dv is None else dv.zero_())
-    lib, dtype = library(), _DTYPES[q.dtype]
-    scale, win = 1.0 / math.sqrt(d), 0 if window is None else int(window)
+    launch = _bwd_wgmma if path == "bwd_wgmma" else _bwd_ffma
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_bwd_preprocess(
-            dtype, o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, hq, d,
-            _strides(o, do), stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attention_bwd preprocess launch failed: CUDA error {err}")
-        BWD_LAUNCHES["preprocess"] += 1
-        if need_dkdv:
-            err = lib.repro_flash_attention_bwd_dkdv(
-                dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hk, d,
-                _strides(q, k, v, do, dk, dv), scale, int(causal), win, stream)
-            if err != 0:
-                raise RuntimeError(f"flash_attention_bwd dK/dV launch failed: CUDA error {err}")
-            BWD_LAUNCHES["dkdv"] += 1
-        if need_dq:
-            err = lib.repro_flash_attention_bwd_dq(
-                dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), b, sq, skv, hq, hk, d,
-                _strides(q, k, v, do, dq), scale, int(causal), win, stream)
-            if err != 0:
-                raise RuntimeError(f"flash_attention_bwd dQ launch failed: CUDA error {err}")
-            BWD_LAUNCHES["dq"] += 1
+        launch(library(), q, k, v, o, lse, do, delta, dq, dk, dv, int(causal),
+               0 if window is None else int(window), 1.0 / math.sqrt(d),
+               torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["flash_attention_bwd"] += 1
-    PATH_LAUNCHES["bwd_ffma"] += 1
+    PATH_LAUNCHES[path] += 1
     return dq, dk, dv
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd {what} launch failed: CUDA error {err}")
+
+
+def _bwd_ffma(lib, q, k, v, o, lse, do, delta, dq, dk, dv, causal, win, scale, stream) -> None:
+    """The ``bwd_ffma`` launches: delta, dK/dV (dk not None), dQ (dq not None)."""
+    (b, sq, hq, d), (skv, hk) = q.shape, k.shape[1:3]
+    dtype = _DTYPES[q.dtype]
+    _raise_on(lib.repro_flash_attention_bwd_preprocess(
+        dtype, o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, hq, d, _strides(o, do),
+        stream), "preprocess")
+    BWD_LAUNCHES["preprocess"] += 1
+    if dk is not None:
+        _raise_on(lib.repro_flash_attention_bwd_dkdv(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hk, d,
+            _strides(q, k, v, do, dk, dv), scale, causal, win, stream), "dK/dV")
+        BWD_LAUNCHES["dkdv"] += 1
+    if dq is not None:
+        _raise_on(lib.repro_flash_attention_bwd_dq(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, sq, skv, hq, hk, d, _strides(q, k, v, do, dq),
+            scale, causal, win, stream), "dQ")
+        BWD_LAUNCHES["dq"] += 1
+
+
+def _bwd_wgmma(lib, q, k, v, o, lse, do, delta, dq, dk, dv, causal, win, scale, stream) -> None:
+    """The ``bwd_wgmma`` launches: delta and q^ = bf16(q / sqrt(D)) into a
+    (B, Hq, Sq, D) workspace, dK/dV (dk not None; with a head split, into an
+    f32 workspace whose partials one more launch sums), dQ (dq not None)."""
+    (b, sq, hq, d), (skv, hk) = q.shape, k.shape[1:3]
+    qh = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    _raise_on(lib.repro_flash_attention_bwd_wgmma_preprocess(
+        q.data_ptr(), o.data_ptr(), do.data_ptr(), delta.data_ptr(), qh.data_ptr(), b, sq, hq, d,
+        _strides(q, o, do), scale, stream), "preprocess")
+    BWD_LAUNCHES["preprocess"] += 1
+    if dk is not None:
+        splits, per = bwd_splits(q, k)
+        ws = (torch.empty((2 * splits, b, skv, hk, d), dtype=torch.float32, device=q.device)
+              if splits > 1 else None)
+        _raise_on(lib.repro_flash_attention_bwd_wgmma_dkdv(
+            qh.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, sq, skv, hq, hk, d, splits, per, _strides(k, v, do, dk, dv), causal, win, stream),
+            "dK/dV")
+        BWD_LAUNCHES["dkdv"] += 1
+        if ws is not None:
+            _raise_on(lib.repro_flash_attention_bwd_split_reduce(
+                ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), splits, b, skv, hk, d,
+                _strides(dk, dv), stream), "split reduce")
+            BWD_LAUNCHES["reduce"] += 1
+    if dq is not None:
+        _raise_on(lib.repro_flash_attention_bwd_wgmma_dq(
+            qh.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, sq, skv, hq, hk, d, _strides(k, v, do, dq), scale,
+            causal, win, stream), "dQ")
+        BWD_LAUNCHES["dq"] += 1
 
 
 class FlashAttention(torch.autograd.Function):
@@ -321,7 +452,8 @@ class FlashAttention(torch.autograd.Function):
     ``repro/kernels/flash_attention/ops.py:18-46``, whose backward is the
     vjp of ``attention_chunked``; here a kernel).  The forward saves q, k,
     v, o and each row's log-sum-exp; under remat it runs again in the
-    backward's recompute, and each run is a forward launch."""
+    backward's recompute, and each run is a forward launch.  The backward
+    takes the path ``choose_bwd_path`` picks."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, path):

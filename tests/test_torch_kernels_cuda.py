@@ -565,19 +565,34 @@ def _bwd_close(got, want32, dtype):
     return max(_rel(a, b) for a, b in zip(got, want32)) <= 2e-2
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# each backward path with each dtype it takes (bwd_wgmma takes bf16; f32 stays on FFMA)
+FLASH_BWD_PATH_DTYPES = [("bwd_ffma", "float32"), ("bwd_ffma", "bfloat16"),
+                         ("bwd_wgmma", "bfloat16")]
+
+
+def _splits(q, k, path):
+    """1 where the bwd_wgmma dK/dV launch splits the group's heads."""
+    return int(path == "bwd_wgmma" and fa_ops.bwd_splits(q, k)[0] > 1)
+
+
+@pytest.mark.parametrize("path,dtype", FLASH_BWD_PATH_DTYPES)
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
-def test_flash_backward_matches_plain_version(card, case, dtype):
+def test_flash_backward_matches_plain_version(card, case, path, dtype):
     causal, window = case[6:]
     q, k, v, do = _bwd_inputs(case, card, getattr(torch, dtype))
     o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(lse, fa_ref.attention_lse_ref(q, k, causal=causal, window=window),
                                rtol=1e-5, atol=1e-5)
-    before, kernels = dict(fa_ops.LAUNCHES), dict(fa_ops.BWD_LAUNCHES)
-    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    if dtype == "float32" or path == "bwd_wgmma":       # the path the operands take unforced
+        assert fa_ops.choose_bwd_path(q, k, v, o, do) == path
+    before, kernels, paths = (dict(fa_ops.LAUNCHES), dict(fa_ops.BWD_LAUNCHES),
+                              dict(fa_ops.PATH_LAUNCHES))
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window, path=path)
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES == {**before, "flash_attention_bwd": before["flash_attention_bwd"] + 1}
-    assert fa_ops.BWD_LAUNCHES == {key: n + 1 for key, n in kernels.items()}
+    assert fa_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
+    assert fa_ops.BWD_LAUNCHES == {**{key: n + 1 for key, n in kernels.items()},
+                                   "reduce": kernels["reduce"] + _splits(q, k, path)}
     for g, t in zip(got, (q, k, v)):
         assert g.dtype == t.dtype and g.shape == t.shape
     want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
@@ -586,16 +601,76 @@ def test_flash_backward_matches_plain_version(card, case, dtype):
     # control: K rolled by one position fails the limit
     kr = k.roll(1, dims=1)
     o_r, lse_r = fa_ops.flash_attention_fwd(q, kr, v, causal=causal, window=window)
-    rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, causal=causal, window=window)
+    rolled = fa_ops.flash_attention_bwd(q, kr, v, o_r, lse_r, do, causal=causal, window=window,
+                                        path=path)
     for a, b in zip(rolled, want32):
         assert not _bwd_close((a,), (b,), dtype)
+
+
+def test_flash_backward_wgmma_reads_strided_layouts_in_place(card):
+    """bf16 (B, H, S, D) q, k, v and dO viewed as (B, S, H, D) keep 16-byte
+    rows: bwd_wgmma takes them and gives the contiguous result exactly."""
+    case = (2, 200, 200, 8, 2, 128, True, 72)
+    q, k, v, do = _bwd_inputs(case, card, torch.bfloat16)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v, do)]
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, window=72)
+    assert not views[0].is_contiguous()
+    assert fa_ops.choose_bwd_path(*views[:3], o, views[3]) == "bwd_wgmma"
+    want = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, window=72)
+    got = fa_ops.flash_attention_bwd(*views[:3], o, lse, views[3], window=72)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 256, 256, 8, 8, 64, True, None),      # MHA: no head split
+    (1, 300, 300, 8, 1, 128, True, 100),      # MQA on a small grid: heads split, one reduce
+    (1, 130, 130, 4, 1, 256, False, None),    # D = 256, bidirectional, split
+])
+def test_flash_backward_wgmma_is_deterministic(card, case):
+    """No atomics: two calls on the same inputs give the same bits, with and
+    without a head split."""
+    causal, window = case[6:]
+    q, k, v, do = _bwd_inputs(case, card, torch.bfloat16)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    reduces = fa_ops.BWD_LAUNCHES["reduce"]
+    first = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.BWD_LAUNCHES["reduce"] == reduces + 2 * _splits(q, k, "bwd_wgmma")
+    assert _splits(q, k, "bwd_wgmma") == (case[4] == 1)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("how", ["stride", "offset"])
+def test_flash_unaligned_bf16_backward_takes_ffma(card, how):
+    """bf16 q, k, v or dO that 16-byte copies cannot read: the backward
+    takes bwd_ffma (the same bits as forcing it on aligned copies), and
+    forcing bwd_wgmma raises."""
+    case = (2, 96, 160, 4, 2, 64, True, 40)
+    q, k, v, do = _bwd_inputs(case, card, torch.bfloat16)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, window=40)
+    views = [_misaligned(t, how) for t in (q, k, v, do)]
+    assert fa_ops.choose_bwd_path(*views[:3], o, views[3]) == "bwd_ffma"
+    paths = dict(fa_ops.PATH_LAUNCHES)
+    got = fa_ops.flash_attention_bwd(*views[:3], o, lse, views[3], window=40)
+    torch.cuda.synchronize()
+    assert fa_ops.PATH_LAUNCHES == {**paths, "bwd_ffma": paths["bwd_ffma"] + 1}
+    want = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, window=40, path="bwd_ffma")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention_bwd(*views[:3], o, lse, views[3], window=40, path="bwd_wgmma")
 
 
 def test_flash_counts_with_and_without_grad(card):
     """Without grad one forward launch that stores no lse (its output the
     grad forward's bit for bit); with grad the Function's forward and one
-    backward call of three launches; an input that needs no gradient gets
-    none, and dQ alone skips the dK/dV kernel."""
+    backward call of three launches on bwd_wgmma (aligned bf16), and a
+    fourth, the split reduce, where ``bwd_head_splits`` cuts GQA 8/2's heads
+    on this small grid; an input that needs no gradient gets none, and dQ
+    alone skips the dK/dV kernel and the reduce."""
     q, k, v, do = _bwd_inputs((2, 160, 160, 8, 2, 64), card, torch.bfloat16)
     counters = (fa_ops.LAUNCHES, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES)
 
@@ -608,8 +683,8 @@ def test_flash_counts_with_and_without_grad(card):
 
     plain, counts = counted(lambda: fa_ops.flash_attention(q, k, v, window=40))
     assert counts == ({"flash_attention": 1, "flash_attention_bwd": 0},
-                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 0},
-                      {"preprocess": 0, "dkdv": 0, "dq": 0})
+                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 0, "bwd_wgmma": 0},
+                      {"preprocess": 0, "dkdv": 0, "dq": 0, "reduce": 0})
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     with torch.no_grad():
         _, counts = counted(lambda: fa_ops.flash_attention(qg, kg, vg, window=40))
@@ -622,14 +697,14 @@ def test_flash_counts_with_and_without_grad(card):
     (out, grads), counts = counted(step)
     assert torch.equal(out, plain)
     assert counts == ({"flash_attention": 1, "flash_attention_bwd": 1},
-                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 1},
-                      {"preprocess": 1, "dkdv": 1, "dq": 1})
+                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 0, "bwd_wgmma": 1},
+                      {"preprocess": 1, "dkdv": 1, "dq": 1, "reduce": _splits(q, k, "bwd_wgmma")})
     want = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), window=40)
     assert max(_rel(a, b) for a, b in zip(grads, want)) <= 2e-2
     qg = q.clone().requires_grad_()
     (_, (dq,)), counts = counted(
         lambda: (None, torch.autograd.grad(fa_ops.flash_attention(qg, k, v, window=40), qg, do)))
-    assert counts[2] == {"preprocess": 1, "dkdv": 0, "dq": 1}
+    assert counts[2] == {"preprocess": 1, "dkdv": 0, "dq": 1, "reduce": 0}
     assert _rel(dq, want[0]) <= 2e-2
 
 

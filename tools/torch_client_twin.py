@@ -12,6 +12,18 @@ gradient element is rounding noise the two devices move it by up to
 
     PYTHONPATH=src python tools/torch_client_twin.py [--model resnet]
 
+``--wave`` reads phase 23's own twin instead (default model: the CNN with
+the local tower): the model's two rounds through the trainer, run twice
+with cuDNN free and twice restricted to deterministic algorithms, say
+whether round 2's wave and globals come out the same; the same wave from
+the same globals twice on the card says whether cuDNN alone changes the
+bits, and the wave's deltas summed in two orders whether the aggregation
+order does.  Then every client of round 2's wave is held card against
+CPU from round 2's globals after 1 to 10 local steps, each with its
+three worst leaves and its leaves' delta norms.
+
+    PYTHONPATH=src python tools/torch_client_twin.py --wave [--model "cnn + local model"]
+
 The last line of its output is one JSON object with every reading.
 """
 from __future__ import annotations
@@ -38,12 +50,17 @@ def main() -> int:
 
     models = {name: (fields, dataset) for name, fields, dataset, _, _ in cs.CLIENT_MODELS}
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="resnet", choices=sorted(models))
+    ap.add_argument("--model", default=None, choices=sorted(models))
+    ap.add_argument("--wave", action="store_true",
+                    help="phase 23's round-2 twin: run-to-run drift and every client of the wave")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.smi_line()
     print(f"card: {card}", flush=True)
+    if args.wave:
+        return wave_study(torch, cs, args.model or "cnn + local model", card)
+    args.model = args.model or "resnet"
     fields, dataset = models[args.model]
     mcfg = SmallModelConfig(**fields)
     params = init_small(0, mcfg, device="cpu")
@@ -76,6 +93,85 @@ def main() -> int:
                 print(json.dumps(row), flush=True)
     print(json.dumps({"card": card, "model": args.model, "clients": len(cids),
                       "limit": cs.TWIN_REL_TOL, "readings": readings}))
+    return 0
+
+
+def wave_study(torch, cs, model, card):
+    """Phase 23's twin of ``model`` taken apart (see the module docstring)."""
+    import contextlib
+
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    _, fields, dataset, opt_name, lr = next(m for m in cs.CLIENT_MODELS if m[0] == model)
+    out = {"card": card, "model": model, "limit": cs.TWIN_REL_TOL}
+
+    def two_rounds(deterministic):
+        mcfg, trainer, rounds, _ = cs.client_rounds(torch, fields, dataset, opt_name, lr,
+                                                    deterministic=deterministic)
+        return mcfg, trainer, rounds
+
+    def cudnn(deterministic):
+        return cs.cudnn_deterministic(torch) if deterministic else contextlib.nullcontext()
+
+    drift = {}
+    for det in (False, True):
+        runs = [two_rounds(det) for _ in range(2)]
+        (mcfg, trainer, r1), (_, _, r2) = runs
+        starts = [tree_leaves(r[1]["start"]) for r in (r1, r2)]
+        row = {"round1_finishers": [r1[0]["cids"], r2[0]["cids"]],
+               "round2_finishers": [r1[1]["cids"], r2[1]["cids"]],
+               "round1_same_set": sorted(r1[0]["cids"]) == sorted(r2[0]["cids"]),
+               "round1_same_order": r1[0]["cids"] == r2[0]["cids"],
+               "round2_globals_bit_equal": cs.same_bits(torch, *starts),
+               "round2_globals_max_abs": max(float((a - b).abs().max())
+                                             for a, b in zip(*starts))}
+        # the same wave from the same globals twice on the card
+        cids = cs.twin_clients(r1[1]["cids"])
+        with cudnn(det):
+            waves = [cs.kind_wave(torch, mcfg, dataset, trainer.opt, cids, r1[1]["start"], "cuda")
+                     for _ in range(2)]
+        row["same_wave_twice_bit_equal"] = all(cs.same_bits(torch, a, b) for a, b in zip(*waves))
+        row["same_wave_twice_gap"] = cs.wave_gap(waves[0], waves[1])
+        drift["deterministic" if det else "free"] = row
+        print(json.dumps({"cudnn": "deterministic" if det else "free", **row}), flush=True)
+    # the aggregation order: the wave's deltas summed forwards and backwards on the card
+    leaves = [[t.cuda() for t in c] for c in waves[0]]
+    fwd = [sum(c[j] for c in leaves) for j in range(len(leaves[0]))]
+    bwd = [sum(c[j] for c in reversed(leaves)) for j in range(len(leaves[0]))]
+    drift["sum_order_bit_equal"] = cs.same_bits(torch, fwd, bwd)
+    drift["sum_order_max_abs"] = max(float((a - b).abs().max()) for a, b in zip(fwd, bwd))
+    print(json.dumps({"sum_order_bit_equal": drift["sum_order_bit_equal"],
+                      "sum_order_max_abs": drift["sum_order_max_abs"]}), flush=True)
+    out["drift"] = drift
+
+    # every client of round 2's wave (deterministic run), card against CPU, 1..10 steps
+    mcfg, trainer, rounds = two_rounds(True)
+    start, wave = rounds[1]["start"], sorted(rounds[1]["cids"])
+    keys = [k for k, _ in tree_flatten_with_path(start)]
+    per_step, steps_saved = {}, cs.CLIENTS_STEPS
+    try:
+        for steps in range(1, steps_saved + 1):
+            cs.CLIENTS_STEPS = steps
+            want = cs.kind_wave(torch, mcfg, dataset, trainer.opt, wave, start, "cpu")
+            with cudnn(True):
+                got = cs.kind_wave(torch, mcfg, dataset, trainer.opt, wave, start, "cuda")
+            clients = {}
+            for cid, g, w in zip(wave, got, want):
+                rel = [(float((a - b).norm() / b.norm()) if float(b.norm()) else 0.0,
+                        float(b.norm()), k) for a, b, k in zip(g, w, keys)]
+                clients[cid] = {"gap": cs.wave_gap([g], [w]),
+                                "worst_leaves": sorted(rel, reverse=True)[:3]}
+            per_step[steps] = clients
+            worst = max(clients.items(), key=lambda kv: kv[1]["gap"][0])
+            print(json.dumps({"steps": steps, "worst_client": worst[0], **worst[1],
+                              "over_limit": [c for c, v in clients.items()
+                                             if v["gap"][0] >= cs.TWIN_REL_TOL]}), flush=True)
+    finally:
+        cs.CLIENTS_STEPS = steps_saved
+    out["wave"] = wave
+    out["twin_clients"] = cs.twin_clients(rounds[1]["cids"])
+    out["per_step"] = per_step
+    print(json.dumps(out))
     return 0
 
 
