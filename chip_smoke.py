@@ -364,30 +364,37 @@ Phases (any failure exits non-zero before the last line is printed):
              cross-attention on ``attention_chunked``, every leaf changed.  Every other kernel
              reads 0 launches.  No earlier phase launches a backward
              kernel (``ops.BWD_LAUNCHES`` is 0 when the phase starts);
-31. train through ssd_scan — the backward of ``ssd_scan``
-             (``csrc/ssd_scan_bwd.cu``: states, dchunk, group_sum; FFMA) and
-             training on it under ``ssm_impl="pallas"``: (a) on every
-             SSD_CASES case in f32 and bf16, with and without a cotangent of
-             the final state, dx, ddt, da, dB, dC against ``ssd_bwd_ref``
-             (f32 allclose 1e-4 against it run in f64, relative norms at the
+31. train through ssd_scan — the backward of ``ssd_scan`` on its two
+             paths (states, dchunk, group_sum each: ``bwd_wgmma``,
+             ``csrc/ssd_scan_bwd_wgmma.cu``, every product on the tensor
+             cores, for aligned bf16 with N above 32; ``bwd_ffma``,
+             ``csrc/ssd_scan_bwd.cu``, FFMA, for f32 and the rest of bf16)
+             and training on it under ``ssm_impl="pallas"``: (a) on every
+             SSD_CASES case in f32 (``bwd_ffma``) and bf16 (``bwd_wgmma``
+             where it takes the case, twice, bit for bit; ``bwd_ffma``
+             forced on all), with and without a cotangent of the final
+             state, dx, ddt, da, dB, dC against ``ssd_bwd_ref`` (f32
+             allclose 1e-4 against it run in f64, relative norms at the
              serve shape as phase 10 holds the forward there; bf16 relative
              norms 2e-2 against it in f32 on the same inputs), the f32 plain
              version's own distance to f64 printed, B and C rolled one step
              together failing every limit, the strong decay's gradients
              finite; (b) the backward timed at mamba2-1.3b's training shape
-             (8 x 128; f32 too) and its serve shape beside the plain version
-             (autograd through ``ssd_chunked`` at chunk 256) and the bound,
-             with the FLOPs it issues; (c) mamba2-1.3b at full width (48
+             (8 x 128) and its serve shape on ``bwd_wgmma``, bf16 forced on
+             ``bwd_ffma`` (the FFMA kernels as the parent shipped them) and
+             f32, beside the plain version (autograd through
+             ``ssd_chunked`` at chunk 256) and the bound, with the FLOPs each
+             path issues; (c) mamba2-1.3b at full width (48
              layers, remat full, AdamW), 4 steps on the chunked route and 4
              on the kernel route from the same parameters and batch: 96
              forward launches a step (layers and remat recomputes, all
-             wgmma) and 48 backward calls, finite and falling losses, the
+             wgmma) and 48 backward calls, all ``bwd_wgmma``, finite and falling losses, the
              first within 2e-2 of chunked's, layers 0 and 47's backward on
              their captured inputs within bf16's 2e-2 with B and C rolled
              outside it, each route's walls, launches, busy share and peak;
-             (d) mamba2-1.3b cut to 2 layers in f32, one step card (kernels)
-             against CPU (plain versions): loss 1e-5, gradients 1e-4, tokens
-             rolled outside it.  Every other kernel reads 0 launches; no
+             (d) mamba2-1.3b cut to 2 layers in f32, one step card (kernels,
+             every backward ``bwd_ffma``) against CPU (plain versions): loss
+             1e-5, gradients 1e-4, tokens rolled outside it.  Every other kernel reads 0 launches; no
              earlier phase launches ``ssd_scan_bwd`` (``run_serve`` and
              phase 29 (d) assert it, ``ssd_ops.BWD_LAUNCHES`` is 0 when the
              phase starts).
@@ -427,8 +434,10 @@ those of phases 7, 14, 18, 21, 27, 28, 30 and 32 (and how many were bidirectiona
 calls, worst errors and its times at the seven shapes, ``flash_attention_bwd`` (the
 ``bwd_ffma`` path) with their f32 calls, worst errors by dtype and its bf16 and f32
 times at the training shape, ``ssd_scan`` with those of phases 12 and 31,
-``ssd_scan_bwd`` with phase 31's calls, worst errors by dtype and its times
-at the training and serve shapes,
+``ssd_scan_bwd_wgmma`` (the ``bwd_wgmma`` path) with phase 31's bf16 calls,
+worst errors and its times at the training and serve shapes,
+``ssd_scan_bwd`` (the ``bwd_ffma`` path) with its f32 calls, worst errors by
+dtype and its bf16 and f32 times at both shapes,
 ``rglru_scan`` with those of phases 14 and 32, ``rglru_scan_bwd`` with phase
 32's calls, worst errors by dtype and its times at the training and serve
 shapes, ``flash_decode_int8`` with those of
@@ -1138,7 +1147,8 @@ def run_serve(torch, cfg, counters, expected):
     assert flash_paths == {"ffma": 0, "wgmma": launches["flash_attention"], "bwd_ffma": 0,
                            "bwd_wgmma": 0}, \
         flash_paths
-    assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"], "bwd_ffma": 0}, ssd_paths
+    assert ssd_paths == {"ffma": 0, "wgmma": launches["ssd_scan"], "bwd_ffma": 0,
+                         "bwd_wgmma": 0}, ssd_paths
     assert len(masks) == launches["flash_attention"], masks
     launches["flash_attention_by_path"] = flash_paths
     launches["flash_attention_noncausal"] = masks.count(False)
@@ -4588,6 +4598,7 @@ def run_flash_train_phase(torch, fa_ops, fa_ref, counters, smi, device="cuda"):
 # ---------------------------------------------------------------- phase 31
 
 SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+SSD_BWD_WGMMA_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd_wgmma.cu"
 # dx, ddt, da, dB, dC against the plain backward (autograd through ssd_chunked):
 # f32 allclose (tests/test_kernels.py:56) against it run in f64 (in f32 it misses
 # f64 by more than the limit itself at served widths: printed beside), but at
@@ -4638,11 +4649,23 @@ def roll_bc(args):
     return (*args[:3], args[3].roll(1, dims=1), args[4].roll(1, dims=1))
 
 
+def ssd_bwd_paths(torch, ssd_ops, args, dy, dtype):
+    """The backward paths phase 31 holds a case on: f32 on ``bwd_ffma``; bf16
+    on ``bwd_wgmma`` where it takes the case (the path unforced) and forced
+    onto ``bwd_ffma`` always."""
+    if dtype == torch.float32:
+        return ("bwd_ffma",)
+    chosen = ssd_ops.choose_bwd_path(args[0], args[3], args[4], dy)
+    return ("bwd_wgmma", "bwd_ffma") if chosen == "bwd_wgmma" else ("bwd_ffma",)
+
+
 def check_ssd_bwd(torch, ssd_ops, ssd_ref):
     """(a): dx, ddt, da, dB, dC of the backward kernels against the plain
-    backward on every SSD_CASES case in f32 and bf16, with and without a
-    cotangent of the final state; B and C rolled by one step must fail every
-    limit.  Returns the largest errors by dtype."""
+    backward on every SSD_CASES case in f32 (``bwd_ffma``) and bf16 (each
+    path that takes the case, forced; ``bwd_wgmma`` twice, bit for bit),
+    with and without a cotangent of the final state; B and C rolled by one
+    step must fail every limit.  Returns the largest errors by dtype and
+    path ("float32 bwd_ffma", "bfloat16 bwd_wgmma", ...)."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name_dt = str(dtype)[6:]
@@ -4650,102 +4673,128 @@ def check_ssd_bwd(torch, ssd_ops, ssd_ref):
             args = ssd_inputs(torch, case, dtype, strong=strong)
             for with_state in (False, True):
                 dy, ds = ssd_cotangents(torch, case, dtype, with_state)
-                before = dict(ssd_ops.BWD_LAUNCHES)
-                got = ssd_ops.ssd_bwd(*args, dy, ds)
-                torch.cuda.synchronize()
-                assert ssd_ops.BWD_LAUNCHES == {k: v + 1 for k, v in before.items()}, name
-                for g_, t in zip(got, args):
-                    assert g_.dtype == t.dtype and g_.shape == t.shape, name
-                    assert torch.isfinite(g_.float()).all(), (name, name_dt)
                 work = torch.float64 if dtype == torch.float32 else torch.float32
                 want = ssd_bwd_plain(torch, ssd_ref, args, dy, ds, work)
                 elementwise = case != SSD_SERVE_SHAPE
-                ok, errs = grads_close(torch, got, want, dtype, elementwise)
-                abs_err = max(float((g_.double() - w.double()).abs().max())
-                              for g_, w in zip(got, want))
-                rolled = ssd_ops.ssd_bwd(*roll_bc(args), dy, ds)
-                ctl_ok, ctl = grads_close(torch, rolled, want, dtype, elementwise)
-                how = "rel" if dtype == torch.bfloat16 or not elementwise else "of tol"
-                extra = ""
-                if dtype == torch.float32:   # how far the f32 plain version is from f64
-                    _, plain = grads_close(
-                        torch, ssd_bwd_plain(torch, ssd_ref, args, dy, ds, torch.float32), want,
-                        dtype)
-                    extra = f"; the f32 plain version {' '.join(f'{e:.2f}' for e in plain)} of tol"
-                    row = worst.setdefault(name_dt, {"plain_f32_over_tol": 0.0})
-                    row["plain_f32_over_tol"] = max(row["plain_f32_over_tol"], max(plain))
-                    if not elementwise:
-                        _, over = grads_close(torch, got, want, dtype)
-                        extra += f"; elementwise {' '.join(f'{e:.2f}' for e in over)} of tol"
-                        row["serve_shape_elementwise_over_tol"] = max(over)
-                say(f"  {name_dt:>8} {name:<28} {str(case):<28} "
-                    f"{'dstate' if with_state else '      '} {'/'.join(SSD_GRADS)} "
-                    f"{' '.join(f'{e:.2e}' for e in errs)} ({how}; max|err| {abs_err:.2e}); B, C "
-                    f"rolled {' '.join(f'{e:.2e}' for e in ctl)}" + extra)
-                assert all(ok), (name, name_dt, with_state, errs)
-                assert not any(ctl_ok), (name, name_dt, with_state, ctl)
-                row = worst.setdefault(name_dt, {})
-                key = "grads" if elementwise else "serve_shape_rel"
-                row[key] = max(row.get(key, 0.0), max(errs))
-                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
-                del dy, ds, got, want, rolled
+                for path in ssd_bwd_paths(torch, ssd_ops, args, dy, dtype):
+                    before, paths = dict(ssd_ops.BWD_LAUNCHES), dict(ssd_ops.PATH_LAUNCHES)
+                    got = ssd_ops.ssd_bwd(*args, dy, ds, path=path)
+                    torch.cuda.synchronize()
+                    assert ssd_ops.BWD_LAUNCHES == {k: v + 1 for k, v in before.items()}, name
+                    assert ssd_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}, name
+                    for g_, t in zip(got, args):
+                        assert g_.dtype == t.dtype and g_.shape == t.shape, name
+                        assert torch.isfinite(g_.float()).all(), (name, name_dt, path)
+                    ok, errs = grads_close(torch, got, want, dtype, elementwise)
+                    abs_err = max(float((g_.double() - w.double()).abs().max())
+                                  for g_, w in zip(got, want))
+                    rolled = ssd_ops.ssd_bwd(*roll_bc(args), dy, ds, path=path)
+                    ctl_ok, ctl = grads_close(torch, rolled, want, dtype, elementwise)
+                    how = "rel" if dtype == torch.bfloat16 or not elementwise else "of tol"
+                    key = f"{name_dt} {path}"
+                    extra = ""
+                    if path == "bwd_wgmma":   # no atomics: the same bits again
+                        again = ssd_ops.ssd_bwd(*args, dy, ds, path=path)
+                        assert all(torch.equal(a, b) for a, b in zip(got, again)), (name, path)
+                        extra = "; rerun bit-identical"
+                        del again
+                    if dtype == torch.float32:   # how far the f32 plain version is from f64
+                        _, plain = grads_close(
+                            torch, ssd_bwd_plain(torch, ssd_ref, args, dy, ds, torch.float32),
+                            want, dtype)
+                        extra = f"; the f32 plain version {' '.join(f'{e:.2f}' for e in plain)} of tol"
+                        row = worst.setdefault(key, {"plain_f32_over_tol": 0.0})
+                        row["plain_f32_over_tol"] = max(row["plain_f32_over_tol"], max(plain))
+                        if not elementwise:
+                            _, over = grads_close(torch, got, want, dtype)
+                            extra += f"; elementwise {' '.join(f'{e:.2f}' for e in over)} of tol"
+                            row["serve_shape_elementwise_over_tol"] = max(over)
+                    say(f"  {name_dt:>8} {path:<9} {name:<28} {str(case):<28} "
+                        f"{'dstate' if with_state else '      '} {'/'.join(SSD_GRADS)} "
+                        f"{' '.join(f'{e:.2e}' for e in errs)} ({how}; max|err| {abs_err:.2e}); "
+                        f"B, C rolled {' '.join(f'{e:.2e}' for e in ctl)}" + extra)
+                    assert all(ok), (name, name_dt, path, with_state, errs)
+                    assert not any(ctl_ok), (name, name_dt, path, with_state, ctl)
+                    row = worst.setdefault(key, {})
+                    gate = "grads" if elementwise else "serve_shape_rel"
+                    row[gate] = max(row.get(gate, 0.0), max(errs))
+                    row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
+                    del got, rolled
+                del dy, ds, want
             del args
             free_card(torch)
     return worst
 
 
-def ssd_bwd_issued(ssd_ops, shape):
-    """FLOPs the backward kernels issue at ``shape``: each chunk of Q rows a
-    (b, h) with P and N padded to the kernels' buckets, the states kernel's
-    update, the chunk kernel's G, D, dx, dB, dC and dS products, the group sum."""
+def ssd_bwd_issued(ssd_ops, shape, path):
+    """FLOPs the backward kernels of ``path`` issue at ``shape``: each chunk
+    of Q rows a (b, h) with P and N padded to the kernels' buckets, and the
+    group sum's adds.  ``bwd_ffma`` (Q = 32): the states kernel's update,
+    the chunk kernel's G, D, dx, dB, dC and dS products on FFMA.
+    ``bwd_wgmma`` (Q = 64, P to 64, N to 128): on the tensor cores, the
+    chunk pass's G^T, D^T, D and the three products on their fragments (Q^2
+    P or Q^2 N each), B dS^T, x dS, dY S_in and the dS update (Q P N each),
+    and the states pass's update for every chunk but the last."""
     b, l, h, p, g, n = shape
-    q = ssd_ops.library().repro_ssd_scan_bwd_chunk_rows()
+    q = ssd_ops.bwd_chunk_rows(path)
+    nc = -(-l // q)
+    if path == "bwd_wgmma":
+        pm, nm = 64, 128
+        per_chunk = 2 * (3 * q * q * nm + 3 * q * q * pm + 4 * q * pm * nm)
+        return b * h * (nc * per_chunk + (nc - 1) * 2 * q * pm * nm) + 2 * b * l * h * n
     pm, nm = (16 if p <= 16 else 64), (32 if n <= 32 else 128)
     per_chunk = 2 * (q * q * (3 * nm + 2 * pm) + 5 * q * pm * nm)
-    return b * h * -(-l // q) * per_chunk + 2 * b * l * h * n
+    return b * h * nc * per_chunk + 2 * b * l * h * n
 
 
-def time_ssd_bwd(torch, ssd_ops, ssd_ref, shape, f32=False):
-    """(b): the backward at ``shape`` in bf16 (and f32 with ``f32``) beside
-    its plain version (autograd through ssd_chunked at the config's chunk,
-    forward included) and its bound: x, dt, B, C and dY read and dx, ddt,
-    dB, dC written at 3.35 TB/s against the step recurrence's gradient (14
-    P N FLOP a row and head: the adjoint's update, dx, dB, dC, the state
-    recomputed, d(a dt)) at the bf16 peak.  No single PyTorch call computes
-    it: no library time."""
+def time_ssd_bwd(torch, ssd_ops, ssd_ref, shape):
+    """(b): the backward at ``shape`` in bf16 on ``bwd_wgmma`` and forced onto
+    ``bwd_ffma`` (the FFMA kernels as the parent shipped them), in f32 (on
+    ``bwd_ffma``), beside its plain version (autograd through ssd_chunked at
+    the config's chunk, forward included) and its bound: x, dt, B, C and dY
+    read and dx, ddt, dB, dC written at 3.35 TB/s against the step
+    recurrence's gradient (14 P N FLOP a row and head: the adjoint's update,
+    dx, dB, dC, the state recomputed, d(a dt)) at the bf16 peak.  No single
+    PyTorch call computes it: no library time.  Returns a row by path."""
     b, l, h, p, g, n = shape
     args = ssd_inputs(torch, shape, torch.bfloat16, seed=5)
     dy, _ = ssd_cotangents(torch, shape, torch.bfloat16, False, seed=5)
-    row = {"ms": median_ms(torch, lambda: ssd_ops.ssd_bwd(*args, dy)),
-           "plain_ms": median_ms(torch, lambda: ssd_ref.ssd_bwd_ref(*args, dy, chunk=SSD_CHUNK),
-                                 reps=3, warm=1),
-           "library_ms": None}
+    assert ssd_ops.choose_bwd_path(args[0], args[3], args[4], dy) == "bwd_wgmma"
+    plain_ms = median_ms(torch, lambda: ssd_ref.ssd_bwd_ref(*args, dy, chunk=SSD_CHUNK),
+                         reps=3, warm=1)
     flops = 14 * b * l * h * p * n
-    issued = ssd_bwd_issued(ssd_ops, shape)
     io_bytes = 2 * (3 * b * l * h * p + 4 * b * l * g * n) + 4 * (2 * b * l * h + 2 * h)
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
-    row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gflop=flops / 1e9, issued_gflop=issued / 1e9, io_mb=io_bytes / 1e6,
-               tflops_issued=issued / row["ms"] / 1e9, shape=list(shape))
-    f32_note = ""
-    if f32:   # the same work in f32: twice the bytes of x, B, C, dY and their gradients, f32 FFMA
-        args32, dy32 = [t.float() for t in args], dy.float()
-        row["f32_ms"] = median_ms(torch, lambda: ssd_ops.ssd_bwd(*args32, dy32))
-        del args32, dy32
-        t_ops32 = flops / F32_FLOPS * 1e3
-        t_bytes32 = (io_bytes + 2 * (3 * b * l * h * p + 4 * b * l * g * n)) / HBM_BYTES_PER_S * 1e3
-        row.update(f32_bound_ms=max(t_ops32, t_bytes32),
-                   f32_bound_by="operations" if t_ops32 >= t_bytes32 else "bytes")
-        f32_note = (f", f32 {row['f32_ms']:.4f} ms (bound {row['f32_bound_ms']:.4f} ms, "
-                    f"{row['f32_bound_by']} at 67 TFLOP/s of f32 FFMA and 3.35 TB/s)")
-    say(f"  ssd_scan_bwd {shape}, bf16: {row['ms']:.4f} ms ({issued / 1e9:.2f} GFLOP issued on "
-        f"FFMA, {row['tflops_issued']:.1f} TFLOP/s)" + f32_note
-        + f"; plain {row['plain_ms']:.4f} ms; library null (no single PyTorch call); bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {io_bytes / 1e6:.1f} MB at 3.35 TB/s, "
-        f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s); kernel / bound {row['ms'] / row['bound_ms']:.1f}")
+    rows = {}
+    for path in ("bwd_wgmma", "bwd_ffma"):
+        ms = median_ms(torch, lambda: ssd_ops.ssd_bwd(*args, dy, path=path))
+        issued = ssd_bwd_issued(ssd_ops, shape, path)
+        rows[path] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "gflop": flops / 1e9, "issued_gflop": issued / 1e9, "io_mb": io_bytes / 1e6,
+                      "tflops_issued": issued / ms / 1e9, "shape": list(shape), "path": path}
+    # the same work in f32: twice the bytes of x, B, C, dY and their gradients, f32 FFMA
+    args32, dy32 = [t.float() for t in args], dy.float()
+    f32_ms = median_ms(torch, lambda: ssd_ops.ssd_bwd(*args32, dy32))
+    del args32, dy32
+    t_ops32 = flops / F32_FLOPS * 1e3
+    t_bytes32 = (io_bytes + 2 * (3 * b * l * h * p + 4 * b * l * g * n)) / HBM_BYTES_PER_S * 1e3
+    rows["bwd_ffma"].update(f32_ms=f32_ms, f32_bound_ms=max(t_ops32, t_bytes32),
+                            f32_bound_by="operations" if t_ops32 >= t_bytes32 else "bytes")
+    wg, ff = rows["bwd_wgmma"], rows["bwd_ffma"]
+    say(f"  ssd_scan_bwd {shape}, bf16: bwd_wgmma {wg['ms']:.4f} ms ({wg['issued_gflop']:.2f} "
+        f"GFLOP issued on the tensor cores, {wg['tflops_issued']:.1f} TFLOP/s); bwd_ffma forced "
+        f"{ff['ms']:.4f} ms ({ff['issued_gflop']:.2f} GFLOP issued on FFMA, "
+        f"{ff['tflops_issued']:.1f} TFLOP/s; {ff['ms'] / wg['ms']:.2f}x bwd_wgmma's); f32 "
+        f"(bwd_ffma) {f32_ms:.4f} ms (bound {ff['f32_bound_ms']:.4f} ms, {ff['f32_bound_by']} at "
+        f"67 TFLOP/s of f32 FFMA and 3.35 TB/s); plain {plain_ms:.4f} ms; library null (no "
+        f"single PyTorch call); bound {wg['bound_ms']:.4f} ms ({wg['bound_by']}: "
+        f"{io_bytes / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.2f} GFLOP at 989 TFLOP/s); "
+        f"bwd_wgmma / bound {wg['ms'] / wg['bound_ms']:.1f}")
     del args, dy
     free_card(torch)
-    return row
+    return rows
 
 
 @contextlib.contextmanager
@@ -4814,7 +4863,9 @@ def run_ssd_mamba_train(torch, ssd_ops, ssd_ref, counters, device):
     s = SSD_TRAIN_STEPS
     want.update({"ssd_scan": 2 * n * s, "ssd_scan_bwd": n * s})   # forward, remat recompute
     assert rows["pallas"]["launches"] == want, (rows["pallas"]["launches"], want)
-    assert rows["pallas"]["ssd_by_path"] == {"ffma": 0, "wgmma": 2 * n * s, "bwd_ffma": n * s}
+    # bf16 with 16-byte rows and N = 128: every forward on wgmma, every backward on bwd_wgmma
+    assert rows["pallas"]["ssd_by_path"] == {"ffma": 0, "wgmma": 2 * n * s, "bwd_ffma": 0,
+                                             "bwd_wgmma": n * s}, rows["pallas"]["ssd_by_path"]
     assert rows["pallas"]["bwd_kernels"] == {"states": n * s, "dchunk": n * s, "group_sum": n * s}
     first = [rows[impl]["losses"][0] for impl in ("chunked", "pallas")]
     gap = abs(first[1] - first[0]) / abs(first[0])
@@ -4855,8 +4906,9 @@ def run_ssd_train_phase(torch, ssd_ops, ssd_ref, counters, smi, device="cuda"):
     mamba2-1.3b at full width on both routes, (d) its f32 twin, card
     against CPU."""
     free_card(torch)
-    say("PHASE 31 train through ssd_scan: the backward of ssd_scan (three FFMA kernels) against "
-        "its plain version, timed, and training on it under ssm_impl=\"pallas\"")
+    say("PHASE 31 train through ssd_scan: the backward of ssd_scan on both paths (bwd_wgmma on "
+        "the tensor cores, bwd_ffma on FFMA; three kernels each) against its plain version, "
+        "timed, and training on it under ssm_impl=\"pallas\"")
     say(f"  card: {smi}")
     t0 = time.perf_counter()
     # BWD_LAUNCHES is never reset before this phase: no earlier phase launched the backward
@@ -4865,8 +4917,8 @@ def run_ssd_train_phase(torch, ssd_ops, ssd_ref, counters, smi, device="cuda"):
     say("  (a) dx, ddt, da, dB, dC against the plain backward, every SSD_CASES case")
     worst = check_ssd_bwd(torch, ssd_ops, ssd_ref)
     say(f"  (b) timings; (a) took {time.perf_counter() - t0:.1f} s")
-    timings = {"train bf16": time_ssd_bwd(torch, ssd_ops, ssd_ref, SSD_TRAIN_SHAPE, f32=True),
-               "serve bf16": time_ssd_bwd(torch, ssd_ops, ssd_ref, SSD_SERVE_SHAPE)}
+    timings = {"train": time_ssd_bwd(torch, ssd_ops, ssd_ref, SSD_TRAIN_SHAPE),
+               "serve": time_ssd_bwd(torch, ssd_ops, ssd_ref, SSD_SERVE_SHAPE)}
     quiet = {k: v for counts in counters for k, v in counts.items() if k != "ssd_scan_bwd"}
     assert not any(quiet.values()), quiet        # (a) and (b) launch the backward alone
     say(f"  (c) {MAMBA_ARCH} at full width, {SSD_TRAIN_STEPS} steps on each route; so far "
@@ -4884,7 +4936,9 @@ def run_ssd_train_phase(torch, ssd_ops, ssd_ref, counters, smi, device="cuda"):
     say(f"  {twin_cfg.name} ({n} layers) launches on the card {twin_launches}, ssd_scan by path "
         f"{twin_paths}")
     assert twin_launches == want, (twin_launches, want)
-    assert twin_paths == {"ffma": 3 * n * fwd, "wgmma": 0, "bwd_ffma": 3 * n}, twin_paths
+    # f32: the forward on ffma, every backward on bwd_ffma
+    assert twin_paths == {"ffma": 3 * n * fwd, "wgmma": 0, "bwd_ffma": 3 * n, "bwd_wgmma": 0}, \
+        twin_paths
     say(f"  phase 31 {time.perf_counter() - t0:.1f} s")
     runs = {f"{MAMBA_ARCH} train steps": (mamba["pallas"]["launches"],
                                           mamba["pallas"]["ssd_by_path"]),
@@ -5231,10 +5285,12 @@ def main() -> int:
         f"{path}: " + ", ".join(f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_smem_bytes(code, p, n)} B"
                                 for p, n in ((16, 32), (16, 128), (64, 32), (64, 64), (64, 128)))
         for path, code in ssd_ops.PATHS.items()))
-    say("  ssd_scan backward dynamic shared memory a block (states, dchunk): " + ", ".join(
+    say("  ssd_scan backward dynamic shared memory a block (states, dchunk): bwd_ffma: " + ", ".join(
         f"P<={p} N<={n} {ssd_ops.library().repro_ssd_scan_bwd_smem_bytes(0, p, n)}, "
         f"{ssd_ops.library().repro_ssd_scan_bwd_smem_bytes(1, p, n)} B"
-        for p, n in ((16, 32), (16, 128), (64, 32), (64, 128))))
+        for p, n in ((16, 32), (16, 128), (64, 32), (64, 128)))
+        + f"; bwd_wgmma (P to 64, N to 128): {ssd_ops.library().repro_ssd_scan_bwd_wgmma_smem_bytes(0)}, "
+        f"{ssd_ops.library().repro_ssd_scan_bwd_wgmma_smem_bytes(1)} B")
     say("  flash_decode_int8 a block: " + "; ".join(
         f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B dynamic "
         f"shared memory, clusters that fit at once by size {decode_ops.cluster_fit(0, g, d)}"
@@ -5622,20 +5678,29 @@ def main() -> int:
         "max_abs_err_by_path": ssd_errs,
         "by_path": scan_rows["ssd_scan"]["by_path"],
     })
-    ssd_bwd_row = ssd_bwd_rows["train bf16"]
-    kernels.insert(len(kernels) - 1, {
-        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
-        "replaces": "src/repro/kernels/ssd_scan/ops.py:44",
-        "launches": sum(c["ssd_scan_bwd"] for c, _ in ssd_train.values()),
-        "launches_by_path": {k: c["ssd_scan_bwd"] for k, (c, _) in ssd_train.items()},
-        "launches_note": "backward calls of phase 31's training runs, three kernel launches "
-                         "each (states, dchunk, group_sum); 0 in phases 1-30",
-        "path": "ffma", "dtype": "bfloat16",
-        "max_abs_err": ssd_bwd_errs["bfloat16"]["max_abs_err"], "max_err_by_dtype": ssd_bwd_errs,
-        **{k: ssd_bwd_row[k] for k in bwd_keys},
-        **{k: ssd_bwd_row[k] for k in ("f32_ms", "f32_bound_ms", "f32_bound_by")},
-        f"{MAMBA_ARCH} serve shape": {k: ssd_bwd_rows["serve bf16"][k] for k in bwd_keys},
-    })
+    for path, source in (("bwd_wgmma", SSD_BWD_WGMMA_SOURCE), ("bwd_ffma", SSD_BWD_SOURCE)):
+        row = ssd_bwd_rows["train"][path]
+        entry = {
+            "name": "ssd_scan_bwd" + ("_wgmma" if path == "bwd_wgmma" else ""),
+            "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/ssd_scan/ops.py:44",
+            "launches": sum(paths[path] for _, paths in ssd_train.values()),
+            "launches_by_path": {k: paths[path] for k, (_, paths) in ssd_train.items()},
+            "launches_note": "backward calls on this path in phase 31's training runs (bf16 on "
+                             "bwd_wgmma, the f32 twin on bwd_ffma), three kernel launches each "
+                             "(states, dchunk, group_sum); 0 in phases 1-30",
+            "path": path, "dtype": "bfloat16",
+            "max_abs_err": ssd_bwd_errs[f"bfloat16 {path}"]["max_abs_err"],
+            "max_err_by_dtype": {k: v for k, v in ssd_bwd_errs.items() if k.endswith(path)},
+            **{k: row[k] for k in bwd_keys},
+            f"{MAMBA_ARCH} serve shape": {k: ssd_bwd_rows["serve"][path][k] for k in bwd_keys},
+        }
+        if path == "bwd_ffma":
+            entry.update({k: row[k] for k in ("f32_ms", "f32_bound_ms", "f32_bound_by")})
+            entry[f"{MAMBA_ARCH} serve shape"].update(
+                {k: ssd_bwd_rows["serve"][path][k] for k in ("f32_ms", "f32_bound_ms",
+                                                              "f32_bound_by")})
+        kernels.insert(len(kernels) - 1, entry)
     kernels[-1].update({
         "launches": (rgemma_launches["rglru_scan"]
                      + sum(c["rglru_scan"] for c, _ in lru_train.values())),
@@ -5671,7 +5736,8 @@ def main() -> int:
     })
     served_by = {"flash_decode_int8": f"{SERVE_ARCH} (int8 KV cache)"}
     # the counters count backward calls, not paths: both paths read the calls' 0 there
-    counter = {"flash_attention_bwd_wgmma": "flash_attention_bwd"}
+    counter = {"flash_attention_bwd_wgmma": "flash_attention_bwd",
+               "ssd_scan_bwd_wgmma": "ssd_scan_bwd"}
     for k in kernels:
         name = counter.get(k["name"], k["name"])
         k.setdefault("launches_by_path", {served_by.get(k["name"]): k["launches"]})

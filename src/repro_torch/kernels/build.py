@@ -4,7 +4,8 @@
 of a library into an object, one ``nvcc`` a source, all started together,
 and ``nvcc -shared`` links them into ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources, the ``.cuh`` headers beside
-them and the flags, so an edited source or header never loads a stale
+them and in ``kernels/csrc/`` (``wgmma.cuh``, which every ``wgmma`` kernel
+includes) and the flags, so an edited source or header never loads a stale
 library.  The library has a plain C interface and is loaded with
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.  Nothing is built at import: the first launch builds.
@@ -24,6 +25,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+#: headers shared across the kernel packages
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +47,19 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+def source_hash(sources: Sequence[Path]) -> str:
+    """What names a library's build: the flags, the sources, and every
+    ``.cuh`` beside them or in ``SHARED_CSRC``, names and bytes."""
+    sources = [Path(src) for src in sources]
+    headers = sorted({h for d in {src.parent for src in sources} | {SHARED_CSRC}
+                      for h in d.glob("*.cuh")})
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (*sources, *headers):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     """Compile ``sources`` into ``lib<name>-<hash>.so`` once, then load it.
 
@@ -58,13 +74,8 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
         if lib is not None:
             return lib
         sources = [Path(src) for src in sources]
-        headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in (*sources, *headers):
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        target = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+        target = BUILD_DIR / f"lib{name}-{source_hash(sources)}.so"
         BUILD_SECONDS[name] = 0.0
         if not target.exists():
             work = Path(tempfile.mkdtemp(dir=BUILD_DIR, suffix=".tmp"))

@@ -61,7 +61,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "../../csrc/wgmma.cuh"
 
 namespace {
 

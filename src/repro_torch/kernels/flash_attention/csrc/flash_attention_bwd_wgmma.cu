@@ -71,7 +71,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "../../csrc/wgmma.cuh"
 
 namespace {
 

@@ -1,6 +1,8 @@
-// Mamba-2 SSD chunked scan, the backward, for Hopper (sm_90a): dx, ddt, da,
-// dB and dC of the forward in ssd_scan.cu from the cotangents of y and of
-// the final state.
+// Mamba-2 SSD chunked scan, the backward, for Hopper (sm_90a), path
+// bwd_ffma: dx, ddt, da, dB and dC of the forward in ssd_scan.cu from the
+// cotangents of y and of the final state, for f32 and for the bf16 that
+// bwd_wgmma (ssd_scan_bwd_wgmma.cu, every product on the tensor cores) does
+// not take: rows that 16-byte copies cannot read, N <= 32.
 //
 // Replaces the backward of the TPU kernel's custom VJP
 // (src/repro/kernels/ssd_scan/ops.py:44-49, _bwd: the vjp of
@@ -54,8 +56,7 @@
 // x, dt, B, C, dY and dx are read and written in the model's (B, L, H, P)
 // layout through strides.  A ragged tail is masked as the forward masks it
 // (dt = 0 and zero x, B, C, dY past L): padded rows contribute nothing and
-// no gradient is written past L.  wgmma and chunk parallelism are left to a
-// later redesign.
+// no gradient is written past L.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

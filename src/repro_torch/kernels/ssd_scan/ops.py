@@ -27,19 +27,27 @@ version alone.
 
 Under grad (grad mode on and an input that requires it) a CUDA call goes
 through ``SSDScan``, whose forward is one launch of the kernel and whose
-backward launches the three kernels of ``csrc/ssd_scan_bwd.cu``
-(``ssd_bwd``: the state entering each chunk, the chunks walked last first,
-then dB, dC and da summed over heads and batch); on the CPU the route stays
-``ssd_chunked`` with torch's autograd.  A config with ``ssm_impl="pallas"``
-trains through the kernels; the reference's own default, ``"chunked"``,
-stays the default here too.
+backward is ``ssd_bwd``: three launches (the state entering each chunk, the
+chunks walked last first, then dB, dC and da summed over heads and batch);
+on the CPU the route stays ``ssd_chunked`` with torch's autograd.  A config
+with ``ssm_impl="pallas"`` trains through the kernels; the reference's own
+default, ``"chunked"``, stays the default here too.
+
+The backward has two paths, picked by ``choose_bwd_path``: ``bwd_wgmma``
+(``csrc/ssd_scan_bwd_wgmma.cu``: bf16 with 16-byte rows in x, B, C and dY
+and N above 32, every product on the tensor cores, 64-row chunks) and
+``bwd_ffma`` (``csrc/ssd_scan_bwd.cu``: f32, whose 1e-4 gradients bf16
+operands would miss, and the rest of bf16, 32-row chunks).
+``ssd_bwd(..., path=)`` forces one; a forced path raises where it does not
+take the operands.
 
 ``LAUNCHES["ssd_scan"]`` counts forward launches and ``PATH_LAUNCHES`` the
-same launches by path, so a run can show which path its scan went through.
-The backward has one path, ``ffma`` (f32 and bf16, P <= 64, N <= 128):
-``LAUNCHES["ssd_scan_bwd"]`` and ``PATH_LAUNCHES["bwd_ffma"]`` count its
-calls, ``BWD_LAUNCHES`` each of its three kernels.  ``ssd_decode_step`` is
-the one-token update of decode, plain torch as in the reference.
+same launches by path, so a run can show which path its scan went through;
+``LAUNCHES["ssd_scan_bwd"]`` and ``PATH_LAUNCHES["bwd_ffma"]``,
+``PATH_LAUNCHES["bwd_wgmma"]`` count backward calls, ``BWD_LAUNCHES`` each
+of the three kernels a call launches, whichever its path.
+``ssd_decode_step`` is the one-token update of decode, plain torch as in the
+reference.
 """
 from __future__ import annotations
 
@@ -55,16 +63,18 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ssd_scan import ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_bwd.cu")
+SOURCES = (_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_bwd.cu", _CSRC / "ssd_scan_bwd_wgmma.cu")
 
 #: forward launches and backward calls so far; callers reset them to 0 to count a run
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 #: the same by path: the forward's paths, and the backward's
-PATH_LAUNCHES = {"ffma": 0, "wgmma": 0, "bwd_ffma": 0}
+PATH_LAUNCHES = {"ffma": 0, "wgmma": 0, "bwd_ffma": 0, "bwd_wgmma": 0}
 #: the backward's kernels, one launch each a backward call that needs them
 BWD_LAUNCHES = {"states": 0, "dchunk": 0, "group_sum": 0}
 #: the forward's paths: code of the C entry
 PATHS = {"ffma": 0, "wgmma": 1}
+#: the backward's paths
+BWD_PATHS = ("bwd_ffma", "bwd_wgmma")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N = 64, 128     # the kernel's largest head and state sizes
@@ -94,11 +104,31 @@ def library() -> ctypes.CDLL:
                                                  _P]
     lib.repro_ssd_scan_bwd_smem_bytes.argtypes = [_I, _I, _I]
     lib.repro_ssd_scan_bwd_chunk_rows.argtypes = []
+    # the bwd_wgmma path's entries take the bwd_ffma path's arguments
+    lib.repro_ssd_scan_bwd_wgmma_states.argtypes = lib.repro_ssd_scan_bwd_states.argtypes
+    lib.repro_ssd_scan_bwd_wgmma_dchunk.argtypes = lib.repro_ssd_scan_bwd_dchunk.argtypes
+    lib.repro_ssd_scan_bwd_wgmma_group_sum.argtypes = lib.repro_ssd_scan_bwd_group_sum.argtypes
+    lib.repro_ssd_scan_bwd_wgmma_smem_bytes.argtypes = [_I]
+    lib.repro_ssd_scan_bwd_wgmma_chunk_rows.argtypes = []
+    lib.repro_ssd_scan_bwd_wgmma_tile_bytes.argtypes = []
     for fn in (lib.repro_ssd_scan_bwd_states, lib.repro_ssd_scan_bwd_dchunk,
                lib.repro_ssd_scan_bwd_group_sum, lib.repro_ssd_scan_bwd_smem_bytes,
-               lib.repro_ssd_scan_bwd_chunk_rows):
+               lib.repro_ssd_scan_bwd_chunk_rows, lib.repro_ssd_scan_bwd_wgmma_states,
+               lib.repro_ssd_scan_bwd_wgmma_dchunk, lib.repro_ssd_scan_bwd_wgmma_group_sum,
+               lib.repro_ssd_scan_bwd_wgmma_smem_bytes, lib.repro_ssd_scan_bwd_wgmma_chunk_rows,
+               lib.repro_ssd_scan_bwd_wgmma_tile_bytes):
         fn.restype = _I
     return lib
+
+
+def bwd_chunk_rows(path: str) -> int:
+    """Rows of a chunk of the backward's ``path``: they size its states scratch."""
+    lib = library()
+    if path == "bwd_wgmma":
+        return lib.repro_ssd_scan_bwd_wgmma_chunk_rows()
+    if path == "bwd_ffma":
+        return lib.repro_ssd_scan_bwd_chunk_rows()
+    raise ValueError(f"ssd_bwd: unknown path {path!r}, not one of {BWD_PATHS}")
 
 
 def choose_path(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor) -> str:
@@ -114,6 +144,34 @@ def choose_path(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor) -> st
             and vector_rows(x, b_mat, c_mat)):
         return "wgmma"
     return "ffma"
+
+
+def choose_bwd_path(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+                    dy: torch.Tensor) -> str:
+    """``bwd_wgmma`` for bf16 with 16-byte rows in x, B, C and dY (P and N
+    multiples of 8, the batch, length and head or group strides multiples
+    of 8, pointers 16-byte aligned) and N above 32, as the forward's
+    ``wgmma``; ``bwd_ffma`` for the rest: f32, whose 1e-4 gradients bf16
+    operands would miss, and bf16 that is not aligned so or whose N is 32 or
+    less (the forward's ``ffma`` there)."""
+    n = b_mat.shape[-1]
+    if (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and n % 8 == 0 and n > 32
+            and vector_rows(x, b_mat, c_mat, dy)):
+        return "bwd_wgmma"
+    return "bwd_ffma"
+
+
+def _bwd_path(x, b_mat, c_mat, dy, path: Optional[str]) -> str:
+    chosen = choose_bwd_path(x, b_mat, c_mat, dy)
+    if path is None:
+        return chosen
+    if path not in BWD_PATHS:
+        raise ValueError(f"ssd_bwd: unknown path {path!r}, not one of {BWD_PATHS}")
+    if path == "bwd_wgmma" and chosen != path:
+        raise ValueError("ssd_bwd: the bwd_wgmma path takes bfloat16 with 16-byte rows in x, B, "
+                         "C and dY (P, N and the batch, length and head or group strides "
+                         "multiples of 8) and N above 32")
+    return path
 
 
 def _check(x, dt, a, b_mat, c_mat) -> None:
@@ -194,20 +252,22 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.
 
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
             c_mat: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor] = None, *,
-            need_bc: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
+            need_bc: bool = True, path: Optional[str] = None) -> Tuple[Optional[torch.Tensor], ...]:
     """(dx, ddt, da, dB, dC) of the scan for the cotangents ``dy`` of y (x's
     shape and dtype, any strides with a unit-stride last dimension) and
     ``dstate`` of the final state ((B, H, P, N), or None for 0): dx, dB and
-    dC in x's dtype, ddt and da in f32.  Three launches: the f32 state
-    entering each chunk, then the chunks walked last first (dx, ddt, and
-    each head's dB, dC and da), then dB and dC summed over each group's
-    heads and da over the batch (``need_bc``; without it dB, dC and da are
-    None and not launched).  CUDA tensors only: the plain version is
-    ``ref.ssd_bwd_ref``."""
+    dC in x's dtype, ddt and da in f32.  Three launches: the state entering
+    each chunk, then the chunks walked last first (dx, ddt, and each head's
+    dB, dC and da), then dB and dC summed over each group's heads and da
+    over the batch (``need_bc``; without it dB, dC and da are None and not
+    launched).  ``path`` forces one of ``BWD_PATHS`` (both compute the same
+    function; tests hold each); it raises where that path does not take the
+    operands.  CUDA tensors only: the plain version is ``ref.ssd_bwd_ref``."""
     _check(x, dt, a, b_mat, c_mat)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or dy.stride(-1) != 1:
         raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} {dy.dtype} must be x's shape, dtype and "
                          "device with a unit-stride last dimension")
+    path = _bwd_path(x, b_mat, c_mat, dy, path)
     (bsz, l, h, p), (g, n) = x.shape, b_mat.shape[2:]
     if dstate is not None:
         if dstate.shape != (bsz, h, p, n) or dstate.device != x.device:
@@ -224,37 +284,47 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Ten
     if x.numel() == 0 or b_mat.numel() == 0:
         return (dx.zero_(), ddt.zero_(), da, None if db is None else db.zero_(),
                 None if dc is None else dc.zero_())
-    lib, dtype = library(), _DTYPES[x.dtype]
-    rows = lib.repro_ssd_scan_bwd_chunk_rows()
-    states = torch.empty((bsz, h, -(-l // rows), p, n), dtype=torch.float32, device=dev)
-    dbp = torch.empty((bsz, l, h, n), dtype=torch.float32, device=dev)
-    dcp = torch.empty((bsz, l, h, n), dtype=torch.float32, device=dev)
+    lib = library()
+    chunks = -(-l // bwd_chunk_rows(path))
+    if path == "bwd_wgmma":   # bf16 S_in tiles of chunks 1.., bf16 per-head partials
+        states = torch.empty((bsz, h, chunks - 1, lib.repro_ssd_scan_bwd_wgmma_tile_bytes()),
+                             dtype=torch.uint8, device=dev)
+        part = x.dtype
+        entries = (lib.repro_ssd_scan_bwd_wgmma_states, lib.repro_ssd_scan_bwd_wgmma_dchunk,
+                   lib.repro_ssd_scan_bwd_wgmma_group_sum)
+    else:                     # f32 S_in of every chunk, f32 per-head partials
+        states = torch.empty((bsz, h, chunks, p, n), dtype=torch.float32, device=dev)
+        part = torch.float32
+        entries = (lib.repro_ssd_scan_bwd_states, lib.repro_ssd_scan_bwd_dchunk,
+                   lib.repro_ssd_scan_bwd_group_sum)
+    dbp = torch.empty((bsz, l, h, n), dtype=part, device=dev)
+    dcp = torch.empty((bsz, l, h, n), dtype=part, device=dev)
     da_part = torch.empty((bsz, h), dtype=torch.float32, device=dev)
+    dtype = _DTYPES[x.dtype]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_ssd_scan_bwd_states(
-            dtype, x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), states.data_ptr(),
-            bsz, l, h, p, g, n, _strides(x, dt, b_mat), stream)
+        err = entries[0](dtype, x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+                         states.data_ptr(), bsz, l, h, p, g, n, _strides(x, dt, b_mat), stream)
         if err != 0:
-            raise RuntimeError(f"ssd_scan_bwd states launch failed: CUDA error {err}")
+            raise RuntimeError(f"ssd_scan_bwd states launch failed ({path}): CUDA error {err}")
         BWD_LAUNCHES["states"] += 1
-        err = lib.repro_ssd_scan_bwd_dchunk(
+        err = entries[1](
             dtype, x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
             dy.data_ptr(), states.data_ptr(), None if dstate is None else dstate.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), da_part.data_ptr(),
             bsz, l, h, p, g, n, _strides(x, dt, b_mat, c_mat, dy, dx), stream)
         if err != 0:
-            raise RuntimeError(f"ssd_scan_bwd dchunk launch failed: CUDA error {err}")
+            raise RuntimeError(f"ssd_scan_bwd dchunk launch failed ({path}): CUDA error {err}")
         BWD_LAUNCHES["dchunk"] += 1
         if need_bc:
-            err = lib.repro_ssd_scan_bwd_group_sum(
-                dtype, dbp.data_ptr(), dcp.data_ptr(), da_part.data_ptr(), db.data_ptr(),
-                dc.data_ptr(), da.data_ptr(), bsz, l, h, g, n, stream)
+            err = entries[2](dtype, dbp.data_ptr(), dcp.data_ptr(), da_part.data_ptr(),
+                             db.data_ptr(), dc.data_ptr(), da.data_ptr(), bsz, l, h, g, n, stream)
             if err != 0:
-                raise RuntimeError(f"ssd_scan_bwd group_sum launch failed: CUDA error {err}")
+                raise RuntimeError(f"ssd_scan_bwd group_sum launch failed ({path}): CUDA error "
+                                   f"{err}")
             BWD_LAUNCHES["group_sum"] += 1
     LAUNCHES["ssd_scan_bwd"] += 1
-    PATH_LAUNCHES["bwd_ffma"] += 1
+    PATH_LAUNCHES[path] += 1
     return dx, ddt, da, db, dc
 
 

@@ -874,30 +874,110 @@ def _ssd_grad_ok(got, want, dtype):
     return _rel(got, want) <= 2e-2
 
 
-@pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case,strong", SSD_BWD_CASES)
-def test_ssd_backward_matches_plain_version(card, case, strong, dtype, with_state):
-    """dx, ddt, da, dB, dC of the three backward kernels against the plain
-    backward; B and C rolled one step along L together fail every limit (each
-    gradient is linear in the inputs other than its own: dB does not see B)."""
+def _ssd_cotangents(case, device, dtype, with_state, seed=11):
     b, l, h, p, g, n = case
+    gen = torch.Generator().manual_seed(seed)
+    dy = torch.randn((b, l, h, p), generator=gen).to(device, dtype)
+    ds = torch.randn((b, h, p, n), generator=gen).to(device) if with_state else None
+    return dy, ds
+
+
+# each backward path with each dtype it takes (bwd_wgmma takes aligned bf16
+# with N above 32; f32 stays on FFMA)
+SSD_BWD_PATH_DTYPES = [("bwd_ffma", "float32"), ("bwd_ffma", "bfloat16"),
+                       ("bwd_wgmma", "bfloat16")]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("path,dtype", SSD_BWD_PATH_DTYPES)
+@pytest.mark.parametrize("case,strong", SSD_BWD_CASES)
+def test_ssd_backward_matches_plain_version(card, case, strong, path, dtype, with_state):
+    """dx, ddt, da, dB, dC of the three backward kernels of each path, forced,
+    against the plain backward; B and C rolled one step along L together
+    fail every limit (each gradient is linear in the inputs other than its
+    own: dB does not see B).  Where bwd_wgmma does not take the case (N <=
+    32), forcing it raises and launches nothing."""
     args = _ssd_inputs(case, card, getattr(torch, dtype), strong=strong)
-    gen = torch.Generator().manual_seed(11)
-    dy = torch.randn((b, l, h, p), generator=gen).to(card, args[0].dtype)
-    ds = torch.randn((b, h, p, n), generator=gen).to(card) if with_state else None
+    dy, ds = _ssd_cotangents(case, card, args[0].dtype, with_state)
     before, kernels = dict(ssd_ops.LAUNCHES), dict(ssd_ops.BWD_LAUNCHES)
-    got = ssd_ops.ssd_bwd(*args, dy, ds)
+    paths = dict(ssd_ops.PATH_LAUNCHES)
+    if path == "bwd_wgmma" and case[-1] <= 32:
+        assert ssd_ops.choose_bwd_path(args[0], args[3], args[4], dy) == "bwd_ffma"
+        with pytest.raises(ValueError, match="bwd_wgmma path takes"):
+            ssd_ops.ssd_bwd(*args, dy, ds, path=path)
+        assert (ssd_ops.LAUNCHES, ssd_ops.PATH_LAUNCHES) == (before, paths)
+        return
+    if dtype == "float32" or path == "bwd_wgmma":      # the path the operands take unforced
+        assert ssd_ops.choose_bwd_path(args[0], args[3], args[4], dy) == path
+    got = ssd_ops.ssd_bwd(*args, dy, ds, path=path)
     torch.cuda.synchronize()
     assert ssd_ops.LAUNCHES == {**before, "ssd_scan_bwd": before["ssd_scan_bwd"] + 1}
+    assert ssd_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
     assert ssd_ops.BWD_LAUNCHES == {key: v + 1 for key, v in kernels.items()}
     for gr, t in zip(got, args):
         assert gr.dtype == t.dtype and gr.shape == t.shape and torch.isfinite(gr.float()).all()
     want = _ssd_grads_plain(args, dy, ds)
     assert all(_ssd_grad_ok(gr, w, dtype) for gr, w in zip(got, want)), \
         [float((gr.double() - w.double()).abs().max()) for gr, w in zip(got, want)]
-    rolled = ssd_ops.ssd_bwd(*args[:3], args[3].roll(1, dims=1), args[4].roll(1, dims=1), dy, ds)
+    rolled = ssd_ops.ssd_bwd(*args[:3], args[3].roll(1, dims=1), args[4].roll(1, dims=1), dy, ds,
+                             path=path)
     assert not any(_ssd_grad_ok(gr, w, dtype) for gr, w in zip(rolled, want))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("case,strong", [c for c in SSD_BWD_CASES if c[0][-1] > 32])
+def test_ssd_backward_bwd_wgmma_reruns_bit_identical(card, case, strong, with_state):
+    """No atomics anywhere: the same inputs give the same bits, dB and dC's
+    group sum included."""
+    args = _ssd_inputs(case, card, torch.bfloat16, strong=strong)
+    dy, ds = _ssd_cotangents(case, card, torch.bfloat16, with_state)
+    first = ssd_ops.ssd_bwd(*args, dy, ds, path="bwd_wgmma")
+    again = ssd_ops.ssd_bwd(*args, dy, ds, path="bwd_wgmma")
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_ssd_backward_bwd_wgmma_reads_strided_layouts_in_place(card):
+    """bf16 x, B and C as slices of one fused projection and dY as a slice of
+    a wider gradient keep 16-byte rows: bwd_wgmma takes them and gives the
+    contiguous inputs' gradients exactly."""
+    case = (2, 70, 4, 32, 2, 64)
+    b, l, h, p, g, n = case
+    args = _ssd_inputs(case, card, torch.bfloat16)
+    x, dt, a, bm, cm = args
+    dy, ds = _ssd_cotangents(case, card, torch.bfloat16, True)
+    xv, bv, cv = _fused_projection(x, bm, cm, extra=8)
+    dtv = torch.cat([dt, torch.zeros((b, l, 3), device=card)], dim=-1)[..., :h]
+    dyv = torch.cat([dy.flatten(2), torch.zeros((b, l, 8), device=card, dtype=dy.dtype)],
+                    dim=-1)[..., :h * p].unflatten(2, (h, p))
+    assert not any(t.is_contiguous() for t in (xv, dtv, bv, cv, dyv))
+    assert ssd_ops.choose_bwd_path(xv, bv, cv, dyv) == "bwd_wgmma"
+    want = ssd_ops.ssd_bwd(*args, dy, ds)
+    got = ssd_ops.ssd_bwd(xv, dtv, a, bv, cv, dyv, ds)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("how", ["f32", "stride"])
+def test_ssd_backward_forced_bwd_wgmma_raises_where_it_does_not_take(card, how):
+    """f32, and bf16 whose rows 16-byte copies cannot read, go to bwd_ffma
+    unforced; forcing bwd_wgmma on them raises and launches nothing."""
+    case = (2, 70, 4, 16, 2, 48)
+    args = _ssd_inputs(case, card, torch.float32 if how == "f32" else torch.bfloat16)
+    dy, _ = _ssd_cotangents(case, card, args[0].dtype, False)
+    if how == "stride":
+        x, dt, a, bm, cm = args
+        args = (x, dt, a, *_fused_projection(x, bm, cm, extra=4)[1:])
+    assert ssd_ops.choose_bwd_path(args[0], args[3], args[4], dy) == "bwd_ffma"
+    before = (dict(ssd_ops.LAUNCHES), dict(ssd_ops.PATH_LAUNCHES))
+    with pytest.raises(ValueError, match="bwd_wgmma path takes"):
+        ssd_ops.ssd_bwd(*args, dy, path="bwd_wgmma")
+    assert (ssd_ops.LAUNCHES, ssd_ops.PATH_LAUNCHES) == before
+    got = ssd_ops.ssd_bwd(*args, dy)
+    assert ssd_ops.PATH_LAUNCHES == {**before[1], "bwd_ffma": before[1]["bwd_ffma"] + 1}
+    want = _ssd_grads_plain(args, dy, None)
+    dtype = "float32" if how == "f32" else "bfloat16"
+    assert all(_ssd_grad_ok(gr, w, dtype) for gr, w in zip(got, want))
 
 
 def test_ssd_backward_reads_strided_layouts_in_place(card):
@@ -937,7 +1017,8 @@ def test_ssd_counts_with_and_without_grad(card):
         return out, tuple(dict(c) for c in counters)
 
     plain, counts = counted(lambda: ssd_ops.ssd(*args, impl="pallas"))
-    assert counts == ({"ssd_scan": 1, "ssd_scan_bwd": 0}, {"ffma": 0, "wgmma": 1, "bwd_ffma": 0},
+    assert counts == ({"ssd_scan": 1, "ssd_scan_bwd": 0},
+                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 0, "bwd_wgmma": 0},
                       {"states": 0, "dchunk": 0, "group_sum": 0})
     leaves = [t.clone().requires_grad_() for t in args]
     with torch.no_grad():
@@ -950,7 +1031,8 @@ def test_ssd_counts_with_and_without_grad(card):
 
     ((y, s), grads), counts = counted(step)
     assert torch.equal(y, plain[0]) and torch.equal(s, plain[1])
-    assert counts == ({"ssd_scan": 1, "ssd_scan_bwd": 1}, {"ffma": 0, "wgmma": 1, "bwd_ffma": 1},
+    assert counts == ({"ssd_scan": 1, "ssd_scan_bwd": 1},
+                      {"ffma": 0, "wgmma": 1, "bwd_ffma": 0, "bwd_wgmma": 1},
                       {"states": 1, "dchunk": 1, "group_sum": 1})
     want = _ssd_grads_plain(args, dy, None)
     assert all(_ssd_grad_ok(gr, w, "bfloat16") for gr, w in zip(grads, want))
