@@ -398,17 +398,25 @@ Phases (any failure exits non-zero before the last line is printed):
              earlier phase launches ``ssd_scan_bwd`` (``run_serve`` and
              phase 29 (d) assert it, ``ssd_ops.BWD_LAUNCHES`` is 0 when the
              phase starts).
-32. train through rglru_scan — the backward of ``rglru_scan``
-             (``csrc/rglru_scan_bwd.cu``: one launch, h recomputed in f32,
-             then one reverse scan) and training on it and flash under
-             ``rglru_impl="pallas"``, ``attn_impl="pallas"``: (a) on every
-             RGLRU_CASES case in f32 and bf16, with and without a cotangent
-             of the final state, dlog_a and db against ``rglru_bwd`` (f32
-             allclose 1e-4 against it run in f64, the serve shape too;
-             bf16 relative norms 2e-2 against it in f32), log_a
-             and b rolled one step together failing every limit; (b) the
-             backward timed at recurrentgemma-9b's training shape (8 x 128 x
-             4096) and its serve shape, f32, beside the plain version
+32. train through rglru_scan — the backward of ``rglru_scan`` on its
+             two paths (``bwd_onchip``, ``csrc/rglru_scan_bwd_onchip.cu``,
+             up to L = 4096: the inputs read once into registers, segments
+             exchanged in a block or a cluster; ``bwd_fourpass``,
+             ``csrc/rglru_scan_bwd.cu``, above it: h recomputed into an f32
+             workspace, then one reverse scan; one launch either way) and
+             training on it and flash under ``rglru_impl="pallas"``,
+             ``attn_impl="pallas"``: (a) on every RGLRU_CASES case and
+             RGLRU_BWD_EDGE_CASES case (L = 1, 4096, 4097, 2049) in f32 and
+             bf16, with and without a cotangent of the final state, both
+             paths forced (``bwd_onchip`` where L is within its capacity,
+             where ``choose_bwd_path`` must pick it; above it a forced
+             ``bwd_onchip`` must raise), dlog_a and db against
+             ``rglru_bwd`` (f32 allclose 1e-4 against it run in f64, the
+             serve shape too; bf16 relative norms 2e-2 against it in f32),
+             log_a and b rolled one step together failing every limit, a
+             second ``bwd_onchip`` run giving the same bits; (b) both paths
+             timed in turns at recurrentgemma-9b's training shape (8 x 128
+             x 4096) and its serve shape, f32, beside the plain version
              (autograd through ``rglru_associative``) and the bound, and the
              flash backward at its training shape (MQA, D = 256); (c)
              recurrentgemma-9b at full width cut to 5 of its 38 layers (its
@@ -416,15 +424,17 @@ Phases (any failure exits non-zero before the last line is printed):
              plain routes and 4 on the kernel routes from the same
              parameters and batch: 8 ``rglru_scan`` and 2 flash forward
              launches a step (layers and remat recomputes), 4 and 1 backward
-             calls (the flash one on ``bwd_wgmma``), finite and falling
+             calls (the RG-LRU ones on ``bwd_onchip``, the flash one on
+             ``bwd_wgmma``), finite and falling
              losses, the first within 2e-2 of the plain routes', the first and last RG-LRU layers' backward on
              their captured inputs (relative norms 1e-4 against f64, log_a
              and b rolled outside it), each route's walls, launches, busy
              share and peak; (d) its (rglru, rglru) group in f32 at full
              width, one step card (kernels) against CPU (plain versions):
              loss 1e-5, gradients 1e-4, tokens
-             rolled outside it.  Every other kernel reads 0 launches; no
-             earlier phase launches ``rglru_scan_bwd``.
+             rolled outside it, every backward on ``bwd_onchip``.  Every
+             other kernel reads 0 launches; no earlier phase launches
+             ``rglru_scan_bwd``.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
@@ -438,9 +448,10 @@ times at the training shape, ``ssd_scan`` with those of phases 12 and 31,
 worst errors and its times at the training and serve shapes,
 ``ssd_scan_bwd`` (the ``bwd_ffma`` path) with its f32 calls, worst errors by
 dtype and its bf16 and f32 times at both shapes,
-``rglru_scan`` with those of phases 14 and 32, ``rglru_scan_bwd`` with phase
-32's calls, worst errors by dtype and its times at the training and serve
-shapes, ``flash_decode_int8`` with those of
+``rglru_scan`` with those of phases 14 and 32, ``rglru_scan_bwd`` (the
+``bwd_onchip`` kernel) with phase 32's calls, by kernel path too, worst
+errors by dtype and path and its times at the training and serve shapes,
+``bwd_fourpass``'s beside them, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
 ``launches_by_path`` also holds its launches in phase 26, 0),
@@ -4619,13 +4630,20 @@ SSD_TWIN_LAYERS = 2             # mamba2-1.3b cut to 2 layers for the f32 step, 
 def grads_close(torch, got, want, dtype, elementwise=True):
     """(passes, errors) for each gradient: f32 max |got - want| / (tol + tol
     |want|) (allclose fails above 1), bf16 and f32 not ``elementwise``
-    relative norms."""
+    relative norms (against a gradient that is 0 everywhere: 0 if got is 0
+    too, else infinite)."""
     tol = SSD_BWD_TOLS[str(dtype)[6:]]
     if dtype == torch.float32 and elementwise:
         errs = [float(((g.double() - w.double()).abs() / (tol + tol * w.double().abs())).max())
                 for g, w in zip(got, want)]
         return [e <= 1.0 for e in errs], errs
-    errs = [rel_norm(g, w) for g, w in zip(got, want)]
+
+    def rel(g, w):   # a gradient that is 0 everywhere (dlog_a at L = 1) is met only exactly
+        if not bool(w.float().abs().max() > 0):
+            return 0.0 if not bool(g.float().abs().max() > 0) else math.inf
+        return rel_norm(g, w)
+
+    errs = [rel(g, w) for g, w in zip(got, want)]
     return [e <= tol for e in errs], errs
 
 
@@ -4950,6 +4968,9 @@ def run_ssd_train_phase(torch, ssd_ops, ssd_ref, counters, smi, device="cuda"):
 # ---------------------------------------------------------------- phase 32
 
 RGLRU_BWD_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu"
+RGLRU_BWD_ONCHIP_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd_onchip.cu"
+# the kernel of each backward path, as lru_ops.BWD_LAUNCHES names it
+RGLRU_BWD_KERNELS = {"bwd_onchip": "onchip", "bwd_fourpass": "reverse_scan"}
 # dlog_a and db against the plain backward (ref.rglru_bwd): f32 allclose 1e-4
 # (tests/test_kernels.py:56) against it run in f64, the serve shape too; bf16
 # relative norms 2e-2 against it in f32 on the same bf16 inputs.  grads_close
@@ -4957,6 +4978,15 @@ RGLRU_BWD_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu"
 RGLRU_GRADS = ("dlog_a", "db")
 # recurrentgemma-9b's scan and attention in a train step of batch 8 x 128
 RGLRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 4096)
+# phase 32 (a) only, beside RGLRU_CASES: L = 1, the on-chip path's capacity
+# (4,096, train_4k's L) and one past it, where choose_bwd_path must take
+# bwd_fourpass, and the first L whose blocks hold 9 segments
+RGLRU_BWD_EDGE_CASES = [
+    ("L = 1", (3, 1, 40)),
+    ("the on-chip capacity, L = 4096", (2, 4096, 96)),
+    ("the capacity + 1 (bwd_fourpass only)", (2, 4097, 96)),
+    ("L = 2049, 9 segments a block", (1, 2049, 72)),
+]
 RG_TRAIN_STEPS = 4
 RG_TRAIN_LOSS_REL_TOL = 2e-2    # the first step's loss, kernel routes against plain (bf16)
 
@@ -4979,55 +5009,90 @@ def lru_bwd_plain(lru_ref, args, dy, dh, work):
                              None if dh is None else dh.to(work))
 
 
+def lru_bwd_on(torch, lru_ops, path, args, dy, dh):
+    """``rglru_bwd`` forced onto ``path``, synchronised, with the counters
+    checked: one call, one launch of the path's kernel."""
+    before = (dict(lru_ops.PATH_LAUNCHES), dict(lru_ops.BWD_LAUNCHES))
+    got = lru_ops.rglru_bwd(*args, dy, dh, path=path)
+    torch.cuda.synchronize()
+    kernel = RGLRU_BWD_KERNELS[path]
+    assert lru_ops.PATH_LAUNCHES == {**before[0], path: before[0][path] + 1}, path
+    assert lru_ops.BWD_LAUNCHES == {**before[1], kernel: before[1][kernel] + 1}, path
+    return got
+
+
 def check_lru_bwd(torch, lru_ops, lru_ref):
-    """(a): dlog_a and db of the backward kernel against the plain backward
-    on every RGLRU_CASES case in f32 and bf16, with and without a cotangent
-    of the final state; log_a and b rolled by one step must fail every
-    limit.  Returns the largest errors by dtype."""
+    """(a): dlog_a and db of both backward paths against the plain backward
+    on every RGLRU_CASES and RGLRU_BWD_EDGE_CASES case in f32 and bf16,
+    with and without a cotangent of the final state (``bwd_onchip`` where L
+    is within its capacity, where choose_bwd_path must pick it; above it
+    bwd_fourpass is picked and a forced bwd_onchip raises); log_a and b
+    rolled by one step must fail every limit; a second run of bwd_onchip
+    must give the same bits.  Returns the largest errors by dtype and
+    path."""
     worst = {}
+    cap = lru_ops.ONCHIP_MAX_L
     for dtype in (torch.float32, torch.bfloat16):
         name_dt = str(dtype)[6:]
-        for name, case in RGLRU_CASES:
+        for name, case in (*RGLRU_CASES, *RGLRU_BWD_EDGE_CASES):
             args = rglru_inputs(torch, case, dtype)
+            chosen = lru_ops.choose_bwd_path(*args)
+            assert chosen == ("bwd_onchip" if case[1] <= cap else "bwd_fourpass"), (name, chosen)
+            paths = lru_ops.BWD_PATHS if case[1] <= cap else ("bwd_fourpass",)
             for with_state in (False, True):
                 dy, dh = lru_cotangents(torch, case, dtype, with_state)
-                before = dict(lru_ops.BWD_LAUNCHES)
-                got = lru_ops.rglru_bwd(*args, dy, dh)
-                torch.cuda.synchronize()
-                assert lru_ops.BWD_LAUNCHES == {k: v + 1 for k, v in before.items()}, name
-                for g_, t in zip(got, args):
-                    assert g_.dtype == t.dtype and g_.shape == t.shape, name
-                    assert torch.isfinite(g_.float()).all(), (name, name_dt)
+                if case[1] > cap:
+                    before = dict(lru_ops.BWD_LAUNCHES)
+                    try:
+                        lru_ops.rglru_bwd(*args, dy, dh, path="bwd_onchip")
+                        raise AssertionError(f"bwd_onchip took L = {case[1]}")
+                    except ValueError:
+                        pass
+                    assert lru_ops.BWD_LAUNCHES == before
                 work = torch.float64 if dtype == torch.float32 else torch.float32
                 want = lru_bwd_plain(lru_ref, args, dy, dh, work)
-                ok, errs = grads_close(torch, got, want, dtype)
-                abs_err = max(float((g_.double() - w.double()).abs().max())
-                              for g_, w in zip(got, want))
-                rolled = lru_ops.rglru_bwd(*roll_lru(args), dy, dh)
-                ctl_ok, ctl = grads_close(torch, rolled, want, dtype)
-                how = "rel" if dtype == torch.bfloat16 else "of tol"
-                say(f"  {name_dt:>8} {name:<32} {str(case):<18} "
-                    f"{'dh_final' if with_state else '        '} {'/'.join(RGLRU_GRADS)} "
-                    f"{' '.join(f'{e:.2e}' for e in errs)} ({how}; max|err| {abs_err:.2e}); "
-                    f"log_a, b rolled {' '.join(f'{e:.2e}' for e in ctl)}")
-                assert all(ok), (name, name_dt, with_state, errs)
-                assert not any(ctl_ok), (name, name_dt, with_state, ctl)
-                row = worst.setdefault(name_dt, {})
-                row["grads"] = max(row.get("grads", 0.0), max(errs))
-                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
-                del dy, dh, got, want, rolled
+                for path in paths:
+                    got = lru_bwd_on(torch, lru_ops, path, args, dy, dh)
+                    for g_, t in zip(got, args):
+                        assert g_.dtype == t.dtype and g_.shape == t.shape, name
+                        assert torch.isfinite(g_.float()).all(), (name, name_dt, path)
+                    ok, errs = grads_close(torch, got, want, dtype)
+                    abs_err = max(float((g_.double() - w.double()).abs().max())
+                                  for g_, w in zip(got, want))
+                    rolled = lru_ops.rglru_bwd(*roll_lru(args), dy, dh, path=path)
+                    ctl_ok, ctl = grads_close(torch, rolled, want, dtype)
+                    same = ""
+                    if path == "bwd_onchip":
+                        again = lru_ops.rglru_bwd(*args, dy, dh, path=path)
+                        assert all(torch.equal(g_, a_) for g_, a_ in zip(got, again)), \
+                            (name, name_dt, "bwd_onchip rerun bits differ")
+                        same = "; rerun bit-identical"
+                    how = "rel" if dtype == torch.bfloat16 else "of tol"
+                    say(f"  {name_dt:>8} {path:<12} {name:<36} {str(case):<16} "
+                        f"{'dh_final' if with_state else '        '} {'/'.join(RGLRU_GRADS)} "
+                        f"{' '.join(f'{e:.2e}' for e in errs)} ({how}; max|err| {abs_err:.2e}); "
+                        f"log_a, b rolled {' '.join(f'{e:.2e}' for e in ctl)}{same}")
+                    assert all(ok), (name, name_dt, path, with_state, errs)
+                    if case[1] > 1:   # at L = 1 a roll is the identity
+                        assert not any(ctl_ok), (name, name_dt, path, with_state, ctl)
+                    row = worst.setdefault(f"{name_dt} {path}", {})
+                    row["grads"] = max(row.get("grads", 0.0), max(errs))
+                    row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
+                    del got, rolled
+                del dy, dh, want
             del args
             free_card(torch)
     return worst
 
 
 def time_lru_bwd(torch, lru_ops, lru_ref, shape):
-    """(b): the backward at ``shape`` in f32 beside its plain version
-    (torch.autograd.grad through ``rglru_associative``, forward included)
-    and its bound: log_a, b and dy read and dlog_a and db written at 3.35
-    TB/s against 6 flops an element (h's update, dh's, dlog_a's, the carry)
-    at the f32 FFMA rate.  No single PyTorch call computes it: no library
-    time."""
+    """(b): both backward paths at ``shape`` in f32, in one call, beside
+    their plain version (torch.autograd.grad through ``rglru_associative``,
+    forward included) and their bound: log_a, b and dy read and dlog_a and
+    db written at 3.35 TB/s against 6 flops an element (h's update, dh's,
+    dlog_a's, the carry) at the f32 FFMA rate.  No single PyTorch call
+    computes it: no library time.  The row's own numbers are the path
+    choose_bwd_path takes; ``by_path`` has each path's time."""
     log_a, b = rglru_inputs(torch, shape, torch.float32, seed=6)
     dy, _ = lru_cotangents(torch, shape, torch.float32, False, seed=6)
 
@@ -5035,18 +5100,31 @@ def time_lru_bwd(torch, lru_ops, lru_ref, shape):
         la, bb = log_a.detach().requires_grad_(), b.detach().requires_grad_()
         return torch.autograd.grad(lru_ref.rglru_associative(la, bb)[0], (la, bb), dy)
 
-    row = {"ms": median_ms(torch, lambda: lru_ops.rglru_bwd(log_a, b, dy)),
+    by_path = {}
+    for path in ("bwd_onchip", "bwd_fourpass", "bwd_fourpass", "bwd_onchip"):   # in turns
+        by_path.setdefault(path, []).append(
+            median_ms(torch, lambda: lru_ops.rglru_bwd(log_a, b, dy, path=path)))
+    chosen = lru_ops.choose_bwd_path(log_a, b)
+    row = {"ms": statistics.median(by_path[chosen]), "path": chosen,
            "plain_ms": median_ms(torch, plain, reps=5, warm=1), "library_ms": None}
     n = log_a.numel()
     io_bytes, flops = 4 * 5 * n, 6 * n
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
     row.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-               io_mb=io_bytes / 1e6, tb_per_s=io_bytes / row["ms"] / 1e9, shape=list(shape))
-    say(f"  rglru_scan_bwd {shape}, f32: {row['ms']:.4f} ms ({row['tb_per_s']:.2f} TB/s of the "
-        f"{io_bytes / 1e6:.1f} MB it must move); plain {row['plain_ms']:.4f} ms; library null (no "
-        f"single PyTorch call); bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-        f"{io_bytes / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s of f32 "
-        f"FFMA); kernel / bound {row['ms'] / row['bound_ms']:.2f}")
+               io_mb=io_bytes / 1e6, shape=list(shape))
+    row["by_path"] = {p: {"ms": statistics.median(ts), "runs_ms": ts,
+                          "tb_per_s": io_bytes / statistics.median(ts) / 1e9,
+                          "of_bound": row["bound_ms"] / statistics.median(ts)}
+                      for p, ts in by_path.items()}
+    row["tb_per_s"] = row["by_path"][chosen]["tb_per_s"]
+    for p, r in row["by_path"].items():
+        say(f"  rglru_scan_bwd {shape}, f32, {p}: {r['ms']:.4f} ms (runs "
+            f"{', '.join(f'{t:.4f}' for t in r['runs_ms'])}; {r['tb_per_s']:.2f} TB/s of the "
+            f"{io_bytes / 1e6:.1f} MB it must move; {100 * r['of_bound']:.1f} % of its bound)")
+    say(f"  rglru_scan_bwd {shape}: choose_bwd_path takes {chosen}; plain {row['plain_ms']:.4f} "
+        f"ms; library null (no single PyTorch call); bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {io_bytes / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 "
+        f"TFLOP/s of f32 FFMA); kernel / bound {row['ms'] / row['bound_ms']:.2f}")
     del log_a, b, dy
     free_card(torch)
     return row
@@ -5104,7 +5182,8 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
         params, state = params0, opt.init(params0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES, lru_ops.BWD_LAUNCHES))
+        zero_launches((*counters, fa_ops.PATH_LAUNCHES, fa_ops.BWD_LAUNCHES, lru_ops.BWD_LAUNCHES,
+                       lru_ops.PATH_LAUNCHES))
         losses, walls = [], []
         keep = (0, n_lru - 1) if label == "kernels" else ()
         with capture_calls(lru_ops, "rglru_bwd", caps, keep), \
@@ -5116,18 +5195,21 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
                 walls.append(time.perf_counter() - t0)
                 losses.append(float(metrics["loss"]))
         launches, paths, _ = counts_now(counters, fa_ops)
-        lru_kernels = dict(lru_ops.BWD_LAUNCHES)
+        lru_kernels, lru_paths = dict(lru_ops.BWD_LAUNCHES), dict(lru_ops.PATH_LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 1e9
         prof = profile_call(torch, f"one {label} train step", lambda: step(params, state, batch),
-                            share_of=("rglru_bwd_kernel", "rglru_kernel", "flash_fwd", "flash_bwd"))
+                            share_of=("rglru_bwd_onchip_kernel", "rglru_bwd_kernel",
+                                      "rglru_kernel", "flash_fwd", "flash_bwd"))
         rows[label] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
                        "flash_by_path": paths, "rglru_bwd_kernels": lru_kernels,
+                       "rglru_bwd_by_path": lru_paths,
                        **{f"step_{k}": v for k, v in prof.items()}}
         say(f"  {label} ({over}): {RG_TRAIN_STEPS} steps, walls "
             f"{', '.join(f'{w:.3f}' for w in walls)} s (median "
             f"{statistics.median(walls) * 1e3:.1f} ms), losses "
             f"{', '.join(f'{x:.4f}' for x in losses)}, peak allocated {peak:.2f} GB; launches "
-            f"{launches}, flash by path {paths}, RG-LRU backward kernel {lru_kernels}")
+            f"{launches}, flash by path {paths}, RG-LRU backward by path {lru_paths}, by kernel "
+            f"{lru_kernels}")
         assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
         del params, state, step, opt
         free_card(torch)
@@ -5142,7 +5224,9 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
     assert paths["ffma"] + paths["wgmma"] == 2 * n_attn * s, paths
     assert paths["bwd_wgmma"] == n_attn * s and paths["bwd_ffma"] == 0, paths    # bf16, aligned
     assert_bwd_shapes_gated(shapes)
-    assert rows["kernels"]["rglru_bwd_kernels"] == {"reverse_scan": n_lru * s}
+    # every backward call of the step on bwd_onchip (L = 128), none on the four-pass kernel
+    assert rows["kernels"]["rglru_bwd_kernels"] == {"reverse_scan": 0, "onchip": n_lru * s}
+    assert rows["kernels"]["rglru_bwd_by_path"] == {"bwd_fourpass": 0, "bwd_onchip": n_lru * s}
     first = [rows[label]["losses"][0] for label in routes]
     gap = abs(first[1] - first[0]) / abs(first[0])
     say(f"  first step's loss: kernels {first[1]:.6f} against plain {first[0]:.6f} (relative "
@@ -5179,15 +5263,18 @@ def run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi
     recurrentgemma-9b at full width cut to 5 layers on both routes, (d) its
     f32 twin, card against CPU."""
     free_card(torch)
-    say("PHASE 32 train through rglru_scan: the backward of rglru_scan (one kernel) against its "
-        "plain version, timed, and training on it and flash under rglru_impl=\"pallas\", "
-        "attn_impl=\"pallas\"")
+    say("PHASE 32 train through rglru_scan: the backward of rglru_scan on both paths "
+        "(bwd_onchip up to L = 4096, bwd_fourpass above) against its plain version, timed, and "
+        "training on it and flash under rglru_impl=\"pallas\", attn_impl=\"pallas\"")
     say(f"  card: {smi}")
     t0 = time.perf_counter()
-    # BWD_LAUNCHES is never reset before this phase: no earlier phase launched the backward
+    # BWD_LAUNCHES and PATH_LAUNCHES are never reset before this phase: no earlier phase
+    # launched the backward
     assert not any(lru_ops.BWD_LAUNCHES.values()), lru_ops.BWD_LAUNCHES
+    assert not any(lru_ops.PATH_LAUNCHES.values()), lru_ops.PATH_LAUNCHES
     zero_launches(counters)
-    say("  (a) dlog_a and db against the plain backward, every RGLRU_CASES case")
+    say("  (a) dlog_a and db against the plain backward on both paths, every RGLRU_CASES and "
+        "RGLRU_BWD_EDGE_CASES case")
     worst = check_lru_bwd(torch, lru_ops, lru_ref)
     say(f"  (b) timings; (a) took {time.perf_counter() - t0:.1f} s")
     timings = {"train f32": time_lru_bwd(torch, lru_ops, lru_ref, RGLRU_TRAIN_SHAPE),
@@ -5203,7 +5290,7 @@ def run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi
     n = lru_layers(twin_cfg)
     say(f"  (d) {RGEMMA_ARCH} cut to one (rglru, rglru) group ({n} layers) at full width, f32: "
         f"card (kernels) against CPU (plain versions); so far {time.perf_counter() - t0:.1f} s")
-    zero_launches((*counters, fa_ops.PATH_LAUNCHES, lru_ops.BWD_LAUNCHES))
+    zero_launches((*counters, fa_ops.PATH_LAUNCHES, lru_ops.BWD_LAUNCHES, lru_ops.PATH_LAUNCHES))
     twin = run_train_twin(torch, device, cfg=twin_cfg)
     twin_launches, twin_paths, _ = counts_now(counters, fa_ops)
     fwd = 2 if twin_cfg.remat == "full" else 1
@@ -5211,12 +5298,16 @@ def run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi
     want = {**{k: 0 for k in twin_launches}, "rglru_scan": 3 * n * fwd, "rglru_scan_bwd": 3 * n}
     say(f"  {twin_cfg.name} ({n} layers) launches on the card {twin_launches}")
     assert twin_launches == want, (twin_launches, want)
-    assert lru_ops.BWD_LAUNCHES == {"reverse_scan": 3 * n}, lru_ops.BWD_LAUNCHES
+    assert lru_ops.BWD_LAUNCHES == {"reverse_scan": 0, "onchip": 3 * n}, lru_ops.BWD_LAUNCHES
+    twin_lru_paths = dict(lru_ops.PATH_LAUNCHES)
+    assert twin_lru_paths == {"bwd_fourpass": 0, "bwd_onchip": 3 * n}, twin_lru_paths
     say(f"  phase 32 {time.perf_counter() - t0:.1f} s")
     runs = {f"{RGEMMA_ARCH} (5 layers) train steps": (rg["kernels"]["launches"],
                                                        rg["kernels"]["flash_by_path"]),
             f"{RGEMMA_ARCH} ({n} layers) f32 twin (card)": (twin_launches, twin_paths)}
-    return worst, timings, flash_row, runs, {
+    lru_paths = {f"{RGEMMA_ARCH} (5 layers) train steps": rg["kernels"]["rglru_bwd_by_path"],
+                 f"{RGEMMA_ARCH} ({n} layers) f32 twin (card)": twin_lru_paths}
+    return worst, timings, flash_row, runs, lru_paths, {
         "card": smi, f"{RGEMMA_ARCH} (5 layers)": rg, "f32 twin": twin, "timings": timings,
         f"flash_attention_bwd {list(RG_TRAIN_ATTN_SHAPE)}": flash_row}
 
@@ -5295,6 +5386,13 @@ def main() -> int:
         f"G={g} D={d} {decode_ops.library().repro_flash_decode_int8_smem_bytes(g, d)} B dynamic "
         f"shared memory, clusters that fit at once by size {decode_ops.cluster_fit(0, g, d)}"
         for g, d in ((1, 64), (1, 128), (16, 256))))
+    lru_lib = lru_ops.library()
+    assert lru_lib.repro_rglru_scan_bwd_onchip_capacity() == lru_ops.ONCHIP_MAX_L
+    say(f"  rglru_scan backward: bwd_onchip takes L <= {lru_ops.ONCHIP_MAX_L} (the library's "
+        f"{lru_lib.repro_rglru_scan_bwd_onchip_capacity()}); recurrentgemma's L = 128 and 2048 "
+        f"launch (steps, segments a block, blocks a cluster) "
+        f"{lru_ops.onchip_schedule(RGLRU_TRAIN_SHAPE[1])} and "
+        f"{lru_ops.onchip_schedule(RGLRU_SERVE_SHAPE[1])}")
     counters = (ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES, lru_ops.LAUNCHES,
                 decode_ops.LAUNCHES)
     no_launches = {k: 0 for counts in counters for k in counts}
@@ -5532,8 +5630,8 @@ def main() -> int:
         torch, ssd_ops, ssd_ref, counters, smi)
     say(json.dumps({"train through ssd_scan": ssd_train_row}))
     say(f"  so far {time.perf_counter() - t_all:.1f} s")
-    lru_bwd_errs, lru_bwd_rows, rg_flash_bwd, lru_bwd_runs, rg_train_row = run_rglru_train_phase(
-        torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi)
+    (lru_bwd_errs, lru_bwd_rows, rg_flash_bwd, lru_bwd_runs, lru_bwd_paths,
+     rg_train_row) = run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi)
     say(json.dumps({"train through rglru_scan": rg_train_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
@@ -5707,18 +5805,33 @@ def main() -> int:
         "launches_by_path": {RGEMMA_ARCH: rgemma_launches["rglru_scan"],
                              **{k: c["rglru_scan"] for k, (c, _) in lru_train.items()}},
     })
-    lru_keys = (*timing_keys, "io_mb", "tb_per_s", "shape")
+    lru_keys = (*timing_keys, "io_mb", "tb_per_s", "shape", "path")
+    lru_bwd_paths = {f"{k} (phase 32)": v for k, v in lru_bwd_paths.items()}
+
+    def lru_path_row(row, path):   # a path's time beside the row's bound and plain version
+        return {"ms": row["by_path"][path]["ms"], "runs_ms": row["by_path"][path]["runs_ms"],
+                **{k: row[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}}
+
     kernels.append({
-        "name": "rglru_scan_bwd", "route": "cuda", "source": RGLRU_BWD_SOURCE,
+        "name": "rglru_scan_bwd", "route": "cuda", "source": RGLRU_BWD_ONCHIP_SOURCE,
         "replaces": "src/repro/kernels/rglru_scan/ops.py:23",
         "launches": sum(c["rglru_scan_bwd"] for c, _ in lru_train.values()),
         "launches_by_path": {k: c["rglru_scan_bwd"] for k, (c, _) in lru_train.items()},
-        "launches_note": "backward calls of phase 32's training runs, one kernel launch each; "
-                         "0 in phases 1-31",
+        "launches_by_kernel_path": {p: sum(v[p] for v in lru_bwd_paths.values())
+                                    for p in lru_ops.BWD_PATHS},
+        "launches_by_run_and_kernel_path": lru_bwd_paths,
+        "sources_by_kernel_path": {"bwd_onchip": RGLRU_BWD_ONCHIP_SOURCE,
+                                   "bwd_fourpass": RGLRU_BWD_SOURCE},
+        "launches_note": "backward calls of phase 32's training runs, one kernel launch each, "
+                         "all on bwd_onchip (L = 128); bwd_fourpass takes L above 4096 and "
+                         "is forced in phase 32 (a) and (b); 0 in phases 1-31",
         "dtype": "float32",
-        "max_abs_err": lru_bwd_errs["float32"]["max_abs_err"], "max_err_by_dtype": lru_bwd_errs,
+        "max_abs_err": lru_bwd_errs["float32 bwd_onchip"]["max_abs_err"],
+        "max_err_by_dtype": lru_bwd_errs,
         **{k: lru_bwd_rows["train f32"][k] for k in lru_keys},
         f"{RGEMMA_ARCH} serve shape": {k: lru_bwd_rows["serve f32"][k] for k in lru_keys},
+        "bwd_fourpass": {"train f32": lru_path_row(lru_bwd_rows["train f32"], "bwd_fourpass"),
+                         "serve f32": lru_path_row(lru_bwd_rows["serve f32"], "bwd_fourpass")},
     })
     kernels.append({
         "name": "flash_decode_int8", "route": "cuda", "source": DECODE_SOURCE,

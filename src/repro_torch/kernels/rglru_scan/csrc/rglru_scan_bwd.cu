@@ -49,8 +49,9 @@
 // write dlog_a and db: 83.9 MB, 0.0250 ms at 3.35 TB/s, against ~6 flops
 // an element.  This kernel reads log_a four times, b twice, dy twice, and
 // writes and reads the workspace once: ~2.4x those bytes (201 MB at f32),
-// and the four dependent chains a segment.  Keeping a segment on chip
-// between the passes is later work.
+// and the four dependent chains a segment.  rglru_scan_bwd_onchip.cu keeps
+// a segment on chip between the passes for L up to its capacity (4096);
+// this kernel is the path above it, where it takes any L.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

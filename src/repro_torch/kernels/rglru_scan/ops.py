@@ -15,19 +15,31 @@ does.  ``impl`` is the reference's:
 The kernel takes any L (the reference's Pallas kernel needs L to be a
 multiple of its chunk; its oracle does not).  Under grad (grad mode on and
 an input that requires it) a CUDA call goes through ``RGLRUScan``, whose
-forward is one launch of the kernel and whose backward is one launch of
-``csrc/rglru_scan_bwd.cu`` (``rglru_bwd``: h recomputed in f32, then one
-reverse scan for d log_a and db), so a config with ``rglru_impl="pallas"``
-trains the hybrid family on the kernels, as the reference's custom VJP
-does.  ``LAUNCHES["rglru_scan"]`` counts forward launches and
-``LAUNCHES["rglru_scan_bwd"]`` backward calls; ``BWD_LAUNCHES`` counts the
-backward's kernel.  ``rglru_decode_step`` is the one-token update of
-decode, plain torch as in the reference.
+forward is one launch of the kernel and whose backward is ``rglru_bwd``, so
+a config with ``rglru_impl="pallas"`` trains the hybrid family on the
+kernels, as the reference's custom VJP does.
+
+The backward has two paths, picked by ``choose_bwd_path`` from L alone:
+``bwd_onchip`` (``csrc/rglru_scan_bwd_onchip.cu``: log_a, b and dy read
+once into registers, segments exchanged inside a block or a thread-block
+cluster, no workspace) for L up to ``ONCHIP_MAX_L``, f32 and bf16 alike;
+``bwd_fourpass`` (``csrc/rglru_scan_bwd.cu``: h recomputed into an f32
+workspace, then the reverse scan) above it, for any L.
+``rglru_bwd(..., path=)`` forces one; ``bwd_onchip`` raises above its
+capacity.
+
+``LAUNCHES["rglru_scan"]`` counts forward launches and
+``LAUNCHES["rglru_scan_bwd"]`` backward calls, ``PATH_LAUNCHES`` the
+backward calls by path and ``BWD_LAUNCHES`` each backward kernel's
+launches (``"onchip"``, ``"reverse_scan"``: the four-pass kernel).
+``rglru_decode_step`` is the one-token update of decode, plain torch as in
+the reference.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -37,12 +49,25 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.rglru_scan import ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "rglru_scan.cu", _CSRC / "rglru_scan_bwd.cu")
+SOURCES = (_CSRC / "rglru_scan.cu", _CSRC / "rglru_scan_bwd.cu",
+           _CSRC / "rglru_scan_bwd_onchip.cu")
 
 #: forward launches and backward calls so far; callers reset them to 0 to count a run
 LAUNCHES = {"rglru_scan": 0, "rglru_scan_bwd": 0}
-#: the backward's kernel, one launch a backward call
-BWD_LAUNCHES = {"reverse_scan": 0}
+#: the backward's paths
+BWD_PATHS = ("bwd_fourpass", "bwd_onchip")
+#: backward calls by path
+PATH_LAUNCHES = {path: 0 for path in BWD_PATHS}
+#: the backward's kernels, one launch a backward call: the four-pass kernel, the on-chip one
+BWD_LAUNCHES = {"reverse_scan": 0, "onchip": 0}
+
+#: the on-chip kernel's tile (rglru_scan_bwd_onchip.cu): lanes of W a block, the
+#: most steps a thread holds, segments (warps) a block and blocks a cluster
+ONCHIP_LANES, ONCHIP_STEPS, ONCHIP_MAX_WARPS, ONCHIP_MAX_CLUSTER = 32, 32, 16, 8
+#: the longest L the on-chip path takes
+ONCHIP_MAX_L = ONCHIP_STEPS * ONCHIP_MAX_WARPS * ONCHIP_MAX_CLUSTER
+_ONCHIP_WARPS = 8          # segments a block up to L = 2048
+_ONCHIP_SHORT_STEPS = 16   # the short kernel's steps a thread (three blocks an SM)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
@@ -60,7 +85,50 @@ def library() -> ctypes.CDLL:
     lib.repro_rglru_scan.restype = _I
     lib.repro_rglru_scan_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _Strides, _P]
     lib.repro_rglru_scan_bwd.restype = _I
+    lib.repro_rglru_scan_bwd_onchip.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                                _I, _Strides, _P]
+    lib.repro_rglru_scan_bwd_onchip.restype = _I
+    lib.repro_rglru_scan_bwd_onchip_capacity.argtypes = []
+    lib.repro_rglru_scan_bwd_onchip_capacity.restype = _I
     return lib
+
+
+def onchip_schedule(length: int) -> Tuple[int, int, int]:
+    """(steps a segment, segments a block, blocks a cluster) of the on-chip
+    kernel for L = ``length``, the steps covering L: 8 segments a block of
+    up to 16 steps (the short kernel) in clusters of ceil(L / 128) blocks up
+    to L = 1024, of up to 32 steps in clusters of ceil(L / 256) up to L =
+    2048, then clusters of 8 with up to 16 segments a block.  Raises above
+    ``ONCHIP_MAX_L``."""
+    if not 1 <= length <= ONCHIP_MAX_L:
+        raise ValueError(f"rglru_bwd: the on-chip path takes 1 <= L <= {ONCHIP_MAX_L}, "
+                         f"got L = {length}")
+    short_block = _ONCHIP_WARPS * _ONCHIP_SHORT_STEPS
+    if length <= short_block * ONCHIP_MAX_CLUSTER:
+        warps, cluster = _ONCHIP_WARPS, math.ceil(length / short_block)
+    elif length <= _ONCHIP_WARPS * ONCHIP_STEPS * ONCHIP_MAX_CLUSTER:
+        warps, cluster = _ONCHIP_WARPS, math.ceil(length / (_ONCHIP_WARPS * ONCHIP_STEPS))
+    else:
+        warps, cluster = math.ceil(length / (ONCHIP_STEPS * ONCHIP_MAX_CLUSTER)), ONCHIP_MAX_CLUSTER
+    return math.ceil(length / (warps * cluster)), warps, cluster
+
+
+def choose_bwd_path(log_a: torch.Tensor, b: torch.Tensor) -> str:
+    """``bwd_onchip`` where L is at most ``ONCHIP_MAX_L``, ``bwd_fourpass``
+    above it; f32 and bf16 alike (both paths run f32 FFMA)."""
+    return "bwd_onchip" if b.shape[1] <= ONCHIP_MAX_L else "bwd_fourpass"
+
+
+def _bwd_path(log_a: torch.Tensor, b: torch.Tensor, path: Optional[str]) -> str:
+    chosen = choose_bwd_path(log_a, b)
+    if path is None:
+        return chosen
+    if path not in BWD_PATHS:
+        raise ValueError(f"rglru_bwd: unknown path {path!r}, not one of {BWD_PATHS}")
+    if path == "bwd_onchip" and chosen != path:
+        raise ValueError(f"rglru_bwd: the bwd_onchip path takes L <= {ONCHIP_MAX_L}, "
+                         f"got L = {b.shape[1]}")
+    return path
 
 
 def _check(log_a: torch.Tensor, b: torch.Tensor) -> None:
@@ -102,13 +170,18 @@ def rglru_kernel(log_a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, to
 
 
 def rglru_bwd(log_a: torch.Tensor, b: torch.Tensor, dy: torch.Tensor,
-              dh_final: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              dh_final: Optional[torch.Tensor] = None,
+              path: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dlog_a in log_a's dtype, db in b's dtype) of the scan for the
     cotangents ``dy`` of y (b's shape and dtype, any strides with a
     unit-stride last dimension) and ``dh_final`` of the final state ((B, W),
-    or None for 0).  One launch; h is recomputed in an f32 workspace.  CUDA
-    tensors only: the plain version is ``ref.rglru_bwd``."""
+    or None for 0).  One launch on ``path`` (None: ``choose_bwd_path``'s);
+    only ``bwd_fourpass`` allocates a workspace (h in f32).  ``bwd_onchip``
+    raises on a length stride or a W above 2**31 / 32 elements (its step
+    offsets are 32-bit).  CUDA tensors only: the plain version is
+    ``ref.rglru_bwd``."""
     _check(log_a, b)
+    path = _bwd_path(log_a, b, path)
     if dy.shape != b.shape or dy.dtype != b.dtype or dy.device != b.device or dy.stride(-1) != 1:
         raise ValueError(f"rglru_bwd: dy {tuple(dy.shape)} {dy.dtype} must be b's shape, dtype "
                          "and device with a unit-stride last dimension")
@@ -123,17 +196,25 @@ def rglru_bwd(log_a: torch.Tensor, b: torch.Tensor, dy: torch.Tensor,
     db = torch.empty((bs, l, w), dtype=b.dtype, device=b.device)
     if db.numel() == 0:
         return dlog_a.to(log_a.dtype), db
-    h_ws = torch.empty((bs, l, w), dtype=torch.float32, device=b.device)
     strides = _Strides(*(s for t in (la, b, dy) for s in t.stride()[:2]))
+    dhf = None if dh_final is None else dh_final.data_ptr()
     with torch.cuda.device(b.device):
-        err = library().repro_rglru_scan_bwd(
-            _DTYPES[b.dtype], la.data_ptr(), b.data_ptr(), dy.data_ptr(),
-            None if dh_final is None else dh_final.data_ptr(), h_ws.data_ptr(),
-            dlog_a.data_ptr(), db.data_ptr(), bs, l, w, strides,
-            torch.cuda.current_stream(b.device).cuda_stream)
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        if path == "bwd_onchip":
+            kernel = "onchip"
+            err = library().repro_rglru_scan_bwd_onchip(
+                _DTYPES[b.dtype], la.data_ptr(), b.data_ptr(), dy.data_ptr(), dhf,
+                dlog_a.data_ptr(), db.data_ptr(), bs, l, w, *onchip_schedule(l), strides, stream)
+        else:
+            kernel = "reverse_scan"
+            h_ws = torch.empty((bs, l, w), dtype=torch.float32, device=b.device)
+            err = library().repro_rglru_scan_bwd(
+                _DTYPES[b.dtype], la.data_ptr(), b.data_ptr(), dy.data_ptr(), dhf,
+                h_ws.data_ptr(), dlog_a.data_ptr(), db.data_ptr(), bs, l, w, strides, stream)
     if err != 0:
-        raise RuntimeError(f"rglru_scan_bwd kernel launch failed: CUDA error {err}")
-    BWD_LAUNCHES["reverse_scan"] += 1
+        raise RuntimeError(f"rglru_scan_bwd kernel launch failed ({path}): CUDA error {err}")
+    BWD_LAUNCHES[kernel] += 1
+    PATH_LAUNCHES[path] += 1
     LAUNCHES["rglru_scan_bwd"] += 1
     return dlog_a.to(log_a.dtype), db
 

@@ -1185,63 +1185,95 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(card):
         lru_ops.rglru_bwd(log_a, x, x, torch.zeros((2, 7), device=card))   # dh_final's shape
 
 
+RGLRU_BWD_KERNEL = {"bwd_onchip": "onchip", "bwd_fourpass": "reverse_scan"}
+RGLRU_CAP = lru_ops.ONCHIP_MAX_L
+
+
+def _lru_cotangents(case, card, dtype, with_state, seed=10):
+    gen = torch.Generator().manual_seed(seed)
+    dy = torch.randn(case, generator=gen).to(card, dtype)
+    dhf = torch.randn((case[0], case[2]), generator=gen).to(card) if with_state else None
+    return dy, dhf
+
+
+def _lru_bwd_counted(expect, *args, **kw):
+    """``rglru_bwd`` with the counters checked: one call, one launch of the
+    kernel of the path ``expect``."""
+    before = (dict(lru_ops.LAUNCHES), dict(lru_ops.PATH_LAUNCHES), dict(lru_ops.BWD_LAUNCHES))
+    got = lru_ops.rglru_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert lru_ops.LAUNCHES == {**before[0], "rglru_scan_bwd": before[0]["rglru_scan_bwd"] + 1}
+    assert lru_ops.PATH_LAUNCHES == {**before[1], expect: before[1][expect] + 1}
+    kernel = RGLRU_BWD_KERNEL[expect]
+    assert lru_ops.BWD_LAUNCHES == {**before[2], kernel: before[2][kernel] + 1}
+    return got
+
+
+def _lru_grads_ok(got, want, dtype):
+    """f32 allclose 1e-4 against the plain backward in f64; bf16 relative
+    norms 2e-2 against it in f32."""
+    def ok(gr, w):
+        if dtype == torch.float32:
+            return torch.allclose(gr.double(), w, rtol=1e-4, atol=1e-4)
+        return float((gr.float() - w).norm() / w.norm().clamp_min(1e-30)) <= 2e-2
+
+    return [ok(gr, w) for gr, w in zip(got, want)]
+
+
+def _lru_plain(log_a, x, dy, dhf):
+    work = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return lru_ref.rglru_bwd(log_a.to(work), x.to(work), dy.to(work),
+                             None if dhf is None else dhf.to(work))
+
+
+@pytest.mark.parametrize("path", lru_ops.BWD_PATHS)
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", RGLRU_CASES)
-def test_rglru_backward_matches_plain_version(card, case, dtype, with_state):
-    """dlog_a and db of the backward kernel against ``ref.rglru_bwd`` (f32
+def test_rglru_backward_matches_plain_version(card, case, dtype, with_state, path):
+    """dlog_a and db of each backward path against ``ref.rglru_bwd`` (f32
     allclose 1e-4 against it in f64; bf16 relative norms 2e-2 against it in
     f32 on the same inputs); log_a and b rolled one step along L together
     fail both limits (db does not see b)."""
     log_a, x = _rglru_inputs(case, card, getattr(torch, dtype))
-    gen = torch.Generator().manual_seed(10)
-    dy = torch.randn(case, generator=gen).to(card, x.dtype)
-    dhf = torch.randn((case[0], case[2]), generator=gen).to(card) if with_state else None
-    before, kernels = dict(lru_ops.LAUNCHES), dict(lru_ops.BWD_LAUNCHES)
-    got = lru_ops.rglru_bwd(log_a, x, dy, dhf)
-    torch.cuda.synchronize()
-    assert lru_ops.LAUNCHES == {**before, "rglru_scan_bwd": before["rglru_scan_bwd"] + 1}
-    assert lru_ops.BWD_LAUNCHES == {key: v + 1 for key, v in kernels.items()}
+    dy, dhf = _lru_cotangents(case, card, x.dtype, with_state)
+    got = _lru_bwd_counted(path, log_a, x, dy, dhf, path=path)
     for gr, t in zip(got, (log_a, x)):
         assert gr.dtype == t.dtype and gr.shape == t.shape and torch.isfinite(gr.float()).all()
-    work = torch.float64 if dtype == "float32" else torch.float32
-    want = lru_ref.rglru_bwd(log_a.to(work), x.to(work), dy.to(work),
-                             None if dhf is None else dhf.to(work))
-
-    def ok(gr, w):
-        if dtype == "float32":
-            return torch.allclose(gr.double(), w, rtol=1e-4, atol=1e-4)
-        return float((gr.float() - w).norm() / w.norm().clamp_min(1e-30)) <= 2e-2
-
-    assert all(ok(gr, w) for gr, w in zip(got, want)), \
+    want = _lru_plain(log_a, x, dy, dhf)
+    assert all(_lru_grads_ok(got, want, x.dtype)), \
         [float((gr.double() - w.double()).abs().max()) for gr, w in zip(got, want)]
     if case[1] > 1:
-        rolled = lru_ops.rglru_bwd(log_a.roll(1, dims=1), x.roll(1, dims=1), dy, dhf)
-        assert not any(ok(gr, w) for gr, w in zip(rolled, want))
+        rolled = lru_ops.rglru_bwd(log_a.roll(1, dims=1), x.roll(1, dims=1), dy, dhf, path=path)
+        assert not any(_lru_grads_ok(rolled, want, x.dtype))
 
 
-def test_rglru_backward_reads_strided_layouts_in_place(card):
-    """log_a, b and dy as slices of wider tensors: the backward follows the
+@pytest.mark.parametrize("path", lru_ops.BWD_PATHS)
+def test_rglru_backward_reads_strided_layouts_in_place(card, path):
+    """log_a, b and dy as slices of wider tensors: each path follows the
     strides and gives the contiguous inputs' gradients exactly."""
     log_a, x = _rglru_inputs((2, 70, 40), card, torch.float32)
     dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(14)).to(card)
-    want = lru_ops.rglru_bwd(log_a, x, dy)
+    want = lru_ops.rglru_bwd(log_a, x, dy, path=path)
     wide = [torch.cat([t, torch.zeros((2, 70, 24), device=card)], dim=-1)[..., :40]
             for t in (log_a, x, dy)]
     assert not any(t.is_contiguous() for t in wide)
-    for g_, w_ in zip(lru_ops.rglru_bwd(*wide), want):
+    for g_, w_ in zip(lru_ops.rglru_bwd(*wide, path=path), want):
         torch.testing.assert_close(g_, w_, rtol=0, atol=0)
 
 
-def test_rglru_counts_with_and_without_grad(card):
+@pytest.mark.parametrize("path,case", [("bwd_onchip", (2, 200, 64)),
+                                       ("bwd_fourpass", (1, RGLRU_CAP + 1, 40))])
+def test_rglru_counts_with_and_without_grad(card, path, case):
     """Without grad one forward launch; with grad the Function's forward (its
-    outputs the plain launch's bit for bit) and one backward call, its
-    gradients ``rglru_bwd``'s bit for bit, a cotangent of the final state
-    alone too."""
-    log_a, x = _rglru_inputs((2, 200, 64), card, torch.bfloat16)
+    outputs the plain launch's bit for bit) and one backward call on the
+    path L picks, its gradients ``rglru_bwd``'s forced onto that path bit
+    for bit, a cotangent of the final state alone too."""
+    log_a, x = _rglru_inputs(case, card, torch.bfloat16)
+    assert lru_ops.choose_bwd_path(log_a, x) == path
     dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(15)).to(card, x.dtype)
     y0, h0 = lru_ops.rglru_scan(log_a, x, impl="pallas")
-    before = dict(lru_ops.LAUNCHES)
+    before, paths = dict(lru_ops.LAUNCHES), dict(lru_ops.PATH_LAUNCHES)
     la, xx = log_a.clone().requires_grad_(), x.clone().requires_grad_()
     y, h = lru_ops.rglru_scan(la, xx, impl="pallas")
     torch.cuda.synchronize()
@@ -1249,13 +1281,52 @@ def test_rglru_counts_with_and_without_grad(card):
     assert torch.equal(y, y0) and torch.equal(h, h0)
     y.backward(dy)
     assert lru_ops.LAUNCHES["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 1
-    for g_, w_ in zip((la.grad, xx.grad), lru_ops.rglru_bwd(log_a, x, dy)):
+    assert lru_ops.PATH_LAUNCHES == {**paths, path: paths[path] + 1}
+    for g_, w_ in zip((la.grad, xx.grad), lru_ops.rglru_bwd(log_a, x, dy, path=path)):
         assert torch.equal(g_, w_)
     la.grad = xx.grad = None
     dh = torch.randn(h.shape, generator=torch.Generator().manual_seed(16)).to(card)
     lru_ops.rglru_scan(la, xx, impl="pallas")[1].backward(dh)
-    for g_, w_ in zip((la.grad, xx.grad), lru_ops.rglru_bwd(log_a, x, torch.zeros_like(x), dh)):
+    for g_, w_ in zip((la.grad, xx.grad),
+                      lru_ops.rglru_bwd(log_a, x, torch.zeros_like(x), dh, path=path)):
         assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 128, 72), (2, 300, 40), (1, 2049, 40),
+                                  (1, RGLRU_CAP, 40)], ids=lambda c: f"L{c[1]}")
+def test_rglru_onchip_backward_reruns_bit_identical(card, case, dtype):
+    """No atomics and fixed fold orders: two runs of ``bwd_onchip`` give the
+    same bits: one block, a cluster of 3 (the short kernel), 9 segments a
+    block and the capacity's clusters of 8 blocks of 16 (the long one)."""
+    log_a, x = _rglru_inputs(case, card, getattr(torch, dtype))
+    dy, dhf = _lru_cotangents(case, card, x.dtype, True)
+    first = lru_ops.rglru_bwd(log_a, x, dy, dhf, path="bwd_onchip")
+    for g_, w_ in zip(lru_ops.rglru_bwd(log_a, x, dy, dhf, path="bwd_onchip"), first):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [RGLRU_CAP - 1, RGLRU_CAP, RGLRU_CAP + 1])
+def test_rglru_backward_at_the_capacity_edges(card, length, dtype):
+    """At the capacity and one step either side: the path L picks (the four
+    -pass kernel above it) within the plain version's limits, with a
+    cotangent of the final state; a forced ``bwd_onchip`` above it raises
+    before any launch."""
+    case = (1, length, 40)
+    log_a, x = _rglru_inputs(case, card, getattr(torch, dtype))
+    dy, dhf = _lru_cotangents(case, card, x.dtype, True)
+    path = "bwd_onchip" if length <= RGLRU_CAP else "bwd_fourpass"
+    assert lru_ops.choose_bwd_path(log_a, x) == path
+    got = _lru_bwd_counted(path, log_a, x, dy, dhf)
+    want = _lru_plain(log_a, x, dy, dhf)
+    assert all(_lru_grads_ok(got, want, x.dtype)), \
+        [float((gr.double() - w.double()).abs().max()) for gr, w in zip(got, want)]
+    if path == "bwd_fourpass":
+        before = dict(lru_ops.BWD_LAUNCHES)
+        with pytest.raises(ValueError, match="bwd_onchip path takes"):
+            lru_ops.rglru_bwd(log_a, x, dy, dhf, path="bwd_onchip")
+        assert lru_ops.BWD_LAUNCHES == before
 
 
 # gmm in bf16 at MoE-like splits (M, K, N, group sizes): a prefill split
