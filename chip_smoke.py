@@ -297,10 +297,10 @@ Phases (any failure exits non-zero before the last line is printed):
              qwen1.5-0.5b at its published width (24 layers, d_model 1024,
              vocab 151,936, f32 parameters, bf16 compute, remat ``full``,
              AdamW with clip 1.0), 4 silos x 4 local steps of batch 8 x 128:
-             3 rounds under ``none`` checkpointed every round, 2
-             (TRAIN_INT8_ROUNDS) under ``int8``; the loss finite every round
-             and lower in the last round than in the first, ``comm_bytes``
-             under ``none`` = 4 x 3 x the f32 parameter bytes (int8: 4 x 2 x
+             2 rounds (TRAIN_ROUNDS) under ``none`` checkpointed every
+             round, 2 (TRAIN_INT8_ROUNDS) under ``int8``; the loss finite every
+             round and lower in the last round than in the first, ``comm_bytes``
+             under ``none`` = 4 x 2 x the f32 parameter bytes (int8: 4 x 2 x
              a byte a parameter + 4 a leaf), the last checkpoint restoring
              the run's parameters bit for bit, a run resumed from it (one round) against the same
              round run from the parameters in memory: ``comm_bytes`` equal,
@@ -435,11 +435,32 @@ Phases (any failure exits non-zero before the last line is printed):
              rolled outside it, every backward on ``bwd_onchip``.  Every
              other kernel reads 0 launches; no earlier phase launches
              ``rglru_scan_bwd``.
+33. sharding rules — ``repro_torch.dist``: (a) ``make_host_mesh()``, a
+             1 x 1 ``("data", "model")`` DeviceMesh on a world of one
+             (NCCL); (b) phase 7's served cell (qwen1.5-0.5b at its
+             published width, batch 4, prompt 2048, 32 greedy steps, the
+             ``"pallas"`` routes; phase 7's own weights and prompts, kept on
+             the host meanwhile) through the model functions, outside any
+             context and with the prefill inside ``logical_sharding(mesh,
+             default_rules(cfg, mesh, prefill shape))`` and each decode
+             step inside the decode shape's: the outside run's tokens
+             those ``serve()`` gave in phase 7, logits, tokens
+             and every cache leaf bit-identical, 24 flash launches (all
+             wgmma, the causal flag of each tallied) and no other kernel in
+             each run, ``with_logical_constraint`` called
+             SHARDING_CONSTRAINTS_A_CALL times a call, both walls beside
+             phase 7's; phase 7's profiled decode step profiled again on
+             each side, its ATen ops equal to phase 7's (an exact count: the
+             profiler's kernel count is printed beside phase 7's, kind by
+             kind where they differ); (c) qwen's parameter tree
+             distributed by ``tree_shardings`` as DTensors: ``to_local()``
+             bit-identical, local bytes = the plain tree's, no kernel
+             launched; the process group is destroyed at the end.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
-those of phases 7, 14, 18, 21, 27, 28, 30 and 32 (and how many were bidirectional),
+those of phases 7, 14, 18, 21, 27, 28, 30, 32 and 33 (and how many were bidirectional),
 ``flash_attention_bwd_wgmma`` (the ``bwd_wgmma`` path) with phases 30 and 32's bf16
 calls, worst errors and its times at the seven shapes, ``flash_attention_bwd`` (the
 ``bwd_ffma`` path) with their f32 calls, worst errors by dtype and its bf16 and f32
@@ -454,7 +475,7 @@ errors by dtype and path and its times at the training and serve shapes,
 ``bwd_fourpass``'s beside them, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
-``launches_by_path`` also holds its launches in phase 26, 0),
+``launches_by_path`` also holds its launches in phase 26, 0, and in phase 33's two runs),
 the card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  The script uses one card: unless
 ``CUDA_VISIBLE_DEVICES`` names exactly one, it is set to the first.
@@ -1095,10 +1116,15 @@ def profile_call(torch, what, fn, share_of=()):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
+    # ATen ops come from the host's own op records, not from the card's
+    # activity buffers: an exact count of the work the call issued
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::"))
     if busy_ms == 0:
         say(f"  {what}: wall {wall_ms:.2f} ms; card busy time not measured "
             f"(the profiler saw no device time)")
-        return {"wall_ms": wall_ms, "busy_ms": None, "launches": None}
+        return {"wall_ms": wall_ms, "busy_ms": None, "launches": None, "ops": ops,
+                "by_kernel": None}
     share = ""
     for name in share_of:
         ms = sum(r[0] for r in rows if re.search(r"(?<![A-Za-z_])" + re.escape(name), r[2]))
@@ -1107,7 +1133,22 @@ def profile_call(torch, what, fn, share_of=()):
         f"({100 * busy_ms / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches{share}")
     for ms, count, key in rows[:8]:
         say(f"    {ms:8.3f} ms  x{count:<5} {key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": sum(r[1] for r in rows)}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": sum(r[1] for r in rows),
+            "ops": ops, "by_kernel": {key: count for _, count, key in rows}}
+
+
+@contextlib.contextmanager
+def causal_tally(fa_ops):
+    """Within it, every call of ``fa_ops.flash_attention`` appends its
+    ``causal`` flag to the list it yields."""
+    real, masks = fa_ops.flash_attention, []
+
+    def tally(q, k, v, *a, **kw):
+        masks.append(kw.get("causal", True))
+        return real(q, k, v, *a, **kw)
+
+    with mock.patch.object(fa_ops, "flash_attention", tally):
+        yield masks
 
 
 def run_serve(torch, cfg, counters, expected):
@@ -1129,13 +1170,7 @@ def run_serve(torch, cfg, counters, expected):
     for counts in (*counters, fa_ops.PATH_LAUNCHES, ssd_ops.PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
-    real, masks = fa_ops.flash_attention, []
-
-    def tally(q, k, v, *a, **kw):
-        masks.append(kw.get("causal", True))
-        return real(q, k, v, *a, **kw)
-
-    with mock.patch.object(fa_ops, "flash_attention", tally):
+    with causal_tally(fa_ops) as masks:
         res = serve(cfg, decode_steps=SERVE_STEPS,
                     log=lambda *a: say("  " + " ".join(map(str, a))), **kw)
     launches = {k: v for counts in counters for k, v in counts.items()}
@@ -1175,18 +1210,20 @@ def run_serve(torch, cfg, counters, expected):
 
 def profile_serve(torch, cfg, res, kernels):
     """Card busy share of one prefill and of one decode step, with the
-    kernels that take the time (and the share of each of ``kernels``)."""
+    kernels that take the time (and the share of each of ``kernels``).
+    Returns ``profile_call``'s reading of each."""
     from repro_torch.models.registry import model_fns
 
     fns = model_fns(cfg.replace(**KERNEL_ROUTES))
     batch, n_prefix = serve_inputs(cfg, res, SERVE_STEPS)
     with torch.no_grad():
-        profile_call(torch, f"one prefill ({SERVE_BATCH} x {n_prefix} positions)",
-                     lambda: fns.prefill(res["params"], batch), share_of=kernels)
+        prefill = profile_call(torch, f"one prefill ({SERVE_BATCH} x {n_prefix} positions)",
+                               lambda: fns.prefill(res["params"], batch), share_of=kernels)
         _, cache = fns.prefill(res["params"], batch)
         step = {"token": res["tokens"][:, 0], "pos": n_prefix}
-        profile_call(torch, "one decode step (batch 4)", lambda: fns.decode(res["params"], cache, step),
-                     share_of=kernels)
+        decode = profile_call(torch, "one decode step (batch 4)",
+                              lambda: fns.decode(res["params"], cache, step), share_of=kernels)
+    return prefill, decode
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3760,7 +3797,8 @@ def run_internvl_phase(torch, counters, no_launches):
 # ---------------------------------------------------------------- phase 29
 
 TRAIN_ARCH = "qwen1.5-0.5b"
-TRAIN_ROUNDS, TRAIN_SILOS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 4, 8, 128
+#: 2 rounds under none (3 before phase 33 came): a round and its checkpoint are ~13 s
+TRAIN_ROUNDS, TRAIN_SILOS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 4, 8, 128
 TRAIN_INT8_ROUNDS = 2           # the int8 run: its host round trip is ~9 s a round
 TRAIN_RESUME_REL_TOL = 1e-3     # a resumed round against the same round from memory
 TRAIN_TWIN_LOSS_REL_TOL = 1e-5  # qwen-100m in f32, card against CPU
@@ -5312,6 +5350,186 @@ def run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi
         f"flash_attention_bwd {list(RG_TRAIN_ATTN_SHAPE)}": flash_row}
 
 
+# ---------------------------------------------------------------- phase 33
+
+#: with_logical_constraint calls of one qwen1.5-0.5b prefill and of one decode
+#: step: the embedding, the mixer and FFN residuals of 24 layers, the logits
+#: (tests/test_torch_sharding_multirank.py counts it on meta at this width)
+SHARDING_CONSTRAINTS_A_CALL = 50
+
+
+def served_cell(torch, fns, params, batch, n_prefix, steps, contexts=None):
+    """``serve()``'s loop on ``fns``: the prefill, then ``steps`` greedy decode
+    steps writing the cache in place.  With ``contexts`` = (a prefill
+    context, a decode context), each call runs inside its own.  Returns the
+    logits of every step, the tokens, the cache and both walls."""
+    from repro_torch.models.registry import make_serve_step
+
+    serve_step = make_serve_step(fns.cfg)
+    prefill_ctx, decode_ctx = contexts or (contextlib.nullcontext, contextlib.nullcontext)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prefill_ctx():
+            logits, cache = fns.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = torch.argmax(logits, -1)
+        out, step_logits = [tok], [logits]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            with decode_ctx():
+                logits, cache = serve_step(params, cache, {"token": tok, "pos": n_prefix + i})
+            tok = torch.argmax(logits, -1)
+            out.append(tok)
+            step_logits.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return {"logits": step_logits, "tokens": torch.stack(out, dim=1), "cache": cache,
+            "prefill_s": prefill_s, "decode_s": decode_s}
+
+
+def run_sharding_phase(torch, counters, no_launches, phase7, smi, device="cuda"):
+    """Phase 33: the logical-axis sharding rules on a 1 x 1 NCCL mesh.  (a)
+    ``make_host_mesh()``; (b) phase 7's served cell (its weights and prompts,
+    kept on the host meanwhile) outside and inside ``logical_sharding`` with
+    the prefill's and the decode's rules: tokens as ``serve()`` gave them,
+    logits and caches bit for bit, constraint calls and launches counted,
+    and one decode step profiled twice each side; (c) qwen's parameter tree
+    distributed as DTensors by ``tree_shardings``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding as S
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import model_fns, shapes_and_axes
+    from repro_torch.tree import tree_leaves, tree_map
+
+    free_card(torch)
+    cfg = get_config(SERVE_ARCH).replace(**KERNEL_ROUTES)
+    say(f"PHASE 33 sharding rules: a 1 x 1 (data, model) NCCL mesh; {SERVE_ARCH}'s served cell "
+        f"(batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy steps) outside and "
+        f"inside logical_sharding; its parameter tree as DTensors")
+    say(f"  card: {smi}")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(None if device == "cuda" else device)   # None: the card
+    mesh_s = time.perf_counter() - t0
+    assert (mesh.mesh_dim_names, tuple(mesh.shape)) == (("data", "model"), (1, 1)), mesh
+    assert (mesh.device_type, dist.get_backend()) == (
+        device, {"cuda": "nccl", "cpu": "gloo"}[device]), dist.get_backend()
+    say(f"  (a) make_host_mesh(): {mesh} on backend {dist.get_backend()} in {mesh_s:.2f} s")
+
+    fns = model_fns(cfg)
+    served = phase7["served"]
+    res = {**served, "params": tree_map(lambda t: t.to(device), served["params"]),
+           "prompts": served["prompts"].to(device)}
+    _, axes = shapes_and_axes(fns.init, torch.Generator())
+    params = res["params"]
+    batch, n_prefix = serve_inputs(cfg, res, SERVE_STEPS)
+    shapes = {"prefill": InputShape("serve_prefill", SERVE_PROMPT, SERVE_BATCH, "prefill"),
+              "decode": InputShape("serve_decode", n_prefix + SERVE_STEPS + 1, SERVE_BATCH,
+                                   "decode")}
+    rules = {k: S.default_rules(cfg, mesh, shape) for k, shape in shapes.items()}
+    contexts = tuple(lambda k=k: S.logical_sharding(mesh, rules[k]) for k in ("prefill", "decode"))
+    served_cell(torch, fns, params, batch, n_prefix, 1)            # warm
+    first, walls, launches = None, {}, {}
+    for label, ctx in (("outside", None), ("inside", contexts)):
+        zero_launches((*counters, fa_ops.PATH_LAUNCHES, S.CALLS))
+        with causal_tally(fa_ops) as masks:
+            run = served_cell(torch, fns, params, batch, n_prefix, SERVE_STEPS, ctx)
+        counts = {k: v for c in counters for k, v in c.items()}
+        calls = S.CALLS["with_logical_constraint"]
+        flash_paths = dict(fa_ops.PATH_LAUNCHES)
+        walls[label] = {w: run[w] for w in ("prefill_s", "decode_s")}
+        say(f"  (b) {label} the rules: prefill {run['prefill_s']:.4f} s, "
+            f"decode {run['decode_s']:.4f} s ({SERVE_BATCH * SERVE_STEPS / run['decode_s']:.1f} "
+            f"tok/s); with_logical_constraint calls {calls}; launches {counts} "
+            f"({masks.count(False)} flash without the causal mask)")
+        assert counts == {**no_launches, "flash_attention": cfg.total_layers}, counts
+        assert flash_paths["wgmma"] == cfg.total_layers, flash_paths
+        assert len(masks) == counts["flash_attention"], masks
+        assert calls == SHARDING_CONSTRAINTS_A_CALL * (1 + SERVE_STEPS), calls
+        launches[label] = {**counts, "flash_attention_by_path": flash_paths,
+                           "flash_attention_noncausal": masks.count(False)}
+        for lg in run["logits"]:
+            assert lg.shape == (SERVE_BATCH, cfg.vocab_size) and torch.isfinite(lg.float()).all()
+        if first is None:   # the entry point's own tokens, not this loop's alone
+            assert torch.equal(run["tokens"].cpu(), served["tokens"]), "not serve()'s tokens"
+            first = run
+            continue
+        assert torch.equal(first["tokens"], run["tokens"]), label
+        assert all(torch.equal(a, b) for a, b in zip(first["logits"], run["logits"])), label
+        leaves = list(zip(tree_leaves(first["cache"]), tree_leaves(run["cache"])))
+        assert leaves and all(torch.equal(a, b) for a, b in leaves), label
+        del run
+    say(f"  tokens as phase 7's serve() gave them; logits of all {1 + SERVE_STEPS} steps and all "
+        f"{len(leaves)} cache leaves bit-identical in both runs; phase 7's serve(): prefill "
+        f"{phase7['prefill_s']:.4f} s, decode {phase7['decode_s']:.4f} s")
+    # phase 7's profiled call (the same weights, cache, token and position),
+    # profiled again on each side: outside, it is phase 7's reading repeated
+    step = {"token": first["tokens"][:, 0], "pos": n_prefix}
+    prof = {}
+    for label, ctx in (("outside", contextlib.nullcontext), ("inside", contexts[1])):
+        cache = served_cell(torch, fns, params, batch, n_prefix, 0)["cache"]
+
+        def decode_step(ctx=ctx, cache=cache):
+            with torch.no_grad(), ctx():
+                return fns.decode(params, cache, step)
+
+        prof[label] = profile_call(torch, f"one decode step {label} the rules", decode_step)
+        del cache
+    ops = {k: v["ops"] for k, v in prof.items()}
+    device_launches = {k: v["launches"] for k, v in prof.items()}
+    # exact: the rules issue no op, so no launch
+    assert ops["inside"] == ops["outside"] == phase7["decode_ops"], (ops, phase7["decode_ops"])
+    say(f"  decode step: ATen ops {ops}, phase 7's {phase7['decode_ops']}; kernel launches the "
+        f"profiler saw {device_launches}, phase 7's {phase7['decode_launches']}")
+    # where the profiler's reading of this same call differs from phase 7's
+    mine, then = prof["outside"]["by_kernel"] or {}, phase7["decode_by_kernel"] or {}
+    for key in sorted(set(mine) | set(then)):
+        if mine.get(key, 0) != then.get(key, 0):
+            say(f"    x{mine.get(key, 0):<5} here, x{then.get(key, 0):<5} in phase 7: {key[:110]}")
+    del first, leaves
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    shardings = S.tree_shardings(axes, mesh, S.default_rules(cfg, mesh))
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    dparams = tree_map(lambda t, sh: distribute_tensor(t, sh.mesh, sh.placements), params,
+                       shardings)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - before
+    pairs = list(zip(tree_leaves(params), tree_leaves(dparams)))
+    plain_bytes = sum(t.numel() * t.element_size() for t, _ in pairs)
+    local_bytes = sum(d.to_local().numel() * d.to_local().element_size() for _, d in pairs)
+    assert all(isinstance(d, DTensor) and d.placements == (Replicate(), Replicate())
+               for _, d in pairs)
+    assert all(torch.equal(d.to_local(), t) for t, d in pairs)
+    assert local_bytes == plain_bytes, (local_bytes, plain_bytes)
+    assert not any(v for c in counters for v in c.values()), "a kernel launched in (c)"
+    say(f"  (c) {len(pairs)} parameters as DTensors in {dist_s:.3f} s: to_local() bit-identical, "
+        f"{local_bytes / 1e9:.4f} GB of local shards against {plain_bytes / 1e9:.4f} GB plain; "
+        f"allocated grew {grown / 1e9:.4f} GB")
+    del dparams, pairs, params, res
+    dist.destroy_process_group()
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 33 {phase_s:.1f} s")
+    return launches, {
+        "card": smi, "mesh_s": mesh_s, "phase_s": phase_s,
+        "walls": walls, "phase 7 walls": {k: phase7[k] for k in ("prefill_s", "decode_s")},
+        "decode_ops_a_step": ops, "decode_launches_a_step": device_launches,
+        "phase 7 decode_ops_a_step": phase7["decode_ops"],
+        "phase 7 decode_launches_a_step": phase7["decode_launches"],
+        "constraint_calls": SHARDING_CONSTRAINTS_A_CALL * (1 + SERVE_STEPS),
+        "distribute_s": dist_s, "param_bytes": plain_bytes, "allocated_grew": grown}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -5340,6 +5558,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.models.small import SmallModelConfig
+    from repro_torch.tree import tree_map
 
     t_all = time.perf_counter()
     say("PHASE 1 setup")
@@ -5437,11 +5656,18 @@ def main() -> int:
         f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy decode steps")
     res, qwen_launches = run_serve(torch, cfg, counters,
                                    {**no_launches, "flash_attention": cfg.total_layers})
-    profile_serve(torch, cfg, res, ("flash_fwd",))
+    _, decode_prof = profile_serve(torch, cfg, res, ("flash_fwd",))
+    phase7 = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+              "decode_launches": decode_prof["launches"], "decode_ops": decode_prof["ops"],
+              "decode_by_kernel": decode_prof["by_kernel"]}
 
     say("PHASE 8 serve twin: the same prefill and decode with attention through the plain version")
     serve_twin(torch, cfg, res, {"attn_impl": "reference"},
                ("K/V rolled by one", [(fa_ops, "flash_attention", roll_kv)]))
+    # phase 33 serves the same weights and prompts again: on the host till then
+    phase7["served"] = {**{k: res[k] for k in ("frames", "patch_embeds")},
+                        **{k: res[k].cpu() for k in ("prompts", "tokens")},
+                        "params": tree_map(lambda t: t.cpu(), res["params"])}
     del res
 
     say("PHASE 9 flash attention timings at the serve shapes")
@@ -5633,6 +5859,9 @@ def main() -> int:
     (lru_bwd_errs, lru_bwd_rows, rg_flash_bwd, lru_bwd_runs, lru_bwd_paths,
      rg_train_row) = run_rglru_train_phase(torch, lru_ops, lru_ref, fa_ops, fa_ref, counters, smi)
     say(json.dumps({"train through rglru_scan": rg_train_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    sharding_launches, sharding_row = run_sharding_phase(torch, counters, no_launches, phase7, smi)
+    say(json.dumps({"sharding rules": sharding_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -5693,7 +5922,9 @@ def main() -> int:
     flash_row = flash_rows[SERVE_SHAPE]
     flash_paths = {SERVE_ARCH: qwen_launches, RGEMMA_ARCH: rgemma_launches,
                    OLMOE_ARCH: olmoe_launches, f"{SERVE_ARCH} (int8 KV cache)": int8_launches,
-                   WHISPER_ARCH: whisper_launches, INTERNVL_ARCH: internvl_launches}
+                   WHISPER_ARCH: whisper_launches, INTERNVL_ARCH: internvl_launches,
+                   **{f"{SERVE_ARCH}, sharding rules (phase 33), {k}": v
+                      for k, v in sharding_launches.items()}}
     flash_keys = (*timing_keys, "path", "ffma_bf16_ms", "f32_ms", "tflops")
     flash_train = {f"{k} (phase 30)": {"flash_attention": counts["flash_attention"],
                                        "flash_attention_by_path": paths}
@@ -5857,6 +6088,9 @@ def main() -> int:
         k["launches_by_path"]["hierarchical tree (phase 26, script process)"] = \
             hier_launches[name]
         k["launches_by_path"].setdefault(train_key, train_launches[name])
+        for where, counts in sharding_launches.items():
+            k["launches_by_path"].setdefault(
+                f"{SERVE_ARCH}, sharding rules (phase 33), {where}", counts[name])
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

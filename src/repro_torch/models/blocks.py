@@ -17,8 +17,11 @@ Modes:
     window and state over the old; the cross cache is read, never written)
 
 Caches are per-block dicts; local-attention layers use ring buffers of
-window size.  The reference's sharding constraints have no counterpart
-until the port's sharding rules exist (ROADMAP queue 1 row 9).
+window size.  The residual stream is constrained to ``("act_batch",
+"act_seq", None)`` after the mixer and after the FFN, where the reference
+constrains it (``repro_torch.dist.sharding.with_logical_constraint``: a
+no-op outside a ``logical_sharding`` context), and an MoE FFN gets the
+context's mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.configs.base import (
     LayerSpec,
     ModelConfig,
 )
+from repro_torch.dist.sharding import current_context, with_logical_constraint
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -220,6 +224,7 @@ def block_apply(
         else:
             out, st = forward(params["mixer"], h, cfg, return_cache=(mode == "prefill"))
     x = x + out.to(x.dtype)
+    x = with_logical_constraint(x, "act_batch", "act_seq", None)
     new_cache = None if mode == "full" else {key: st}
     if spec.cross_attn:
         h = L.rmsnorm(params["norm_c"], x, cfg.norm_eps)
@@ -236,6 +241,9 @@ def block_apply(
         if spec.ffn == FFN_DENSE:
             out = L.mlp(params["ffn"], h, cfg)
         else:
-            out, aux = MOE.moe_ffn(params["ffn"], h, cfg, gmm_impl=cfg.moe_gmm_impl)
+            ctx = current_context()
+            out, aux = MOE.moe_ffn(params["ffn"], h, cfg, mesh=None if ctx is None else ctx.mesh,
+                                   gmm_impl=cfg.moe_gmm_impl)
         x = x + out.to(x.dtype)
+        x = with_logical_constraint(x, "act_batch", "act_seq", None)
     return x, new_cache, aux

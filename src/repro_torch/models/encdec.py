@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.sharding import with_logical_constraint
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import block_apply, init_block
 from repro_torch.models.lm import (
@@ -56,6 +57,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     b, s, d = frames.shape
     cd = L._dt(cfg, "compute_dtype")
     x = frames.to(cd) + L.sinusoidal_positions(s, d, cd, frames.device)[None]
+    x = with_logical_constraint(x, "act_batch", "act_seq", None)
     positions = torch.arange(s, dtype=torch.int32, device=frames.device).expand(b, s)
 
     def body(xx, layer_params):
@@ -72,7 +74,8 @@ def _dec_embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, pos0: int
     """Token embeddings plus the sinusoids of positions ``pos0 ..``."""
     x = L.embed(params["tok"], tokens, cfg)
     pos = torch.arange(pos0, pos0 + tokens.shape[1], device=tokens.device)
-    return x + L.sinusoid_at(pos, cfg.d_model, L._dt(cfg, "compute_dtype"))[None]
+    x = x + L.sinusoid_at(pos, cfg.d_model, L._dt(cfg, "compute_dtype"))[None]
+    return with_logical_constraint(x, "act_batch", "act_seq", None)
 
 
 def encdec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -119,6 +122,7 @@ def encdec_decode_step(
     x = _dec_embed(params, token[:, None], cfg, pos0=pos)
     hidden, caches, _ = lm_hidden(params, x, cfg, mode="decode", pos=pos, cache=cache)
     logits = L.logits_from_hidden(params["tok"], hidden, cfg)
+    logits = with_logical_constraint(logits, "act_batch", None, "vocab")
     return logits[:, 0], caches
 
 

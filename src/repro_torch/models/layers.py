@@ -4,8 +4,8 @@ caches, MLPs, embeddings.  The port of ``repro.models.layers``.
 Conventions (the reference's)
 -----------------------------
 * ``init_*`` returns ``(params, axes)``: ``axes`` mirrors the params tree
-  with tuples of *logical* axis names for the sharding rules (still to port,
-  ROADMAP queue 1 row 9; nothing in the port reads them yet).  Draws come from a
+  with tuples of *logical* axis names for the sharding rules
+  (``repro_torch.dist.sharding.tree_shardings`` places a tree by them).  Draws come from a
   ``torch.Generator``, on the generator's device; they differ from
   ``jax.random``'s, so a parity test bridges the reference's weights.
 * Weights live in ``cfg.param_dtype``; matmuls run in ``cfg.compute_dtype``;

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.sharding import with_logical_constraint
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import block_apply, block_cache, init_block
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -146,7 +147,7 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         cd = L._dt(cfg, "compute_dtype")
         vis = prefix_embeds.to(cd) @ params["vis_proj"].to(cd)
         x = torch.cat([vis, x], dim=1)
-    return x
+    return with_logical_constraint(x, "act_batch", "act_seq", None)
 
 
 # --------------------------------------------------------------------------
@@ -262,7 +263,8 @@ def chunked_ce(
         chunk = s  # fall back to unchunked rather than pad
 
     def ce_chunk(h, t, m):
-        logits = L.logits_from_hidden(params["tok"], h, cfg).float()
+        logits = L.logits_from_hidden(params["tok"], h, cfg)
+        logits = with_logical_constraint(logits, "act_batch", None, "vocab").float()
         logz = torch.logsumexp(logits, dim=-1)
         tgt = torch.take_along_dim(logits, t[..., None].long(), dim=-1)[..., 0]
         return torch.sum((logz - tgt) * m), torch.sum(m)
@@ -347,6 +349,7 @@ def lm_prefill(
     cache_len = cache_len or x.shape[1]
     hidden, caches, _ = lm_hidden(params, x, cfg, mode="prefill", cache_len=cache_len)
     logits = L.logits_from_hidden(params["tok"], hidden[:, -1:], cfg)
+    logits = with_logical_constraint(logits, "act_batch", None, "vocab")
     return logits[:, 0], caches
 
 
@@ -362,4 +365,5 @@ def lm_decode_step(
     x = embed_inputs(params, token[:, None], cfg)
     hidden, caches, _ = lm_hidden(params, x, cfg, mode="decode", pos=int(pos), cache=cache)
     logits = L.logits_from_hidden(params["tok"], hidden, cfg)
+    logits = with_logical_constraint(logits, "act_batch", None, "vocab")
     return logits[:, 0], caches

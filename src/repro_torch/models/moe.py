@@ -16,11 +16,12 @@ router weights.  No capacity factor, no token dropping.
   reference's one-hot oracle; on the card, the plain route the kernel is
   held against).
 
-The sharded bodies (``_moe_shard_body``, ``_moe_shard_body_ep``,
-``_moe_shard_body_ep_resident``) wait for the port's sharding rules
-(ROADMAP queue 1 row 9b): ``moe_ffn`` with a mesh of more than one device
-raises.  Group sizes are counted with a scatter-add on the tensor's device, so the
-kernel route never waits for the card.
+``block_apply`` hands ``moe_ffn`` the mesh of the active
+``logical_sharding`` context, as the reference does.  The sharded bodies
+(``_moe_shard_body``, ``_moe_shard_body_ep``, ``_moe_shard_body_ep_resident``)
+are not ported yet (ROADMAP queue 1 row 9b): ``moe_ffn`` with a mesh of
+more than one device raises.  Group sizes are counted with a scatter-add
+on the tensor's device, so the kernel route never waits for the card.
 """
 from __future__ import annotations
 

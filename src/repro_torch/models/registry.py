@@ -3,8 +3,10 @@ factories.  The port of ``repro.models.registry`` for the dense, moe
 (olmoe, on one device), ssm (mamba2), hybrid (recurrentgemma) and vlm
 (internvl2) families and the encoder-decoder (whisper).
 
-Not ported yet: ``input_specs`` (the dry-run planner, ROADMAP queue 1 row
-9), which raises.
+``shapes_and_axes`` is the port's ``jax.eval_shape`` of a constructor: it
+runs on the ``meta`` device, so a trillion-parameter config's tree costs no
+memory.  Not ported yet: ``input_specs`` (the dry-run planner, ROADMAP
+queue 1 row 9c), which raises.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch.models import lm as LM
 from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_NO_SPECS = "input_specs is not ported yet (ROADMAP: queue 1 row 9, launch/dryrun.py)"
+_NO_SPECS = "input_specs is not ported yet (ROADMAP: queue 1 row 9c, launch/dryrun.py)"
 
 # Whisper cross-attention context at decode (native 30 s window = 1500 frames).
 WHISPER_ENC_LEN = 1500
@@ -32,6 +34,26 @@ def decode_cache_len(seq_len: int, multiple: int = 512) -> int:
     rounded up to ``multiple`` (the reference's rule, kept so both packages
     size caches alike)."""
     return ((seq_len + 1 + multiple - 1) // multiple) * multiple
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on ``meta``: the constructors draw on
+    their generator's device, and ``torch.randn(..., generator=g,
+    device="meta")`` takes a CPU generator."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def shapes_and_axes(fn, *args):
+    """``(tensors, axes)`` of a constructor ``fn(*args, device=) -> (tensors,
+    axes)`` run on the ``meta`` device: the tensors carry shapes and dtypes
+    and no storage, the reference's ``jax.eval_shape``.  A generator among
+    ``args`` draws on ``meta`` too."""
+    args = tuple(_MetaGenerator() if isinstance(a, torch.Generator) else a for a in args)
+    with torch.device("meta"):
+        return fn(*args, device="meta")
 
 
 @dataclass

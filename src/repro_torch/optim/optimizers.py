@@ -11,6 +11,7 @@ elementwise in general: a tree whose leaves carry a leading client axis is
 updated client by client through ``torch.func.vmap(opt.update)``
 (``repro_torch.fed.batch_exec``).  Every rule here is vmap-safe for that:
 no ``.item()``, no Python branch on a tensor's value, no in-place write.
+``opt_state_axes`` gives the state's logical axes, for the sharding rules.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import _is_axes_leaf
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -180,6 +182,29 @@ def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0,
         return new_p, {"step": step, "v": new_v}
 
     return Optimizer(init, update)
+
+
+def opt_state_axes(name: str, params_axes: PyTree, params_shapes: PyTree) -> PyTree:
+    """Logical-axes tree for an optimizer's state (mirrors param sharding
+    so FSDP layouts carry over to m/v/factored moments).  ``params_shapes``
+    holds each parameter (a ``meta`` tensor will do) or its shape."""
+    if name == "sgd":
+        return {"step": None}
+    if name == "momentum":
+        return {"step": None, "m": params_axes}
+    if name in ("adam", "adamw"):
+        return {"step": None, "m": params_axes, "v": params_axes}
+    if name == "adafactor":
+        def leaf(ax, shp):
+            shape = shp.shape if hasattr(shp, "shape") else shp
+            if len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128:
+                ax = tuple(ax) if ax else (None,) * len(shape)
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+
+        return {"step": None,
+                "v": tree_map(leaf, params_axes, params_shapes, is_leaf=_is_axes_leaf)}
+    raise ValueError(name)
 
 
 OPTIMIZERS: Dict[str, Callable[..., Optimizer]] = {

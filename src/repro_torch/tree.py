@@ -6,17 +6,23 @@ key as itself, a list index as ``[i]``), joined by ``/``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 Tree = Any
 
 
-def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` leaf by leaf over trees of the same structure."""
+def tree_map(fn: Callable, tree: Tree, *rest: Tree,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Tree:
+    """Apply ``fn`` leaf by leaf over trees of the same structure.  A node
+    of ``tree`` for which ``is_leaf`` holds is a leaf, whatever its type
+    (``rest`` is walked alongside down to it)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
 
