@@ -188,8 +188,8 @@ Phases (any failure exits non-zero before the last line is printed):
              uninterrupted 3-round run (params bit for bit).
 24. fabric — two FL tenants share one pool: ``PoolFabric`` (16 slots,
              capacity 100, lease TTL 2 s, a traced ``ObsPlane``) drives two
-             trainers of phase 3's world (A weight 3, B weight 1; 3 rounds,
-             32 participants, 10 local steps) through ``run_trainers``.  A
+             trainers of phase 3's world (A weight 3, B weight 1; 2 rounds
+             (FABRIC_ROUNDS), 32 participants, 10 local steps) through ``run_trainers``.  A
              batches (``FixedRuntime(2.0, 0.0)``: every client the same work,
              so clients of one budget admitted together finish together and
              each eager wave is ragged, a single client, or of one batch
@@ -298,10 +298,11 @@ Phases (any failure exits non-zero before the last line is printed):
              vocab 151,936, f32 parameters, bf16 compute, remat ``full``,
              AdamW with clip 1.0), 4 silos x 4 local steps of batch 8 x 128:
              2 rounds (TRAIN_ROUNDS) under ``none`` checkpointed every
-             round, 2 (TRAIN_INT8_ROUNDS) under ``int8``; the loss finite every
-             round and lower in the last round than in the first, ``comm_bytes``
-             under ``none`` = 4 x 2 x the f32 parameter bytes (int8: 4 x 2 x
-             a byte a parameter + 4 a leaf), the last checkpoint restoring
+             round, 2 (TRAIN_INT8_ROUNDS) of 2 silos (TRAIN_INT8_SILOS) under
+             ``int8``; the loss finite every round and lower in the last
+             round than in the first, ``comm_bytes`` under ``none`` = 4 x 2 x
+             the f32 parameter bytes (int8: 2 x 2 x a byte a parameter + 4 a
+             leaf), the last checkpoint restoring
              the run's parameters bit for bit, a run resumed from it (one round) against the same
              round run from the parameters in memory: ``comm_bytes`` equal,
              loss within TRAIN_RESUME_REL_TOL (the embedding's backward sums
@@ -358,7 +359,7 @@ Phases (any failure exits non-zero before the last line is printed):
              falling losses, the first within 2e-2 of the chunked route's,
              layers 0 and 23's backward on their captured inputs within
              bf16's 2e-2 with K rolled outside it, each route's walls,
-             launches, busy share and peak memory; one whisper-base step:
+             launches and peak memory, the flash route's busy share; one whisper-base step:
              12 self-attentions on the kernels (6 bidirectional; twice each
              forward under remat; every backward ``bwd_wgmma``),
              cross-attention on ``attention_chunked``, every leaf changed.  Every other kernel
@@ -391,7 +392,8 @@ Phases (any failure exits non-zero before the last line is printed):
              wgmma) and 48 backward calls, all ``bwd_wgmma``, finite and falling losses, the
              first within 2e-2 of chunked's, layers 0 and 47's backward on
              their captured inputs within bf16's 2e-2 with B and C rolled
-             outside it, each route's walls, launches, busy share and peak;
+             outside it, each route's walls, launches and peak, the kernel
+             route's busy share;
              (d) mamba2-1.3b cut to 2 layers in f32, one step card (kernels,
              every backward ``bwd_ffma``) against CPU (plain versions): loss
              1e-5, gradients 1e-4, tokens rolled outside it.  Every other kernel reads 0 launches; no
@@ -428,8 +430,8 @@ Phases (any failure exits non-zero before the last line is printed):
              ``bwd_wgmma``), finite and falling
              losses, the first within 2e-2 of the plain routes', the first and last RG-LRU layers' backward on
              their captured inputs (relative norms 1e-4 against f64, log_a
-             and b rolled outside it), each route's walls, launches, busy
-             share and peak; (d) its (rglru, rglru) group in f32 at full
+             and b rolled outside it), each route's walls, launches and
+             peak, the kernel routes' busy share; (d) its (rglru, rglru) group in f32 at full
              width, one step card (kernels) against CPU (plain versions):
              loss 1e-5, gradients 1e-4, tokens
              rolled outside it, every backward on ``bwd_onchip``.  Every
@@ -456,9 +458,33 @@ Phases (any failure exits non-zero before the last line is printed):
              distributed by ``tree_shardings`` as DTensors: ``to_local()``
              bit-identical, local bytes = the plain tree's, no kernel
              launched; the process group is destroyed at the end.
+34. sharded bodies — 4 spawned ranks in one gloo world, every rank on
+             cuda:0 (NCCL refuses two ranks on one device): (a) olmoe-1b-7b's
+             MoE layer at its published width (f32 params drawn on the card
+             from a seed, bf16 compute, EP, FSDP, 4 token chunks) on a 2 x 2
+             ``(data, model)`` mesh, params placed by ``tree_shardings``
+             under ``default_rules`` (the EP and gather bodies' in-specs, no
+             expert weight moved), the prefill's 4 x 2048 tokens and a 4 x 1
+             decode step at unit RMS from numpy: the EP body, the resident
+             body (decode) and the gather body in bf16 and f32 on the
+             kernel route, every rank's routing the whole batch's (routed
+             once), gathered and held by rank 0 against ``_moe_local`` on
+             the whole batch (bf16 MOE_LAYER_REL_TOL, f32
+             SERVE_TWIN_F32_REL_TOL), each body against itself on the plain
+             loop (bf16 2e-2), rank 1's experts shifted by one failing the
+             bf16 limit; every expert product a ``gmm`` launch, none on the
+             plain loop, by path a rank; the top-8 sets its chunks would
+             route otherwise printed; (b) phase 23's CNN, a dense wave of 14
+             clients x 2 steps through ``BatchedExecutor(mesh=)`` over a
+             ``(data,)`` mesh of the 4 ranks (padded to 16) against the same
+             wave unsharded on rank 0, per leaf: under deterministic cuDNN
+             within TWIN_REL_TOL (cuDNN's algorithms follow the vmapped group
+             count), with cuDNN off within 2e-5 (RANKS_WAVE_TOL); the
+             clients shifted by one as the control.  Spawn to ready, each
+             body's wall a rank and the collective bytes printed.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3, 18, 23, 24, 25, 26 and 29, ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
+of phases 3, 18, 23, 24, 25, 26, 29 and 34 (by path and rank too), ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
 those of phases 7, 14, 18, 21, 27, 28, 30, 32 and 33 (and how many were bidirectional),
 ``flash_attention_bwd_wgmma`` (the ``bwd_wgmma`` path) with phases 30 and 32's bf16
@@ -475,7 +501,8 @@ errors by dtype and path and its times at the training and serve shapes,
 ``bwd_fourpass``'s beside them, ``flash_decode_int8`` with those of
 phase 21 and its decode_32k-length reading; flash and ``ssd_scan`` also by kernel path, with worst errors and
 times by path, their ``ms`` and ``max_abs_err`` the bf16 ``wgmma`` path's; every kernel's
-``launches_by_path`` also holds its launches in phase 26, 0, and in phase 33's two runs),
+``launches_by_path`` also holds its launches in phase 26, 0, in phase 33's two runs
+and in phase 34),
 the card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  The script uses one card: unless
 ``CUDA_VISIBLE_DEVICES`` names exactly one, it is set to the first.
@@ -2596,7 +2623,7 @@ def check_resume(torch, directory):
 
 FABRIC_SLOTS = 16
 FABRIC_TTL = 2.0
-FABRIC_ROUNDS = 3
+FABRIC_ROUNDS = 2
 FABRIC_STEPS = 10
 #: (tenant, weight, client_batching, world seed): A collects its eager waves
 #: through the grouped-matmul kernels, B trains its clients one at a time
@@ -3799,7 +3826,8 @@ def run_internvl_phase(torch, counters, no_launches):
 TRAIN_ARCH = "qwen1.5-0.5b"
 #: 2 rounds under none (3 before phase 33 came): a round and its checkpoint are ~13 s
 TRAIN_ROUNDS, TRAIN_SILOS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 4, 8, 128
-TRAIN_INT8_ROUNDS = 2           # the int8 run: its host round trip is ~9 s a round
+TRAIN_INT8_ROUNDS = 2           # the int8 run: its host round trip is ~9 s a round at 4 silos
+TRAIN_INT8_SILOS = 2
 TRAIN_RESUME_REL_TOL = 1e-3     # a resumed round against the same round from memory
 TRAIN_TWIN_LOSS_REL_TOL = 1e-5  # qwen-100m in f32, card against CPU
 TRAIN_TWIN_GRAD_REL_TOL = 1e-4
@@ -3853,7 +3881,7 @@ def train_run(torch, cfg, label, device, **kw):
     from repro_torch.launch.train import train
 
     say(f"  {label}:")
-    res = train(cfg, rounds=kw.pop("rounds", TRAIN_ROUNDS), silos=TRAIN_SILOS,
+    res = train(cfg, rounds=kw.pop("rounds", TRAIN_ROUNDS), silos=kw.pop("silos", TRAIN_SILOS),
                 local_steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=device,
                 log=lambda *a: say("    " + " ".join(map(str, a))), **kw)
     for h in res["history"]:
@@ -3900,13 +3928,13 @@ def run_train_main_path(torch, cfg, device, directory):
     assert gap <= TRAIN_RESUME_REL_TOL, gap
     del resumed, straight
     int8 = train_run(torch, cfg, "compression int8", device, compression="int8",
-                     rounds=TRAIN_INT8_ROUNDS)
+                     rounds=TRAIN_INT8_ROUNDS, silos=TRAIN_INT8_SILOS)
     losses8 = [h["loss"] for h in int8["history"]]
     assert losses8[-1] < losses8[0], losses8
     comm8 = int8["history"][-1]["comm_bytes"]
     n_leaves = len(tree_leaves(params))
-    assert comm8 == TRAIN_SILOS * TRAIN_INT8_ROUNDS * (n_params + 4 * n_leaves), comm8
-    comm_none = TRAIN_SILOS * TRAIN_INT8_ROUNDS * f32_bytes
+    assert comm8 == TRAIN_INT8_SILOS * TRAIN_INT8_ROUNDS * (n_params + 4 * n_leaves), comm8
+    comm_none = TRAIN_INT8_SILOS * TRAIN_INT8_ROUNDS * f32_bytes
     say(f"  int8: loss {losses8[0]:.4f} -> {losses8[-1]:.4f}; comm_bytes {comm8} "
         f"({comm8 / comm_none:.4f} of none's over as many rounds)")
     del int8
@@ -3939,18 +3967,20 @@ def params_init(torch, cfg, device):
 
 
 def grads_gap(torch, a, b):
-    """Global relative L2 of gradient tree ``a`` against ``b``."""
+    """Global relative L2 of gradient tree ``a`` against ``b`` (on the
+    device of ``a``'s leaves)."""
     from repro_torch.tree import tree_leaves
 
-    num = sum(float((x.float().cpu() - y.float().cpu()).square().sum())
+    num = sum(float((x.float() - y.to(x.device).float()).square().sum())
               for x, y in zip(tree_leaves(a), tree_leaves(b)))
     den = sum(float(y.float().square().sum()) for y in tree_leaves(b))
     return math.sqrt(num / den)
 
 
 def run_train_twin(torch, device, attn_impl="chunked", cfg=None):
-    """(b): one step of qwen-100m in f32 (TF32 off) on the card and on the CPU
-    from the same parameters and batch; the tokens rolled by one as control.
+    """(b): qwen-100m's loss and gradients in f32 (TF32 off) on the card and
+    on the CPU from the same parameters and batch, and one train step's loss
+    on the card against the CPU's; the tokens rolled by one as control.
     Phase 30 runs it on the flash route (``attn_impl="pallas"``): the card's
     attention on the ffma forward and the backward's kernels, the CPU's on
     their plain versions; phase 31 runs ``cfg`` (mamba2-1.3b cut to 2
@@ -3958,14 +3988,16 @@ def run_train_twin(torch, device, attn_impl="chunked", cfg=None):
     (rglru, rglru) group (``rglru_impl="pallas"``)."""
     from repro_torch.launch.train import train_config
     from repro_torch.models.registry import make_train_step, model_fns, value_and_grad
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     if cfg is None:
         cfg = train_config("qwen-100m").replace(attn_impl=attn_impl)
     cfg = cfg.replace(compute_dtype="float32")
     fns = model_fns(cfg)
-    host, _ = fns.init(torch.Generator().manual_seed(0), "cpu")
-    card = tree_map(lambda t: t.to(device), host)
+    # drawn on the card and copied to the host: recurrentgemma's 1.5 B f32
+    # parameters took ~10 s to draw on the CPU
+    card, _ = fns.init(torch.Generator(device=device).manual_seed(0), device)
+    host = tree_map(lambda t: t.cpu(), card)
     batch_h = train_batch(torch, cfg, "cpu")
     batch_c = {k: v.to(device) for k, v in batch_h.items()}
     rolled = {"tokens": batch_c["tokens"].roll(1, dims=1)}
@@ -3975,18 +4007,21 @@ def run_train_twin(torch, device, attn_impl="chunked", cfg=None):
     cpu_s = time.perf_counter() - t0
     (loss_c, _), g_c = value_and_grad(fns.loss, card, batch_c)
     (loss_r, _), g_r = value_and_grad(fns.loss, card, rolled)
+    # the card's train step against the CPU's loss: a CPU step would run the
+    # same forward again (its loss read equal to the bit) and discard its update
     step, opt = make_train_step(cfg)
-    _, _, m_h = step(host, opt.init(host), batch_h)
     _, _, m_c = step(card, opt.init(card), batch_c)
     loss_gap = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
-    step_gap = abs(float(m_c["loss"]) - float(m_h["loss"])) / abs(float(m_h["loss"]))
+    step_gap = abs(float(m_c["loss"]) - float(loss_h)) / abs(float(loss_h))
+    g_h = tree_map(lambda t: t.to(device), g_h)     # the gaps summed on the card
     gap, control = grads_gap(torch, g_c, g_h), grads_gap(torch, g_r, g_h)
+    norm_h = math.sqrt(sum(float(g.float().square().sum()) for g in tree_leaves(g_h)))
     rolled_gap = abs(float(loss_r) - float(loss_h)) / abs(float(loss_h))
     say(f"  {cfg.name} ({cfg.param_count() / 1e6:.1f} M parameters, f32, TF32 off, attention "
         f"{cfg.attn_impl}, SSD scan {cfg.ssm_impl}, RG-LRU scan {cfg.rglru_impl}), batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss card {float(loss_c):.7f} CPU {float(loss_h):.7f} "
         f"(relative {loss_gap:.2e}, tol {TRAIN_TWIN_LOSS_REL_TOL:g}; the train step's "
-        f"{step_gap:.2e}, grad_norm {float(m_c['grad_norm']):.6f} vs {float(m_h['grad_norm']):.6f}); "
+        f"{step_gap:.2e}, grad_norm {float(m_c['grad_norm']):.6f} vs the CPU gradients' {norm_h:.6f}); "
         f"gradients' global relative L2 {gap:.2e} (tol {TRAIN_TWIN_GRAD_REL_TOL:g}); control, "
         f"tokens rolled by one on the card: {control:.2e} (loss {rolled_gap:.2e}); CPU "
         f"value_and_grad {cpu_s:.1f} s")
@@ -4493,7 +4528,9 @@ def run_flash_qwen_train(torch, fa_ops, fa_ref, counters, device):
                 losses.append(float(metrics["loss"]))
         launches, paths, kernels = counts_now(counters, fa_ops)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = profile_call(torch, f"one {impl} train step", lambda: step(params, state, batch))
+        # the kernel route's step profiled, the chunked route's not
+        prof = (profile_call(torch, f"one {impl} train step", lambda: step(params, state, batch))
+                if impl == "pallas" else {})
         rows[impl] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
                       "flash_by_path": paths, "bwd_kernels": kernels,
                       **{f"step_{k}": v for k, v in prof.items()}}
@@ -4901,8 +4938,10 @@ def run_ssd_mamba_train(torch, ssd_ops, ssd_ref, counters, device):
                 losses.append(float(metrics["loss"]))
         launches, paths, kernels = counts_now(counters, ssd_ops)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = profile_call(torch, f"one {impl} train step", lambda: step(params, state, batch),
-                            share_of=("ssd_bwd", "ssd_wgmma_kernel"))
+        # the kernel route's step profiled, the chunked route's (23,000 launches) not
+        prof = (profile_call(torch, f"one {impl} train step", lambda: step(params, state, batch),
+                             share_of=("ssd_bwd", "ssd_wgmma_kernel"))
+                if impl == "pallas" else {})
         rows[impl] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
                       "ssd_by_path": paths, "bwd_kernels": kernels,
                       **{f"step_{k}": v for k, v in prof.items()}}
@@ -5235,9 +5274,11 @@ def run_rg_train(torch, lru_ops, lru_ref, fa_ops, counters, device):
         launches, paths, _ = counts_now(counters, fa_ops)
         lru_kernels, lru_paths = dict(lru_ops.BWD_LAUNCHES), dict(lru_ops.PATH_LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = profile_call(torch, f"one {label} train step", lambda: step(params, state, batch),
-                            share_of=("rglru_bwd_onchip_kernel", "rglru_bwd_kernel",
-                                      "rglru_kernel", "flash_fwd", "flash_bwd"))
+        # the kernel routes' step profiled, the plain routes' not
+        prof = (profile_call(torch, f"one {label} train step", lambda: step(params, state, batch),
+                             share_of=("rglru_bwd_onchip_kernel", "rglru_bwd_kernel",
+                                       "rglru_kernel", "flash_fwd", "flash_bwd"))
+                if label == "kernels" else {})
         rows[label] = {"losses": losses, "step_s": walls, "peak_gb": peak, "launches": launches,
                        "flash_by_path": paths, "rglru_bwd_kernels": lru_kernels,
                        "rglru_bwd_by_path": lru_paths,
@@ -5528,6 +5569,376 @@ def run_sharding_phase(torch, counters, no_launches, phase7, smi, device="cuda")
         "phase 7 decode_launches_a_step": phase7["decode_launches"],
         "constraint_calls": SHARDING_CONSTRAINTS_A_CALL * (1 + SERVE_STEPS),
         "distribute_s": dist_s, "param_bytes": plain_bytes, "allocated_grew": grown}
+
+
+# ---------------------------------------------------------------- phase 34
+
+RANKS_WORLD = 4
+RANKS_MOE_MESH = (2, 2)            # (data, model)
+RANKS_MOE_SEED = 34
+RANKS_TIMEOUT = 300.0
+RANKS_WAVE_CLIENTS = 14            # pads to 16 over the 4 ranks
+RANKS_WAVE_STEPS = 2
+RANKS_WAVE_TOL = 2e-5              # relative, per leaf: the sharded wave against the unsharded
+
+
+def unit_rms(torch, rng, shape, device):
+    """Normal tokens from numpy, each row scaled to RMS 1, as the block's
+    norm hands them to the MoE layer."""
+    x = rng.standard_normal(shape, dtype="float32")
+    x /= ((x * x).mean(-1, keepdims=True)) ** 0.5
+    return torch.from_numpy(x).to(device)
+
+
+@contextlib.contextmanager
+def shared_routing(moe, table, start):
+    """``moe.route`` answered from ``table`` (top_p, top_i, probs of every
+    token, from one router product over the whole batch): each call takes
+    the next rows from ``start`` on, as the bodies walk their tokens, so no
+    top-k flip between a chunk's and the whole batch's router product can
+    enter a comparison.  Yields [the next row]."""
+    pos = [start]
+
+    def lookup(router_w, xf, cfg):
+        a = pos[0]
+        pos[0] += xf.shape[0]
+        return tuple(t[a:pos[0]] for t in table)
+
+    with mock.patch.object(moe, "route", lookup):
+        yield pos
+
+
+def gather_rows(torch, mesh, local):
+    """The whole batch from every data shard (rank r holds rows r // n_model
+    of the (data, model) mesh), on every rank."""
+    import torch.distributed as dist
+
+    n = mesh.size(0)
+    out = local.new_empty((n * local.shape[0], *local.shape[1:]))
+    gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather_into(out, local.contiguous(), group=mesh.get_group("data"))
+    return out
+
+
+def ranks_moe(torch, rank, device, cfg):
+    """Phase 34 (a) on one rank of the 2 x 2 (data, model) mesh: olmoe's
+    MoE layer through the EP body (prefill), the resident body (a decode
+    step) and the gather body (prefill), each on the kernel route in bf16
+    and f32 and on the plain route, with the routing of the whole batch
+    shared; rank 0 also runs ``_moe_local`` on the whole batch and holds
+    every body against it, and a run with rank 1's experts shifted by one
+    must fail.  Returns this rank's reading."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import shard_map as SM
+    from repro_torch.dist import sharding as S
+    from repro_torch.kernels.grouped_matmul import ops
+    from repro_torch.kernels.grouped_matmul import ref as gmm_ref
+    from repro_torch.models import moe
+
+    setup, t0 = {}, time.perf_counter()
+    mesh = init_device_mesh(device, RANKS_MOE_MESH, mesh_dim_names=("data", "model"))
+    d_idx = mesh.get_coordinate()[0]
+    setup["mesh"], t0 = time.perf_counter() - t0, time.perf_counter()
+    params, axes = moe.init_moe(torch.Generator(device).manual_seed(RANKS_MOE_SEED), cfg)
+    rng = np.random.default_rng(RANKS_MOE_SEED)
+    xs = {"prefill": unit_rms(torch, rng, (SERVE_BATCH, SERVE_PROMPT, cfg.d_model), device),
+          "decode": unit_rms(torch, rng, (SERVE_BATCH, 1, cfg.d_model), device)}
+    # every rank routes the whole batch once, as rank 0's reference does
+    tables = {k: moe.route(params["router"], x.reshape(-1, cfg.d_model), cfg)
+              for k, x in xs.items()}
+    sync(torch, device)
+    setup["params, tokens, routing"], t0 = time.perf_counter() - t0, time.perf_counter()
+    b_loc = SERVE_BATCH // RANKS_MOE_MESH[0]
+    cfgs = {"ep": cfg, "gather": cfg.replace(moe_impl="gather")}
+    placed, in_place = {}, {}
+    for impl, c in cfgs.items():
+        sh = S.tree_shardings(axes, mesh, S.default_rules(c, mesh))
+        placed[impl] = {k: distribute_tensor(v, mesh, sh[k].placements, src_data_rank=None)
+                        for k, v in params.items()}
+        fsdp = ("data",)
+        specs = ({"wg": S.P("model", None, fsdp), "wd": S.P("model", fsdp, None)} if impl == "ep"
+                 else {"wg": S.P(fsdp, None, "model"), "wd": S.P(fsdp, "model", None)})
+        in_place[impl] = {k: tuple(placed[impl][k].placements) == S.spec_to_placements(sp, mesh)
+                          for k, sp in specs.items()}
+    dx = {k: distribute_tensor(x, mesh, S.spec_to_placements(S.P(("data",), None, None), mesh),
+                               src_data_rank=None) for k, x in xs.items()}
+    sync(torch, device)
+    setup["placement"] = time.perf_counter() - t0
+    bodies = {"ep": ("ep", "prefill", False), "resident": ("ep", "decode", True),
+              "gather": ("gather", "prefill", False)}
+
+    def run(body, impl="ragged", dtype="bfloat16"):
+        kind, cell, resident = bodies[body]
+        c = cfgs[kind].replace(compute_dtype=dtype)
+        start = 0 if resident else d_idx * b_loc * xs[cell].shape[1]
+        sync(torch, device)
+        t0 = time.perf_counter()
+        with torch.no_grad(), shared_routing(moe, tables[cell], start) as pos:
+            y, aux = moe.moe_ffn(placed[kind], dx[cell], c, mesh=mesh, gmm_impl=impl,
+                                 resident=resident)
+            full = gather_rows(torch, mesh, y.to_local())
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        want_end = xs[cell].numel() // cfg.d_model if resident else start + b_loc * xs[cell].shape[1]
+        assert pos[0] == want_end, (body, pos[0], want_end)
+        assert tuple(y.shape) == tuple(xs[cell].shape) and torch.isfinite(full).all(), body
+        return full, float(aux.to_local()), wall
+
+    plain_calls = [0]
+    real_plain, real_path = gmm_ref.grouped_matmul_ref, ops.choose_path
+    paths = []
+
+    def plain_spy(*a):
+        plain_calls[0] += 1
+        return real_plain(*a)
+
+    def path_spy(*a, **kw):
+        paths.append(real_path(*a, **kw))
+        return paths[-1]
+
+    out = {"in_place": in_place, "walls": {}, "aux": {}, "setup_s": setup}
+    kernel = {}
+    before = dict(SM.COLLECTIVE_BYTES)
+    ops.LAUNCHES["gmm"] = 0           # the main path's runs: counted from 0
+    with mock.patch.object(gmm_ref, "grouped_matmul_ref", plain_spy), \
+            mock.patch.object(ops, "choose_path", path_spy):
+        for dtype in ("bfloat16", "float32"):
+            for body in bodies:
+                kernel[body, dtype], out["aux"][f"{body} {dtype}"], \
+                    out["walls"][f"{body} {dtype}"] = run(body, dtype=dtype)
+    out["gmm_launches"] = ops.LAUNCHES["gmm"]
+    out["gmm_paths"] = {p: paths.count(p) for p in sorted(set(paths))}
+    out["plain_calls"] = plain_calls[0]
+    out["collective_bytes"] = {k: SM.COLLECTIVE_BYTES[k] - before[k] for k in before}
+    plain = {}
+    for body in bodies:
+        plain[body], _, out["walls"][f"{body} plain"] = run(body, impl="dense")
+    real_trash = moe._with_trash
+
+    def shifted(w):   # rank 1's experts: w[g] -> w[(g + 1) % e_loc]
+        return real_trash(torch.roll(w, -1, dims=0) if rank == 1 else w)
+
+    with mock.patch.object(moe, "_with_trash", shifted):
+        control, _, out["walls"]["ep control"] = run("ep")
+    # the top-k sets that differ between this rank's chunks routed alone and
+    # the whole batch routed at once (what shared_routing removes)
+    xl = xs["prefill"][d_idx * b_loc:(d_idx + 1) * b_loc].reshape(-1, cfg.d_model)
+    tc = xl.shape[0] // cfg.moe_token_chunks
+    whole = tables["prefill"][1][d_idx * xl.shape[0]:(d_idx + 1) * xl.shape[0]]
+    alone = torch.cat([moe.route(params["router"], xl[i * tc:(i + 1) * tc], cfg)[1]
+                       for i in range(cfg.moe_token_chunks)])
+    out["topk_sets_differing"] = int((alone.sort(-1).values != whole.sort(-1).values)
+                                     .any(-1).sum())
+    out["topk_sets"] = int(whole.shape[0])
+    if rank == 0:   # the whole layer in this one process, over the same params and routing
+        t0, gates = time.perf_counter(), {}
+        for dtype in ("bfloat16", "float32"):
+            for cell in ("prefill", "decode"):
+                with torch.no_grad(), shared_routing(moe, tables[cell], 0):
+                    want, _ = moe._moe_local(params["router"], params["wg"], params["wu"],
+                                             params["wd"], xs[cell],
+                                             cfg.replace(compute_dtype=dtype), "ragged")
+                for body, (_, bcell, _) in bodies.items():
+                    if bcell == cell:
+                        gates[f"{body} {dtype} against local"] = rel_norm(kernel[body, dtype],
+                                                                          want)
+                if dtype == "bfloat16" and cell == "prefill":
+                    gates["ep control (rank 1's experts shifted) against local"] = rel_norm(
+                        control, want)
+        for body in bodies:
+            gates[f"{body} bfloat16 kernel against plain"] = rel_norm(kernel[body, "bfloat16"],
+                                                                      plain[body])
+        out["gates"] = gates
+        setup["rank 0's references"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_off(torch):
+    """cuDNN disabled inside the block (ATen's own convolutions), the
+    setting restored after it."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+RANKS_WAVE_CUDNN = {"deterministic cuDNN": cudnn_deterministic, "cuDNN off": cudnn_off}
+
+
+def ranks_wave(torch, rank, device):
+    """Phase 34 (b) on one rank: phase 23's CNN clients (Fig 8), a dense
+    wave of RANKS_WAVE_CLIENTS clients x RANKS_WAVE_STEPS steps of batch
+    CLIENTS_BATCH through ``BatchedExecutor(mesh=)`` over a ("data",) mesh
+    of the 4 ranks (padded to 16); rank 0 also runs the same wave unsharded
+    and holds the two leaf by leaf, with the clients shifted by one as the
+    control.  Both sides under deterministic cuDNN (whose algorithms follow
+    the vmapped group count: 4 clients a rank against 14), then with cuDNN
+    off (ATen's convolutions, one group at a time)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.fed.batch_exec import BatchedExecutor
+    from repro_torch.models.small import SmallModelConfig, init_small
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    name, fields, dataset, opt_name, lr = CLIENT_MODELS[0]
+    mcfg = SmallModelConfig(**fields)
+    opt = make_optimizer(opt_name, lr)
+    params = init_small(0, mcfg, device=device)
+    mesh = init_device_mesh(device, (RANKS_WORLD,), mesh_dim_names=("data",))
+
+    def wave(m, setting):
+        clients, _ = client_world(mcfg, dataset)
+        ex = BatchedExecutor(mcfg, opt, device=device, mesh=m)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        with RANKS_WAVE_CUDNN[setting](torch):
+            res = ex.run_wave(params, clients[:RANKS_WAVE_CLIENTS], RANKS_WAVE_STEPS)
+        sync(torch, device)
+        assert ex.last_wave["mode"] == "dense" and len(res) == RANKS_WAVE_CLIENTS, ex.last_wave
+        return [[t.float().cpu() for t in tree_leaves(d)] for d, _, _ in res], \
+            [m_ for _, _, m_ in res], time.perf_counter() - t0
+
+    out = {"model": name}
+    for setting in RANKS_WAVE_CUDNN:
+        sharded, metrics, wall = wave(mesh, setting)
+        row = out[setting] = {"wall_s": wall}
+        if rank == 0:
+            plain, plain_metrics, row["unsharded_wall_s"] = wave(None, setting)
+            row["bit_equal"] = all(torch.equal(a, b) for ca, cb in zip(sharded, plain)
+                                   for a, b in zip(ca, cb))
+            row["metrics_equal"] = metrics == plain_metrics
+            row["gap"] = wave_gap(sharded, plain)
+            row["control"] = wave_gap(sharded[1:], plain[:-1])   # clients shifted by one
+    return out
+
+
+def ranks_worker(rank, directory, t_spawn, device):
+    """One of phase 34's 4 ranks: a gloo world on ``device`` (every rank on
+    cuda:0: NCCL refuses two ranks on one device), then (a) and (b); the
+    reading goes to ``directory``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.grouped_matmul import ops
+
+    imported_s = time.time() - t_spawn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(directory, "rendezvous"),
+                            rank=rank, world_size=RANKS_WORLD)
+    if device == "cuda":
+        ops.library()              # built by phase 1: loaded from the build directory
+    out = {"imported_s": imported_s, "ready_s": time.time() - t_spawn,
+           "backend": dist.get_backend()}
+    cfg = get_config(OLMOE_ARCH, reduced=device != "cuda")
+    if device != "cuda":           # the CPU dry run: the reduced layer at olmoe's routing
+        cfg = cfg.replace(fsdp_params=True, moe_impl="ep", moe_token_chunks=4,
+                          compute_dtype="bfloat16", n_experts=8, top_k=2)
+    t0 = time.perf_counter()
+    out["moe"] = ranks_moe(torch, rank, device, cfg)
+    out["moe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["wave"] = ranks_wave(torch, rank, device)
+    out["wave_s"] = time.perf_counter() - t0
+    with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks_phase(torch, smi, device="cuda"):
+    """Phase 34: the sharded MoE bodies and the sharded dense wave on 4
+    spawned gloo ranks sharing the one card (see ``ranks_moe`` and
+    ``ranks_wave``).  Returns (the gmm launches of the main path's runs,
+    summed over the ranks, and the phase's row)."""
+    import multiprocessing as mp
+    import pickle
+
+    say(f"PHASE 34 sharded bodies: {RANKS_WORLD} gloo ranks on the one card; {OLMOE_ARCH}'s MoE "
+        f"layer on a {RANKS_MOE_MESH[0]} x {RANKS_MOE_MESH[1]} (data, model) mesh through the EP, "
+        f"resident and gather bodies; phase 23's CNN wave of {RANKS_WAVE_CLIENTS} clients over "
+        f"a (data,) mesh against the same wave unsharded")
+    say(f"  card: {smi}")
+    t_phase = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as directory:
+        t_spawn = time.time()
+        procs = [ctx.Process(target=ranks_worker, args=(r, directory, t_spawn, device))
+                 for r in range(RANKS_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.perf_counter() + RANKS_TIMEOUT
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            stop_all(procs)
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+        ranks = []
+        for r in range(RANKS_WORLD):
+            with open(os.path.join(directory, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    phase_s = time.perf_counter() - t_phase
+    moe_rows, wave = [r["moe"] for r in ranks], ranks[0]["wave"]
+    gates = moe_rows[0]["gates"]
+    say(f"  spawn to ready (torch imported, the process group up, the gmm library loaded) a "
+        f"rank: " + ", ".join(f"{r['imported_s']:.2f}, {r['ready_s']:.2f}" for r in ranks)
+        + f" s; backend {ranks[0]['backend']}")
+    for r, row in enumerate(moe_rows):
+        say(f"  (a) rank {r}: walls s " + ", ".join(f"{k} {v:.3f}" for k, v in row["walls"].items())
+            + "; set-up s " + ", ".join(f"{k} {v:.3f}" for k, v in row["setup_s"].items())
+            + f"; gmm launches {row['gmm_launches']} by path {row['gmm_paths']}, plain calls "
+            f"{row['plain_calls']}; collective bytes in {row['collective_bytes']}; top-k sets "
+            f"differing, chunks routed alone: "
+            f"{row['topk_sets_differing']} of {row['topk_sets']}")
+    for k, v in gates.items():
+        say(f"  (a) {k}: relative {v:.3e}")
+    for r, row in enumerate(moe_rows):
+        assert all(all(v.values()) for v in row["in_place"].values()), (r, row["in_place"])
+        if device == "cuda":   # the CPU's grouped_matmul is the plain loop
+            assert row["plain_calls"] == 0, (r, row["plain_calls"])
+            assert row["gmm_launches"] == sum(row["gmm_paths"].values()) > 0, row
+    for k, v in gates.items():
+        dtype = "float32" if "float32" in k else "bfloat16"
+        limit = SERVE_TWIN_F32_REL_TOL if dtype == "float32" else MOE_LAYER_REL_TOL
+        assert (v > limit) if "control" in k else (v < limit), (k, v, limit)
+    # cuDNN's algorithms follow the group count, so under it the sharded
+    # wave rounds otherwise than the unsharded one: held at the card-vs-CPU
+    # twin's limit; ATen's own convolutions are held at f32's
+    limits = {"deterministic cuDNN": TWIN_REL_TOL, "cuDNN off": RANKS_WAVE_TOL}
+    for setting, limit in limits.items():
+        w = wave[setting]
+        say(f"  (b) {wave['model']} wave, {RANKS_WAVE_CLIENTS} clients x {RANKS_WAVE_STEPS} "
+            f"steps, {setting}: sharded walls "
+            + ", ".join(f"{r['wave'][setting]['wall_s']:.3f}" for r in ranks)
+            + f" s a rank, unsharded {w['unsharded_wall_s']:.3f} s; bit for bit "
+            f"{w['bit_equal']}, metrics equal {w['metrics_equal']}; relative per leaf "
+            f"{w['gap'][0]:.3e} (max abs {w['gap'][1]:.3e}); clients shifted by one "
+            f"{w['control'][0]:.3e} (limit relative {limit:g})")
+        assert w["gap"][0] < limit < w["control"][0], (setting, w)
+    launches = {"gmm": sum(r["gmm_launches"] for r in moe_rows)}
+    say(f"  phase 34 {phase_s:.1f} s (ranks: moe " + ", ".join(f"{r['moe_s']:.1f}" for r in ranks)
+        + ", wave " + ", ".join(f"{r['wave_s']:.1f}" for r in ranks) + " s)")
+    return launches, {
+        "card": smi, "phase_s": phase_s, "ready_s": [r["ready_s"] for r in ranks],
+        "moe_s": [r["moe_s"] for r in ranks], "wave_s": [r["wave_s"] for r in ranks],
+        "walls_by_rank": [r["walls"] for r in moe_rows], "gates": gates,
+        "setup_s_by_rank": [r["setup_s"] for r in moe_rows],
+        "gmm_launches_by_rank": [r["gmm_launches"] for r in moe_rows],
+        "gmm_paths_by_rank": [r["gmm_paths"] for r in moe_rows],
+        "collective_bytes_by_rank": [r["collective_bytes"] for r in moe_rows],
+        "topk_sets_differing_by_rank": [r["topk_sets_differing"] for r in moe_rows],
+        "wave": wave}
 
 
 # ---------------------------------------------------------------- main
@@ -5862,6 +6273,9 @@ def main() -> int:
     say(f"  so far {time.perf_counter() - t_all:.1f} s")
     sharding_launches, sharding_row = run_sharding_phase(torch, counters, no_launches, phase7, smi)
     say(json.dumps({"sharding rules": sharding_row}))
+    say(f"  so far {time.perf_counter() - t_all:.1f} s")
+    ranks_launches, ranks_row = run_ranks_phase(torch, smi)
+    say(json.dumps({"sharded bodies": ranks_row}))
     say(f"  whole script {time.perf_counter() - t_all:.1f} s")
 
     replaces = {"gmm": "src/repro/kernels/grouped_matmul/kernel.py:49",
@@ -5903,16 +6317,19 @@ def main() -> int:
         train_key: {key: {k: r[k] for k in train_keys}
                     for key, r in train_rows.items() if r["kernel"] == "tgmm"},
     })
+    ranks_key = f"{OLMOE_ARCH} MoE layer on {RANKS_WORLD} ranks (phase 34), summed over the ranks"
     kernels[0].update({
         "launches": (launches["gmm"] + olmoe_launches["gmm"] + option_launches["gmm"]
-                     + fabric_launches["gmm"] + train_launches["gmm"]),
+                     + fabric_launches["gmm"] + train_launches["gmm"] + ranks_launches["gmm"]),
         "launches_by_path": {"femnist-mlp rounds": launches["gmm"],
                              OLMOE_ARCH: olmoe_launches["gmm"],
                              "femnist-mlp rounds, other options": option_launches["gmm"],
                              "femnist-mlp fabric, tenant A": fabric_launches["gmm"],
                              "femnist-mlp multihost (server process)":
                                  multihost_launches["gmm"],
-                             train_key: train_launches["gmm"]},
+                             train_key: train_launches["gmm"],
+                             ranks_key: ranks_launches["gmm"]},
+        "launches_by_rank_and_path": {ranks_key: ranks_row["gmm_paths_by_rank"]},
         "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
         OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
                      for (name, prod), r in moe_rows.items()},
@@ -6091,6 +6508,7 @@ def main() -> int:
         for where, counts in sharding_launches.items():
             k["launches_by_path"].setdefault(
                 f"{SERVE_ARCH}, sharding rules (phase 33), {where}", counts[name])
+        k["launches_by_path"].setdefault(ranks_key, ranks_launches.get(name, 0))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     assert torch.cuda.device_count() == 1, torch.cuda.device_count()

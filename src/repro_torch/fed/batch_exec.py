@@ -12,7 +12,13 @@ leaves carry a leading client axis:
   step of ``repro_torch.fed.client.build_step_fn`` over the client axis
   with ``torch.func.vmap``, on per-client inputs that keep their shape
   (``(C, B, H, W, Ch)`` images, ``(C, B, S)`` tokens), as the reference
-  vmaps its step.
+  vmaps its step.  With a ``mesh`` both dense programs run under
+  ``repro_torch.dist.shard_map`` with the client axis split over the
+  axes the ``"clients"`` rule names (``DEFAULT_CLIENT_RULES``: the batch
+  axes), the wave padded to divisibility with copies of its last client:
+  every rank pulls every client's batches, trains its slice of clients,
+  and the deltas and metrics are all-gathered, so every rank returns the
+  whole wave, as the reference's global view does.
 * **ragged** — clients have *different* per-step batch sizes (MLP kind
   without the local tower, as in the reference): each step's examples are
   concatenated into one row block sorted by client, and every dense layer
@@ -25,6 +31,9 @@ leaves carry a leading client axis:
 * **seq** — single-client waves (identical to ``FLClient.train_local`` by
   construction) and waves whose batch geometry varies run the cached
   ``make_small_step`` per client.
+
+The ragged and seq modes ignore the mesh, as the reference's do: they run
+whole on every rank.
 
 In the two MLP programs the loss is the sum of the per-client losses, so
 the gradient of the stacked tree is every client's own gradient; per-client
@@ -50,13 +59,16 @@ clients, envelopes and fallbacks are mirrored onto an observability plane
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.aggregation import tree_sub
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.mesh_utils import axis_sizes
+from repro_torch.dist.shard_map import all_gather, shard_map
+from repro_torch.dist.sharding import P
 from repro_torch.fed.client import (
     CLIP_NORM, batch_to, build_step_fn, host_to, make_small_step)
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
@@ -66,6 +78,10 @@ from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
+
+#: default logical→physical rule for the wave's client axis: clients are
+#: data parallelism, so the wave spreads over the batch axes.
+DEFAULT_CLIENT_RULES: Dict[str, Tuple[str, ...]] = {"clients": ("pod", "data")}
 
 
 @dataclass
@@ -103,6 +119,8 @@ class BatchedExecutor:
 
     Parameters mirror what the sequential path derives from ``FedConfig``:
     the model config, the (cacheable) optimizer and the FedProx ``prox_mu``.
+    ``mesh``/``rules`` (a ``DeviceMesh`` of ``device``'s type, and rules
+    overriding ``DEFAULT_CLIENT_RULES``) shard the dense wave's client axis.
     """
 
     def __init__(
@@ -112,10 +130,16 @@ class BatchedExecutor:
         prox_mu: float = 0.0,
         *,
         device: DeviceLike = None,
+        mesh=None,
+        rules: Optional[dict] = None,
         obs=None,
         tenant: str = "batch",
     ):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for an executor on {self.device}")
+        self.mesh = mesh
+        self.rules = rules
         self.mcfg = mcfg
         self.opt = opt
         self.prox_mu = float(prox_mu)
@@ -226,6 +250,54 @@ class BatchedExecutor:
         self.last_wave["cache_hit"] = hit
 
     # ------------------------------------------------------------------
+    # the dense wave's client axis under the mesh
+    # ------------------------------------------------------------------
+
+    def _wave_partition(self) -> Tuple[Any, int]:
+        """(PartitionSpec entry, shard count) for the wave's client axis
+        under the mesh + logical rules."""
+        rules = dict(DEFAULT_CLIENT_RULES)
+        if self.rules:
+            rules.update(self.rules)
+        rule = rules.get("clients")
+        if isinstance(rule, str):
+            rule = (rule,)
+        sizes = axis_sizes(self.mesh)
+        axes = tuple(a for a in (rule or ()) if a in sizes)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if not axes or n == 1:
+            return None, 1
+        return (axes[0] if len(axes) == 1 else axes), n
+
+    def _partition(self) -> Tuple[Any, int]:
+        return self._wave_partition() if self.mesh is not None else (None, 1)
+
+    def _on_mesh(self, program: Callable, entry, anchor, sharded, replicated=()):
+        """``program(anchor, *sharded, *replicated)`` with each ``sharded``
+        (tensor, client dim) split over ``entry`` of the mesh, every rank on
+        its slice of the clients; its outputs (client axis first) are
+        all-gathered in the body, so every rank returns the whole wave's."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = self.mesh
+        whole = tuple(Replicate() for _ in axis_sizes(mesh))
+
+        def everywhere(t):   # every rank holds the same tensor
+            return DTensor.from_local(t, mesh, whole, run_check=False)
+
+        def wave(*args):
+            return tree_map(lambda t: all_gather(t, entry, dim=0), program(*args))
+
+        specs = (P(), *(P(*(None,) * dim, entry) for _, dim in sharded),
+                 *(P() for _ in replicated))
+        out = shard_map(wave, mesh, in_specs=specs, out_specs=P())(
+            tree_map(everywhere, anchor), *(everywhere(t) for t, _ in sharded),
+            *(everywhere(t) for t in replicated))
+        return tree_map(lambda d: d.to_local(), out)
+
+    # ------------------------------------------------------------------
     # the stacked wave program (dense and ragged share it)
     # ------------------------------------------------------------------
 
@@ -278,28 +350,39 @@ class BatchedExecutor:
 
     def _run_stacked(self, mode, global_params, pulled):
         """Assemble the wave's rows and run its program: ``mode`` "dense"
-        (equal segments, ``torch.bmm``) or "ragged" (grouped matmul)."""
+        (equal segments, ``torch.bmm``; the client axis over the mesh) or
+        "ragged" (grouped matmul)."""
         C, S = len(pulled), len(pulled[0])
-        sizes = np.array([bl[0]["x"].shape[0] for bl in pulled], np.int64)
+        entry, nshard = self._partition() if mode == "dense" else (None, 1)
+        # mesh divisibility: repeat the last client as filler
+        pulled_pad = pulled + [pulled[-1]] * ((-C) % nshard)
+        Cp = len(pulled_pad)
+        sizes = np.array([bl[0]["x"].shape[0] for bl in pulled_pad], np.int64)
         width = int(np.prod(pulled[0][0]["x"].shape[1:]))  # same for all (checked)
         xs = np.stack([
-            np.concatenate([np.asarray(pulled[c][s]["x"]).reshape(sizes[c], width)
-                            for c in range(C)])
+            np.concatenate([np.asarray(pulled_pad[c][s]["x"]).reshape(sizes[c], width)
+                            for c in range(Cp)])
             for s in range(S)
         ])                                                      # (S, M, D)
         ys = np.stack([
-            np.concatenate([np.asarray(pulled[c][s]["y"]) for c in range(C)])
+            np.concatenate([np.asarray(pulled_pad[c][s]["y"]) for c in range(Cp)])
             for s in range(S)
         ])                                                      # (S, M)
         # one envelope per (C, S, M, D), whatever the row split: sizes are
         # device data
-        self._note_envelope((mode, C, xs.shape[1:], str(xs.dtype), str(ys.dtype)))
-        fn = self._build_stacked(C, grouped_matmul if mode == "ragged" else _dense_matmul)
+        self._note_envelope((mode, Cp, xs.shape[1:], str(xs.dtype), str(ys.dtype), entry))
+        matmul = grouped_matmul if mode == "ragged" else _dense_matmul
         dev = self.device
         gs = torch.from_numpy(sizes.astype(np.int32)).to(dev)
-        seg = torch.from_numpy(np.repeat(np.arange(C), sizes)).to(dev)
-        deltas, metrics = fn(global_params, host_to(xs, dev),
-                             host_to(ys, dev).long(), gs, seg)
+        xs, ys = host_to(xs, dev), host_to(ys, dev).long()
+        if entry is None:
+            seg = torch.from_numpy(np.repeat(np.arange(Cp), sizes)).to(dev)
+            deltas, metrics = self._build_stacked(Cp, matmul)(global_params, xs, ys, gs, seg)
+        else:   # equal segments: a rank's clients are a block of rows
+            local = Cp // nshard
+            seg = torch.from_numpy(np.repeat(np.arange(local), sizes[:local])).to(dev)
+            deltas, metrics = self._on_mesh(self._build_stacked(local, matmul), entry,
+                                            global_params, ((xs, 1), (ys, 1), (gs, 0)), (seg,))
         return self._split(deltas, metrics, pulled)
 
     # ------------------------------------------------------------------
@@ -309,25 +392,36 @@ class BatchedExecutor:
     def _run_vmapped(self, global_params, pulled):
         """Every client's step of ``build_step_fn`` at once through
         ``torch.func.vmap``: params, optimizer state and batches carry the
-        client axis; the anchor (the globals) is shared."""
-        xs = np.stack([np.stack([np.asarray(b["x"]) for b in bl])
-                       for bl in pulled])                       # (C, S, B, ...)
-        ys = np.stack([np.stack([np.asarray(b["y"]) for b in bl])
-                       for bl in pulled])                       # (C, S, B)
+        client axis (over the mesh, if any); the anchor (the globals) is
+        shared."""
         C = len(pulled)
-        self._note_envelope(("dense", C, xs.shape[1:], str(xs.dtype),
-                             ys.shape[2:], str(ys.dtype)))
+        entry, nshard = self._partition()
+        pulled_pad = pulled + [pulled[-1]] * ((-C) % nshard)   # filler: the last client
+        xs = np.stack([np.stack([np.asarray(b["x"]) for b in bl])
+                       for bl in pulled_pad])                   # (C, S, B, ...)
+        ys = np.stack([np.stack([np.asarray(b["y"]) for b in bl])
+                       for bl in pulled_pad])                   # (C, S, B)
+        self._note_envelope(("dense", len(pulled_pad), xs.shape[1:], str(xs.dtype),
+                             ys.shape[2:], str(ys.dtype), entry))
         step = torch.func.vmap(build_step_fn(self.mcfg, self.opt, self.prox_mu),
                                in_dims=(0, 0, 0, None))
+        init = torch.func.vmap(self.opt.init)
+
+        def wave(anchor, xs, ys):
+            c = xs.shape[0]
+            sp = tree_map(lambda g: g.expand(c, *g.shape), anchor)
+            ost = init(sp)
+            metrics: Dict[str, torch.Tensor] = {}
+            for s in range(xs.shape[1]):
+                sp, ost, metrics = step(sp, ost, {"x": xs[:, s], "y": ys[:, s]}, anchor)
+            return tree_map(lambda p, g: p - g[None].to(p.dtype), sp, anchor), metrics
+
         dev = self.device
         xs, ys = host_to(xs, dev), host_to(ys, dev)
-        sp = tree_map(lambda g: g.expand(C, *g.shape), global_params)
-        ost = torch.func.vmap(self.opt.init)(sp)
-        metrics: Dict[str, torch.Tensor] = {}
-        for s in range(xs.shape[1]):
-            sp, ost, metrics = step(sp, ost, {"x": xs[:, s], "y": ys[:, s]},
-                                    global_params)
-        deltas = tree_map(lambda p, g: p - g[None].to(p.dtype), sp, global_params)
+        if entry is None:
+            deltas, metrics = wave(global_params, xs, ys)
+        else:
+            deltas, metrics = self._on_mesh(wave, entry, global_params, ((xs, 0), (ys, 0)))
         return self._split(deltas, metrics, pulled)
 
     # ------------------------------------------------------------------

@@ -242,8 +242,9 @@ def block_apply(
             out = L.mlp(params["ffn"], h, cfg)
         else:
             ctx = current_context()
+            resident = mode == "decode" and cfg.moe_resident_serve
             out, aux = MOE.moe_ffn(params["ffn"], h, cfg, mesh=None if ctx is None else ctx.mesh,
-                                   gmm_impl=cfg.moe_gmm_impl)
+                                   gmm_impl=cfg.moe_gmm_impl, resident=resident)
         x = x + out.to(x.dtype)
         x = with_logical_constraint(x, "act_batch", "act_seq", None)
     return x, new_cache, aux

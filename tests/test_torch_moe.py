@@ -135,23 +135,33 @@ def test_init_moe_keeps_the_reference_tree():
 
 
 class _Mesh:
-    def __init__(self, n):
-        self.n = n
+    """Just enough ``DeviceMesh`` for ``moe_ffn``'s choice of path and
+    ``shard_map``'s checks, with no process group behind it."""
 
-    def size(self):
-        return self.n
+    def __init__(self, shape, names=("data", "model")):
+        self.mesh_dim_names = names
+        self.shape = shape
 
 
 def test_moe_ffn_refuses_a_mesh_of_more_than_one_device():
+    """A mesh of one device runs the local path.  On a larger one the
+    sharded body refuses, before any collective, a plain tensor
+    (``TypeError``: it was never distributed) and, in grad mode, an input
+    that requires grad (``NotImplementedError``: the bodies are forward
+    only, ROADMAP queue 1 row 9b-ii).  The bodies themselves run on gloo
+    ranks in ``tests/test_torch_moe_sharded.py``."""
     _, cfg = _cfgs("float32")
     host, x = _inputs(ref_registry.get_config(ARCH, reduced=True), 1, 4)
     params = params_from_numpy(host, "cpu")
     xt = torch.from_numpy(x)
     with torch.no_grad():
-        one, _ = moe.moe_ffn(params, xt, cfg, mesh=_Mesh(1))
+        one, _ = moe.moe_ffn(params, xt, cfg, mesh=_Mesh((1, 1)))
         none, _ = moe.moe_ffn(params, xt, cfg)
         torch.testing.assert_close(one, none, rtol=0, atol=0)
-        with pytest.raises(NotImplementedError, match="queue 1 row 9b"):
-            moe.moe_ffn(params, xt, cfg, mesh=_Mesh(4))
+        for impl in ("gather", "ep"):
+            with pytest.raises(TypeError, match="distribute it first"):
+                moe.moe_ffn(params, xt, cfg.replace(moe_impl=impl), mesh=_Mesh((2, 2)))
+    with pytest.raises(NotImplementedError, match="row 9b-ii"):
+        moe.moe_ffn(params, xt.clone().requires_grad_(), cfg, mesh=_Mesh((2, 2)))
     with pytest.raises(ValueError):
         moe.moe_ffn(params, xt, cfg, gmm_impl="megablocks")

@@ -20,9 +20,13 @@ the same globals twice on the card says whether cuDNN alone changes the
 bits, and the wave's deltas summed in two orders whether the aggregation
 order does.  Then every client of round 2's wave is held card against
 CPU from round 2's globals after 1 to 10 local steps, each with its
-three worst leaves and its leaves' delta norms.
+three worst leaves and its leaves' delta norms.  With ``--f64`` each
+step count also runs the wave on the CPU in float64 (params and batches
+widened) and reads every client's CPU-f32 and card gaps against it: the
+share of the card-against-CPU gap that f32 rounding alone accounts for,
+and the card's wave with cuDNN off against it.
 
-    PYTHONPATH=src python tools/torch_client_twin.py --wave [--model "cnn + local model"]
+    PYTHONPATH=src python tools/torch_client_twin.py --wave [--f64] [--model "cnn + local model"]
 
 The last line of its output is one JSON object with every reading.
 """
@@ -53,13 +57,15 @@ def main() -> int:
     ap.add_argument("--model", default=None, choices=sorted(models))
     ap.add_argument("--wave", action="store_true",
                     help="phase 23's round-2 twin: run-to-run drift and every client of the wave")
+    ap.add_argument("--f64", action="store_true",
+                    help="with --wave: every step count also against a float64 CPU run")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.smi_line()
     print(f"card: {card}", flush=True)
     if args.wave:
-        return wave_study(torch, cs, args.model or "cnn + local model", card)
+        return wave_study(torch, cs, args.model or "cnn + local model", card, args.f64)
     args.model = args.model or "resnet"
     fields, dataset = models[args.model]
     mcfg = SmallModelConfig(**fields)
@@ -96,7 +102,26 @@ def main() -> int:
     return 0
 
 
-def wave_study(torch, cs, model, card):
+def wave64(torch, cs, mcfg, dataset, opt, cids, params):
+    """``cs.kind_wave`` on the CPU in float64: the params and every float
+    batch widened before the wave (the deltas come back as float32)."""
+    from unittest import mock
+
+    from repro_torch.fed import batch_exec
+    from repro_torch.tree import tree_map
+
+    real = batch_exec.host_to
+
+    def wide(arr, device):
+        t = real(arr, device)
+        return t.double() if t.is_floating_point() else t
+
+    with mock.patch.object(batch_exec, "host_to", wide):
+        return cs.kind_wave(torch, mcfg, dataset, opt, cids,
+                            tree_map(lambda t: t.double().cpu(), params), "cpu")
+
+
+def wave_study(torch, cs, model, card, f64=False):
     """Phase 23's twin of ``model`` taken apart (see the module docstring)."""
     import contextlib
 
@@ -155,12 +180,26 @@ def wave_study(torch, cs, model, card):
             want = cs.kind_wave(torch, mcfg, dataset, trainer.opt, wave, start, "cpu")
             with cudnn(True):
                 got = cs.kind_wave(torch, mcfg, dataset, trainer.opt, wave, start, "cuda")
+            exact = (wave64(torch, cs, mcfg, dataset, trainer.opt, wave, start) if f64
+                     else [None] * len(wave))
+            if f64:   # the card without cuDNN (ATen's own convolutions)
+                torch.backends.cudnn.enabled = False
+                try:
+                    plain = cs.kind_wave(torch, mcfg, dataset, trainer.opt, wave, start, "cuda")
+                finally:
+                    torch.backends.cudnn.enabled = True
+            else:
+                plain = [None] * len(wave)
             clients = {}
-            for cid, g, w in zip(wave, got, want):
+            for cid, g, w, x, n in zip(wave, got, want, exact, plain):
                 rel = [(float((a - b).norm() / b.norm()) if float(b.norm()) else 0.0,
                         float(b.norm()), k) for a, b, k in zip(g, w, keys)]
                 clients[cid] = {"gap": cs.wave_gap([g], [w]),
                                 "worst_leaves": sorted(rel, reverse=True)[:3]}
+                if x is not None:   # f32 rounding alone: the CPU's f32 wave against f64
+                    clients[cid]["cpu_f32_vs_f64"] = cs.wave_gap([w], [x])
+                    clients[cid]["card_vs_f64"] = cs.wave_gap([g], [x])
+                    clients[cid]["card_no_cudnn_vs_f64"] = cs.wave_gap([n], [x])
             per_step[steps] = clients
             worst = max(clients.items(), key=lambda kv: kv[1]["gap"][0])
             print(json.dumps({"steps": steps, "worst_client": worst[0], **worst[1],
