@@ -241,8 +241,9 @@ Phases (any failure exits non-zero before the last line is printed):
              REGISTER, the wire bytes by share per round, inline against
              socket wall.
 26. hier   — the hierarchical tree of ``repro_torch.fed.hier``: a
-             ``RootAggregator`` in this process, each leaf a process spawned
-             with ``run_leaf``.  Gates: (a) examples/hier_tree.py's world,
+             ``RootAggregator`` in this process, each leaf a process forked
+             from the forkserver with torch and the port preloaded
+             (``preloaded_context``) running ``run_leaf``.  Gates: (a) examples/hier_tree.py's world,
              cut to HIER_CLIENTS (500) ``SimWorker``s (1,000 there) on
              driver threads over 2 leaves (pods
              ``cid % 2``), 2 rounds, template w 16x16 + b 16 — under none,
@@ -458,8 +459,10 @@ Phases (any failure exits non-zero before the last line is printed):
              distributed by ``tree_shardings`` as DTensors: ``to_local()``
              bit-identical, local bytes = the plain tree's, no kernel
              launched; the process group is destroyed at the end.
-34. sharded bodies — 4 spawned ranks in one gloo world, every rank on
-             cuda:0 (NCCL refuses two ranks on one device): (a) olmoe-1b-7b's
+34. sharded bodies and train steps — 4 ranks forked from the preloaded
+             forkserver (``preloaded_context``), every rank on cuda:0 in a
+             ``staged_gloo`` world (NCCL refuses two ranks on one device;
+             ``launch.mesh.init_world`` picks the backend by name): (a) olmoe-1b-7b's
              MoE layer at its published width (f32 params drawn on the card
              from a seed, bf16 compute, EP, FSDP, 4 token chunks) on a 2 x 2
              ``(data, model)`` mesh, params placed by ``tree_shardings``
@@ -480,14 +483,33 @@ Phases (any failure exits non-zero before the last line is printed):
              wave unsharded on rank 0, per leaf: under deterministic cuDNN
              within TWIN_REL_TOL (cuDNN's algorithms follow the vmapped group
              count), with cuDNN off within 2e-5 (RANKS_WAVE_TOL); the
-             clients shifted by one as the control.  Spawn to ready, each
-             body's wall a rank and the collective bytes printed.
+             clients shifted by one as the control; (c) qwen1.5-0.5b at its
+             published width cut to RANKS_QWEN_LAYERS layers (flash route,
+             remat full, f32 params, AdamW with clip 1.0), params, AdamW
+             state and an 8 x 128 batch from numpy placed as DTensors by
+             ``sharding.distribute`` on the 2 x 2 mesh: one prefill and
+             RANKS_QWEN_STEPS train steps in bf16 and again in f32, every
+             rank holding its shards of the logits, the losses and the
+             params after the steps against the same run unsharded in its
+             own process (bf16 RANKS_TRAIN_BF16_TOL, the params as one tree;
+             f32 SERVE_TWIN_F32_REL_TOL, every leaf), rank 1's wq shard
+             replaced by its neighbour's failing the f32 limit; (d)
+             olmoe-1b-7b cut to RANKS_OLMOE_LAYERS layers (EP, FSDP, flash,
+             remat full, bf16): one train step's cross-entropy and every
+             gradient leaf against the unsharded step (``_moe_local``) with
+             the sharded run's top-k choices forced (``forced_routing``),
+             bf16 RANKS_TRAIN_BF16_TOL, rank 1's experts shifted by one
+             failing it; every flash call (forward and backward) and every
+             expert product a kernel launch (wgmma, bwd_wgmma, gmm, tgmm;
+             ffma and bwd_ffma for f32), none on a plain version.  Spawn to
+             ready, each body's and step's wall a rank, the collective bytes
+             and the bytes staged through the host printed.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
-of phases 3, 18, 23, 24, 25, 26, 29 and 34 (by path and rank too), ``tgmm`` with those of phases 3, 23, 24, 25, 26 and 29, by path too, with worst
+of phases 3, 18, 23, 24, 25, 26, 29 and 34 (by path and rank too), ``tgmm`` with those of phases 3, 23, 24, 25, 26, 29 and 34, by path too, with worst
 errors and times by path, olmoe's wgmma times and the train step's, ``flash_attention`` with
-those of phases 7, 14, 18, 21, 27, 28, 30, 32 and 33 (and how many were bidirectional),
-``flash_attention_bwd_wgmma`` (the ``bwd_wgmma`` path) with phases 30 and 32's bf16
+those of phases 7, 14, 18, 21, 27, 28, 30, 32, 33 and 34 (and how many were bidirectional),
+``flash_attention_bwd_wgmma`` (the ``bwd_wgmma`` path) with phases 30, 32 and 34's bf16
 calls, worst errors and its times at the seven shapes, ``flash_attention_bwd`` (the
 ``bwd_ffma`` path) with their f32 calls, worst errors by dtype and its bf16 and f32
 times at the training shape, ``ssd_scan`` with those of phases 12 and 31,
@@ -3722,12 +3744,31 @@ def hier_card_round(torch, ctx, device=None):
             "weight": weight, "tree_equals_flat": True, "flat_train_s": flat_s}
 
 
-def run_hier_phase(torch, mcfg, smi, device=None):
-    """Phase 26: the hierarchical tree (``repro_torch.fed.hier``), five
-    gates; the root in this process, leaves spawned."""
+#: what phase 26's leaves and phase 34's ranks import, loaded once into the
+#: forkserver they start from: a spawned process imports torch anew (~8 s
+#: each on the card's host; phase 26 started 2 leaves a campaign, 8 times)
+PRELOAD = ("numpy", "torch", "torch.distributed", "torch.distributed.tensor",
+           "repro_torch.fed.hier", "repro_torch.obs", "repro_torch.fed.batch_exec",
+           "repro_torch.models.registry", "repro_torch.dist.shard_map",
+           "repro_torch.dist.staged_gloo", "repro_torch.launch.mesh")
+
+
+def preloaded_context():
+    """A ``forkserver`` context whose server has imported ``PRELOAD``: each
+    process is forked from it with torch loaded (and CUDA never touched
+    there, so a child may use the card)."""
     import multiprocessing as mp
 
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(PRELOAD))
+    return ctx
+
+
+def run_hier_phase(torch, mcfg, smi, device=None):
+    """Phase 26: the hierarchical tree (``repro_torch.fed.hier``), five
+    gates; the root in this process, leaves forked from the preloaded
+    forkserver."""
+    ctx = preloaded_context()
     say(f"  card: {smi}")
     say(f"  open-file limit {raise_fd_limit()}")
     template = hier_template()
@@ -5819,27 +5860,311 @@ def ranks_wave(torch, rank, device):
     return out
 
 
+RANKS_TRAIN_SEED = 35
+RANKS_QWEN_LAYERS = 4              # qwen1.5-0.5b cut to 4 of its 24 layers
+RANKS_QWEN_STEPS = 2
+RANKS_OLMOE_LAYERS = 2             # olmoe-1b-7b cut to 2 of its 16 layers
+RANKS_CPU_BATCH = (8, 16)          # the CPU dry run's reduced batch
+
+
+def ranks_config(arch, n_layers, device, **over):
+    """``arch`` at its published width cut to ``n_layers`` (on the card),
+    or its reduced config (the CPU dry run), with ``over`` applied."""
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+
+    if device != "cuda":
+        return get_config(arch, reduced=True).replace(**over)
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=n_layers, groups=(LayerGroup(cfg.groups[0].pattern, n_layers),),
+                       **over)
+
+
+def ranks_batch(torch, cfg, device):
+    """Tokens from numpy, seeded: TRAIN_BATCH x TRAIN_SEQ on the card."""
+    import numpy as np
+
+    shape = (TRAIN_BATCH, TRAIN_SEQ) if device == "cuda" else RANKS_CPU_BATCH
+    tokens = np.random.default_rng(RANKS_TRAIN_SEED).integers(0, cfg.vocab_size, shape)
+    return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+
+
+def sums_against(tree, want):
+    """{path: [sum of squared differences, sum of squares of want]} of this
+    rank's local shards of DTensor ``tree`` against plain ``want`` cut the
+    same way (a replicated shard counts on every rank, in both sums)."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    got = dict(tree_flatten_with_path(tree))
+    out = {}
+    for path, w in tree_flatten_with_path(want):
+        g = got[path]
+        gl = g.to_local().float()
+        wl = w.float()
+        if tuple(wl.shape) != tuple(gl.shape):
+            from torch.distributed.tensor import distribute_tensor
+
+            wl = distribute_tensor(w, g.device_mesh, g.placements,
+                                   src_data_rank=None).to_local().float()
+        out[path] = [float((gl - wl).square().sum()), float(wl.square().sum())]
+    return out
+
+
+def rel_of_sums(per_rank):
+    """Per path, sqrt(sum of differences / sum of squares) over the ranks."""
+    paths = per_rank[0].keys()
+    return {p: math.sqrt(sum(r[p][0] for r in per_rank) / max(sum(r[p][1] for r in per_rank),
+                                                             1e-300))
+            for p in paths}
+
+
+@contextlib.contextmanager
+def plain_route_spies(fa_ref, gmm_ref, calls):
+    """Count every call of the plain flash and grouped-matmul versions."""
+    real = {"attention_ref": fa_ref.attention_ref,
+            "grouped_matmul_ref": gmm_ref.grouped_matmul_ref, "tgmm_ref": gmm_ref.tgmm_ref}
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    with mock.patch.object(fa_ref, "attention_ref", spy("attention_ref", real["attention_ref"])), \
+            mock.patch.object(gmm_ref, "grouped_matmul_ref",
+                              spy("grouped_matmul_ref", real["grouped_matmul_ref"])), \
+            mock.patch.object(gmm_ref, "tgmm_ref", spy("tgmm_ref", real["tgmm_ref"])):
+        yield calls
+
+
+def full_of(t):
+    """A DTensor gathered whole; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def kernel_counts(fa_ops, ops, staged):
+    return {"flash": dict(fa_ops.PATH_LAUNCHES), "gmm": ops.LAUNCHES["gmm"],
+            "tgmm": ops.LAUNCHES["tgmm"], "tgmm_paths": dict(ops.TGMM_PATH_LAUNCHES),
+            "staged_bytes": dict(staged.STAGED_BYTES)}
+
+
+def counts_between(before, after):
+    out = {"flash": {k: after["flash"][k] - before["flash"][k] for k in after["flash"]},
+           "tgmm_paths": {k: after["tgmm_paths"][k] - before["tgmm_paths"][k]
+                          for k in after["tgmm_paths"]},
+           "staged_bytes": {k: after["staged_bytes"][k] - before["staged_bytes"][k]
+                            for k in after["staged_bytes"]}}
+    out.update({k: after[k] - before[k] for k in ("gmm", "tgmm")})
+    return out
+
+
+def ranks_qwen_train(torch, rank, device, mesh, counters):
+    """Phase 34 (c) on one rank: qwen1.5-0.5b at its published width cut to
+    RANKS_QWEN_LAYERS layers (flash route, bf16 compute, f32 params,
+    AdamW, clip 1.0, remat full) on DTensors over the 2 x 2 (data, model)
+    mesh: one prefill and RANKS_QWEN_STEPS train steps, then the same in
+    f32 compute; every rank also runs both unsharded from the same params
+    and batch and sums its shards' gaps; rank 1's ``wq`` shard replaced by
+    its neighbour's is the control (an f32 prefill).  Returns this rank's reading."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import sharding as S
+    from repro_torch.models.registry import make_train_step, model_fns, shapes_and_axes
+    from repro_torch.optim.optimizers import opt_state_axes
+    from repro_torch.tree import tree_map
+
+    out = {"walls": {}, "losses": {}, "unsharded_losses": {}}
+    for dtype in ("bfloat16", "float32"):
+        cfg = ranks_config(SERVE_ARCH, RANKS_QWEN_LAYERS, device, attn_impl="pallas",
+                           compute_dtype=dtype, remat="full")
+        fns = model_fns(cfg)
+        params = fns.init(torch.Generator(device=device).manual_seed(RANKS_TRAIN_SEED),
+                          device)[0]
+        batch = ranks_batch(torch, cfg, device)
+        step, opt = make_train_step(cfg)
+        state = opt.init(params)
+        rules = S.default_rules(cfg, mesh)
+        _, axes = shapes_and_axes(fns.init, torch.Generator().manual_seed(0))
+        sync(torch, device)
+        t0 = time.perf_counter()
+        with S.logical_sharding(mesh, rules):
+            p = S.distribute(params, S.tree_shardings(axes, mesh, rules))
+            s = S.distribute(state, S.tree_shardings(
+                opt_state_axes(cfg.optimizer, axes, params), mesh, rules))
+            b = S.distribute(batch, S.batch_shardings(batch, mesh, rules))
+            sync(torch, device)
+            out["walls"][f"{dtype} placement"], t0 = time.perf_counter() - t0, time.perf_counter()
+            before = kernel_counts(*counters)
+            with torch.no_grad():
+                logits, _ = fns.prefill(p, b)
+            sync(torch, device)
+            out["walls"][f"{dtype} prefill"] = time.perf_counter() - t0
+            losses = []
+            for i in range(RANKS_QWEN_STEPS):
+                t0 = time.perf_counter()
+                p, s, m = step(p, s, b)
+                losses.append(float(full_of(m["loss"])))
+                sync(torch, device)
+                out["walls"][f"{dtype} step {i + 1}"] = time.perf_counter() - t0
+            out[f"{dtype} counts"] = counts_between(before, kernel_counts(*counters))
+            out["losses"][dtype] = losses
+            if dtype == "float32":   # the control: rank 1's wq shard is its neighbour's
+                sh = S.tree_shardings(axes, mesh, rules)
+                wq = params["groups"]["g0"]["p0"]["mixer"]["wq"]
+                if rank == 1:   # the head blocks swapped: rank 1 cuts its neighbour's
+                    wq = torch.cat(list(reversed(wq.chunk(mesh.size(1), dim=2))), dim=2)
+                ctl = S.distribute(params, sh)
+                ctl["groups"]["g0"]["p0"]["mixer"]["wq"] = S.distribute(
+                    wq, sh["groups"]["g0"]["p0"]["mixer"]["wq"])
+                with torch.no_grad():
+                    ctl_logits, _ = fns.prefill(ctl, b)
+        # the same from the same params and batch, unsharded, in this process
+        with torch.no_grad():
+            u_logits, _ = fns.prefill(params, batch)
+        u_p, u_s, u_losses = params, state, []
+        for _ in range(RANKS_QWEN_STEPS):
+            u_p, u_s, u_m = step(u_p, u_s, batch)
+            u_losses.append(float(u_m["loss"]))
+        out["unsharded_losses"][dtype] = u_losses
+        out[f"{dtype} logits sums"] = sums_against(logits, u_logits)
+        out[f"{dtype} params sums"] = sums_against(p, u_p)
+        if dtype == "float32":
+            out["control logits sums"] = sums_against(ctl_logits, u_logits)
+        del p, s, b, u_p, u_s, params, state
+        if device == "cuda":
+            free_card(torch)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routing(moe, table, n_calls):
+    """``moe.route`` as it is, its first ``n_calls`` top-k choices kept in
+    ``table`` (the forward's, before remat's recomputation repeats them)."""
+    real = moe.route
+
+    def record(router_w, xf, cfg):
+        top_p, top_i, probs = real(router_w, xf, cfg)
+        if len(table) < n_calls:
+            table.append(top_i.detach().clone())
+        return top_p, top_i, probs
+
+    with mock.patch.object(moe, "route", record):
+        yield table
+
+
+@contextlib.contextmanager
+def forced_routing(torch, moe, tables):
+    """``moe.route`` with the top-k choices of ``tables`` (one a layer, every
+    token of the batch) and the probabilities of this run's own router
+    product: the layer a call belongs to is the order in which its router
+    first appears (remat's recomputation calls it again)."""
+    layers = {}
+
+    def forced(router_w, xf, cfg):
+        probs = torch.softmax(xf.float() @ router_w, dim=-1)
+        top_i = tables[layers.setdefault(router_w.data_ptr(), len(layers))]
+        top_p = torch.gather(probs, 1, top_i)
+        return top_p / top_p.sum(-1, keepdim=True), top_i, probs
+
+    with mock.patch.object(moe, "route", forced):
+        yield
+
+
+def ranks_olmoe_train(torch, rank, device, mesh, counters):
+    """Phase 34 (d) on one rank: olmoe-1b-7b at its published width cut to
+    RANKS_OLMOE_LAYERS layers (EP, FSDP, 4 token chunks, flash route, bf16
+    compute, f32 params, remat full) on DTensors over the 2 x 2 mesh: the
+    gradient of one train step's cross-entropy through the EP body's
+    backward (``gmm`` forward, recompute and dx, ``tgmm`` dw on the local
+    experts).  Every rank then runs the unsharded step (``_moe_local``)
+    from the same params and batch with the sharded run's top-k choices
+    (gathered over "data") forced, and sums its shards' gaps; rank 1's
+    experts shifted by one is the control.  Returns this rank's reading."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.models import moe
+    from repro_torch.models.registry import model_fns, shapes_and_axes, value_and_grad
+
+    cfg = ranks_config(OLMOE_ARCH, RANKS_OLMOE_LAYERS, device, attn_impl="pallas",
+                       compute_dtype="bfloat16", remat="full", moe_impl="ep", fsdp_params=True)
+    fns = model_fns(cfg)
+    params = fns.init(torch.Generator(device=device).manual_seed(RANKS_TRAIN_SEED), device)[0]
+    batch = ranks_batch(torch, cfg, device)
+    rules = S.default_rules(cfg, mesh)
+    _, axes = shapes_and_axes(fns.init, torch.Generator().manual_seed(0))
+
+    def ce(p_, b_):   # the step's cross-entropy (its aux term is the EP body's own, a chunk at a time)
+        loss, metrics = fns.loss(p_, b_)
+        return metrics["ce"], {"loss": loss, "aux": metrics["aux"]}
+
+    out = {"walls": {}}
+    sync(torch, device)
+    t0 = time.perf_counter()
+    with S.logical_sharding(mesh, rules):
+        p = S.distribute(params, S.tree_shardings(axes, mesh, rules))
+        b = S.distribute(batch, S.batch_shardings(batch, mesh, rules))
+        sync(torch, device)
+        out["walls"]["placement"], t0 = time.perf_counter() - t0, time.perf_counter()
+        n_chunks = max(1, cfg.moe_token_chunks)
+        before = kernel_counts(*counters)
+        with recorded_routing(moe, [], cfg.total_layers * n_chunks) as table:
+            (loss, metrics), grads = value_and_grad(ce, p, b)
+        sync(torch, device)
+        out["walls"]["step"] = time.perf_counter() - t0
+        out["counts"] = counts_between(before, kernel_counts(*counters))
+        out["ce"], out["loss"], out["aux"] = (float(full_of(v)) for v in
+                                              (loss, metrics["loss"], metrics["aux"]))
+        real_trash = moe._with_trash
+
+        def shifted(w):   # rank 1's experts: w[g] -> w[(g + 1) % e_loc]
+            return real_trash(torch.roll(w, -1, dims=0) if rank == 1 else w)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(moe, "_with_trash", shifted):
+            (_, _), ctl_grads = value_and_grad(ce, p, b)
+        sync(torch, device)
+        out["walls"]["control step"] = time.perf_counter() - t0
+        # every token's routing: this data shard's chunks, gathered over "data"
+        tables = [gather_rows(torch, mesh, torch.cat(table[l * n_chunks:(l + 1) * n_chunks]))
+                  for l in range(cfg.total_layers)]
+    t0 = time.perf_counter()
+    with forced_routing(torch, moe, tables):
+        (u_loss, u_metrics), u_grads = value_and_grad(ce, params, batch)
+    sync(torch, device)
+    out["walls"]["unsharded step"] = time.perf_counter() - t0
+    out["unsharded_ce"], out["unsharded_aux"] = float(u_loss), float(u_metrics["aux"])
+    out["grads sums"] = sums_against(grads, u_grads)
+    out["control grads sums"] = sums_against(ctl_grads, u_grads)
+    return out
+
+
 def ranks_worker(rank, directory, t_spawn, device):
-    """One of phase 34's 4 ranks: a gloo world on ``device`` (every rank on
-    cuda:0: NCCL refuses two ranks on one device), then (a) and (b); the
-    reading goes to ``directory``."""
+    """One of phase 34's 4 ranks: a world on ``device`` (every rank on
+    cuda:0, where NCCL refuses two ranks on one device: the backend
+    ``launch.mesh.world_backend`` names, ``staged_gloo``; plain gloo on the
+    CPU), then (a) to (d); the reading goes to ``directory``."""
     import pickle
 
     import torch
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.dist import staged_gloo
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.grouped_matmul import ops
+    from repro_torch.kernels.grouped_matmul import ref as gmm_ref
+    from repro_torch.launch.mesh import init_world
 
     imported_s = time.time() - t_spawn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method="file://" + os.path.join(directory, "rendezvous"),
-                            rank=rank, world_size=RANKS_WORLD)
+    backend = init_world(rank, RANKS_WORLD, "file://" + os.path.join(directory, "rendezvous"),
+                         device, ranks_per_device=RANKS_WORLD if device == "cuda" else 1)
     if device == "cuda":
         ops.library()              # built by phase 1: loaded from the build directory
-    out = {"imported_s": imported_s, "ready_s": time.time() - t_spawn,
-           "backend": dist.get_backend()}
+        fa_ops.library()           # built by phase 9
+    out = {"imported_s": imported_s, "ready_s": time.time() - t_spawn, "backend": backend}
     cfg = get_config(OLMOE_ARCH, reduced=device != "cuda")
     if device != "cuda":           # the CPU dry run: the reduced layer at olmoe's routing
         cfg = cfg.replace(fsdp_params=True, moe_impl="ep", moe_token_chunks=4,
@@ -5850,27 +6175,93 @@ def ranks_worker(rank, directory, t_spawn, device):
     t0 = time.perf_counter()
     out["wave"] = ranks_wave(torch, rank, device)
     out["wave_s"] = time.perf_counter() - t0
+    mesh = init_device_mesh(device, RANKS_MOE_MESH, mesh_dim_names=("data", "model"))
+    counters = (fa_ops, ops, staged_gloo)
+    plain = {}
+    with plain_route_spies(fa_ref, gmm_ref, plain):
+        t0 = time.perf_counter()
+        out["qwen"] = ranks_qwen_train(torch, rank, device, mesh, counters)
+        out["qwen_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["olmoe"] = ranks_olmoe_train(torch, rank, device, mesh, counters)
+        out["olmoe_s"] = time.perf_counter() - t0
+    out["plain_calls"] = plain
     with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
+RANKS_TRAIN_BF16_TOL = 2e-2        # relative norms, bf16 compute: the sharded against the unsharded
+
+
+def train_gates(ranks, say_prefix):
+    """Phase 34 (c) and (d)'s readings over the ranks, and their gates."""
+    qwen = [r["qwen"] for r in ranks]
+    olmoe = [r["olmoe"] for r in ranks]
+    gates = {}
+    for dtype, tol in (("bfloat16", RANKS_TRAIN_BF16_TOL), ("float32", SERVE_TWIN_F32_REL_TOL)):
+        logits = rel_of_sums([q[f"{dtype} logits sums"] for q in qwen])[""]
+        per_leaf = rel_of_sums([q[f"{dtype} params sums"] for q in qwen])
+        sums = [sum(v[0] for v in q[f"{dtype} params sums"].values()) for q in qwen], \
+            [sum(v[1] for v in q[f"{dtype} params sums"].values()) for q in qwen]
+        tree = math.sqrt(sum(sums[0]) / sum(sums[1]))
+        losses = [abs(a - b) / abs(b) for a, b in zip(qwen[0]["losses"][dtype],
+                                                        qwen[0]["unsharded_losses"][dtype])]
+        worst = max(per_leaf.items(), key=lambda kv: kv[1])
+        gates[f"(c) {dtype}"] = {"logits": logits, "losses": losses, "params_tree": tree,
+                                 "params_worst_leaf": worst, "tol": tol}
+        say(f"{say_prefix}(c) {SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers), {dtype} compute: "
+            f"sharded losses {qwen[0]['losses'][dtype]} against unsharded "
+            f"{qwen[0]['unsharded_losses'][dtype]} (relative {['%.2e' % x for x in losses]}); "
+            f"last-token logits relative {logits:.3e}; params after {RANKS_QWEN_STEPS} steps "
+            f"relative {tree:.3e} as one tree, worst leaf {worst[0]} {worst[1]:.3e} "
+            f"(limit {tol:g})")
+        assert logits < tol and max(losses) < tol, gates[f"(c) {dtype}"]
+        if dtype == "float32":   # every leaf; in bf16 AdamW's first steps move near-zero
+            assert worst[1] < tol, worst   # gradients by lr times their sign: the tree is held
+        else:
+            assert tree < tol, tree
+    control = rel_of_sums([q["control logits sums"] for q in qwen])[""]
+    gates["(c) control"] = control
+    say(f"{say_prefix}(c) control, f32, rank 1's wq shard its neighbour's: logits relative "
+        f"{control:.3e} (must exceed {SERVE_TWIN_F32_REL_TOL:g})")
+    assert control > SERVE_TWIN_F32_REL_TOL, control
+    grads = rel_of_sums([o["grads sums"] for o in olmoe])
+    ctl = rel_of_sums([o["control grads sums"] for o in olmoe])
+    ce = abs(olmoe[0]["ce"] - olmoe[0]["unsharded_ce"]) / abs(olmoe[0]["unsharded_ce"])
+    worst, ctl_worst = (max(g.items(), key=lambda kv: kv[1]) for g in (grads, ctl))
+    gates["(d)"] = {"ce": ce, "grads_worst_leaf": worst, "control_worst_leaf": ctl_worst,
+                    "aux": (olmoe[0]["aux"], olmoe[0]["unsharded_aux"])}
+    say(f"{say_prefix}(d) {OLMOE_ARCH} ({RANKS_OLMOE_LAYERS} layers), EP + FSDP, bf16: "
+        f"cross-entropy {olmoe[0]['ce']:.6f} against unsharded {olmoe[0]['unsharded_ce']:.6f} "
+        f"(relative {ce:.2e}); aux {olmoe[0]['aux']:.6f} (a chunk and a data shard at a time) "
+        f"against {olmoe[0]['unsharded_aux']:.6f}; {len(grads)} gradient leaves, worst {worst[0]} "
+        f"{worst[1]:.3e} (limit {RANKS_TRAIN_BF16_TOL:g}); control, rank 1's experts shifted "
+        f"by one: worst leaf {ctl_worst[0]} {ctl_worst[1]:.3e}")
+    assert ce < RANKS_TRAIN_BF16_TOL and worst[1] < RANKS_TRAIN_BF16_TOL, gates["(d)"]
+    assert ctl_worst[1] > RANKS_TRAIN_BF16_TOL, ctl_worst
+    return gates
+
+
 def run_ranks_phase(torch, smi, device="cuda"):
-    """Phase 34: the sharded MoE bodies and the sharded dense wave on 4
-    spawned gloo ranks sharing the one card (see ``ranks_moe`` and
-    ``ranks_wave``).  Returns (the gmm launches of the main path's runs,
-    summed over the ranks, and the phase's row)."""
-    import multiprocessing as mp
+    """Phase 34: the sharded MoE bodies, the sharded dense wave and two
+    models' train steps on DTensors, on 4 ranks (forked from the preloaded
+    forkserver) sharing the one
+    card (see ``ranks_moe``, ``ranks_wave``, ``ranks_qwen_train`` and
+    ``ranks_olmoe_train``).  Returns (the kernel launches of the main
+    path's runs, summed over the ranks, and the phase's row)."""
     import pickle
 
-    say(f"PHASE 34 sharded bodies: {RANKS_WORLD} gloo ranks on the one card; {OLMOE_ARCH}'s MoE "
-        f"layer on a {RANKS_MOE_MESH[0]} x {RANKS_MOE_MESH[1]} (data, model) mesh through the EP, "
-        f"resident and gather bodies; phase 23's CNN wave of {RANKS_WAVE_CLIENTS} clients over "
-        f"a (data,) mesh against the same wave unsharded")
+    say(f"PHASE 34 sharded bodies and train steps: {RANKS_WORLD} ranks on the one card; "
+        f"{OLMOE_ARCH}'s MoE layer on a {RANKS_MOE_MESH[0]} x {RANKS_MOE_MESH[1]} (data, model) "
+        f"mesh through the EP, resident and gather bodies; phase 23's CNN wave of "
+        f"{RANKS_WAVE_CLIENTS} clients over a (data,) mesh against the same wave unsharded; "
+        f"{SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) and {OLMOE_ARCH} ({RANKS_OLMOE_LAYERS} "
+        f"layers) trained on DTensors against the unsharded steps")
     say(f"  card: {smi}")
     t_phase = time.perf_counter()
-    ctx = mp.get_context("spawn")
+    ctx = preloaded_context()
     with tempfile.TemporaryDirectory() as directory:
         t_spawn = time.time()
         procs = [ctx.Process(target=ranks_worker, args=(r, directory, t_spawn, device))
@@ -5926,10 +6317,47 @@ def run_ranks_phase(torch, smi, device="cuda"):
             f"{w['gap'][0]:.3e} (max abs {w['gap'][1]:.3e}); clients shifted by one "
             f"{w['control'][0]:.3e} (limit relative {limit:g})")
         assert w["gap"][0] < limit < w["control"][0], (setting, w)
-    launches = {"gmm": sum(r["gmm_launches"] for r in moe_rows)}
+    train = train_gates(ranks, "  ")
+    parts = {"(c) bfloat16": [r["qwen"]["bfloat16 counts"] for r in ranks],
+             "(c) float32": [r["qwen"]["float32 counts"] for r in ranks],
+             "(d)": [r["olmoe"]["counts"] for r in ranks]}
+    for r, row in enumerate(ranks):
+        q, o = row["qwen"], row["olmoe"]
+        say(f"  (c) rank {r}: walls s " + ", ".join(f"{k} {v:.3f}" for k, v in q["walls"].items())
+            + f"; flash launches by path bf16 {q['bfloat16 counts']['flash']}, f32 "
+            f"{q['float32 counts']['flash']}; bytes staged through the host bf16 "
+            f"{q['bfloat16 counts']['staged_bytes']}, f32 {q['float32 counts']['staged_bytes']}")
+        say(f"  (d) rank {r}: walls s " + ", ".join(f"{k} {v:.3f}" for k, v in o["walls"].items())
+            + f"; gmm {o['counts']['gmm']}, tgmm {o['counts']['tgmm']} by path "
+            f"{o['counts']['tgmm_paths']}, flash {o['counts']['flash']}; bytes staged "
+            f"{o['counts']['staged_bytes']}; plain calls (c) and (d) {row['plain_calls']}")
+        if device == "cuda":   # every product and attention on a kernel, none on a plain version
+            assert row["backend"] == "staged_gloo", row["backend"]
+            assert not row["plain_calls"], (r, row["plain_calls"])
+            assert q["bfloat16 counts"]["flash"]["wgmma"] > 0, q["bfloat16 counts"]
+            assert q["bfloat16 counts"]["flash"]["bwd_wgmma"] > 0, q["bfloat16 counts"]
+            assert q["float32 counts"]["flash"]["bwd_ffma"] > 0, q["float32 counts"]
+            assert o["counts"]["gmm"] > 0 and o["counts"]["tgmm"] > 0, o["counts"]
+            assert o["counts"]["flash"]["bwd_wgmma"] > 0, o["counts"]
+    launches = {"gmm": sum(r["gmm_launches"] for r in moe_rows) + sum(c["gmm"] for c in
+                                                                      parts["(d)"]),
+                "gmm (a)": sum(r["gmm_launches"] for r in moe_rows),
+                "gmm (d)": sum(c["gmm"] for c in parts["(d)"]),
+                "tgmm (d)": sum(c["tgmm"] for c in parts["(d)"]),
+                "tgmm (d) by path": {k: sum(c["tgmm_paths"][k] for c in parts["(d)"])
+                                     for k in parts["(d)"][0]["tgmm_paths"]},
+                "flash": {part: {k: sum(c["flash"][k] for c in counts) for k in counts[0]["flash"]}
+                          for part, counts in parts.items()}}
     say(f"  phase 34 {phase_s:.1f} s (ranks: moe " + ", ".join(f"{r['moe_s']:.1f}" for r in ranks)
-        + ", wave " + ", ".join(f"{r['wave_s']:.1f}" for r in ranks) + " s)")
+        + ", wave " + ", ".join(f"{r['wave_s']:.1f}" for r in ranks)
+        + ", (c) " + ", ".join(f"{r['qwen_s']:.1f}" for r in ranks)
+        + ", (d) " + ", ".join(f"{r['olmoe_s']:.1f}" for r in ranks) + " s)")
     return launches, {
+        "train": train, "qwen_s": [r["qwen_s"] for r in ranks],
+        "olmoe_s": [r["olmoe_s"] for r in ranks],
+        "train_walls_by_rank": [{"(c)": r["qwen"]["walls"], "(d)": r["olmoe"]["walls"]}
+                                for r in ranks],
+        "train_counts_by_rank": {part: counts for part, counts in parts.items()},
         "card": smi, "phase_s": phase_s, "ready_s": [r["ready_s"] for r in ranks],
         "moe_s": [r["moe_s"] for r in ranks], "wave_s": [r["wave_s"] for r in ranks],
         "walls_by_rank": [r["walls"] for r in moe_rows], "gates": gates,
@@ -6318,6 +6746,12 @@ def main() -> int:
                     for key, r in train_rows.items() if r["kernel"] == "tgmm"},
     })
     ranks_key = f"{OLMOE_ARCH} MoE layer on {RANKS_WORLD} ranks (phase 34), summed over the ranks"
+    ranks_train_key = (f"{OLMOE_ARCH} ({RANKS_OLMOE_LAYERS} layers) train step on DTensors, "
+                       f"{RANKS_WORLD} ranks (phase 34 (d)), summed over the ranks")
+    kernels[1]["launches"] += ranks_launches["tgmm (d)"]
+    kernels[1]["launches_by_path"][ranks_train_key] = ranks_launches["tgmm (d)"]
+    for p, n in ranks_launches["tgmm (d) by path"].items():
+        kernels[1]["launches_by_kernel_path"][p] += n
     kernels[0].update({
         "launches": (launches["gmm"] + olmoe_launches["gmm"] + option_launches["gmm"]
                      + fabric_launches["gmm"] + train_launches["gmm"] + ranks_launches["gmm"]),
@@ -6328,7 +6762,8 @@ def main() -> int:
                              "femnist-mlp multihost (server process)":
                                  multihost_launches["gmm"],
                              train_key: train_launches["gmm"],
-                             ranks_key: ranks_launches["gmm"]},
+                             ranks_key: ranks_launches["gmm (a)"],
+                             ranks_train_key: ranks_launches["gmm (d)"]},
         "launches_by_rank_and_path": {ranks_key: ranks_row["gmm_paths_by_rank"]},
         "path": rows[0]["path"], "wrapper_ms": rows[0]["wrapper_ms"],
         OLMOE_ARCH: {f"{name}, {prod}": {k: r[k] for k in (*timing_keys, "path", "wrapper_ms")}
@@ -6347,6 +6782,16 @@ def main() -> int:
                                        "flash_attention_by_path": paths}
                    for k, (counts, paths) in bwd_runs.items()}
     lru_train = {f"{k} (phase 32)": (counts, paths) for k, (counts, paths) in lru_bwd_runs.items()}
+    # phase 34 (c) and (d): the train steps on DTensors, every rank's launches summed
+    ranks_parts = {f"{SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) on {RANKS_WORLD} ranks, "
+                   f"{part[4:]} (phase 34 (c))" if part.startswith("(c)") else
+                   f"{ranks_train_key}": paths
+                   for part, paths in ranks_launches["flash"].items()}
+    flash_train.update({k: {"flash_attention": sum(paths[p] for p in fa_ops.PATHS),
+                            "flash_attention_by_path": {p: paths[p] for p in fa_ops.PATHS}}
+                        for k, paths in ranks_parts.items()})
+    ranks_bwd = {k: ({}, {p: paths[p] for p in fa_ops.BWD_PATHS})
+                 for k, paths in ranks_parts.items()}
     flash_train.update({k: {"flash_attention": counts["flash_attention"],
                             "flash_attention_by_path": paths}
                         for k, (counts, paths) in lru_train.items()})
@@ -6372,7 +6817,7 @@ def main() -> int:
     })
     bwd_keys = (*timing_keys, "gflop", "issued_gflop", "io_mb", "tflops_issued", "shape")
     bwd_calls = {**{f"{k} (phase 30)": (counts, paths) for k, (counts, paths) in bwd_runs.items()},
-                 **lru_train}
+                 **lru_train, **ranks_bwd}
     for path, source, row in (("bwd_wgmma", FLASH_BWD_WGMMA_SOURCE, bwd_rows[TRAIN_ATTN_SHAPE]),
                               ("bwd_ffma", FLASH_BWD_SOURCE, bwd_rows["bwd_ffma"])):
         entry = {
@@ -6381,10 +6826,11 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention/ops.py:43",
             "launches": sum(paths[path] for _, paths in bwd_calls.values()),
             "launches_by_path": {k: paths[path] for k, (_, paths) in bwd_calls.items()},
-            "launches_note": "backward calls on this path in phases 30 and 32's training runs "
-                             "(bf16 on bwd_wgmma, the f32 twin on bwd_ffma), a launch each of "
-                             "preprocess, dK/dV and dQ (bwd_wgmma: and of the split reduce "
-                             "where the heads are split); 0 in phases 1-29",
+            "launches_note": "backward calls on this path in phases 30, 32 and 34's training "
+                             "runs (bf16 on bwd_wgmma, the f32 twins and phase 34 (c)'s f32 "
+                             "steps on bwd_ffma), a launch each of preprocess, dK/dV and dQ "
+                             "(bwd_wgmma: and of the split reduce where the heads are split); "
+                             "0 in phases 1-29",
             "path": path, "dtype": "bfloat16",
             "max_abs_err": bwd_errs[f"bfloat16 {path}"]["max_abs_err"],
             "max_err_by_dtype": {k: v for k, v in bwd_errs.items() if k.endswith(path)},

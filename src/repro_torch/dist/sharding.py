@@ -161,6 +161,42 @@ def tree_shardings(axes_tree: Any, mesh, rules: Rules) -> Any:
     return tree_map(one, axes_tree, is_leaf=_is_axes_leaf)
 
 
+def distribute(tree: Any, shardings: Any) -> Any:
+    """The port's ``jax.device_put(tree, shardings)``: every tensor of
+    ``tree`` placed as a DTensor under the ``NamedSharding`` of
+    ``shardings`` at its place (``tree_shardings``' output; one sharding
+    may stand for a whole subtree, as a JAX prefix does).  Every rank holds
+    the same full tensor, as every JAX process holds the same host array,
+    and keeps its own shard of it: nothing is sent (``src_data_rank=None``).
+    A tensor that is already a DTensor is moved to the placements."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(sh, sub):
+        def one(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            if isinstance(t, DTensor):
+                return t.redistribute(sh.mesh, sh.placements)
+            return distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
+
+        return tree_map(one, sub)
+
+    return tree_map(place, shardings, tree, is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def batch_shardings(batch: Any, mesh, rules: Rules) -> Any:
+    """A ``NamedSharding`` for each array of a batch: its leading dim over
+    the rules' ``act_batch``, the rest replicated (the reference's dry run
+    places a batch by ``_BATCH_AXES``, ``("act_batch", None, ...)``)."""
+    def one(t):
+        axes = ("act_batch",) + (None,) * (t.dim() - 1) if t.dim() else ()
+        spec = spec_for(axes, rules)
+        return NamedSharding(mesh, spec, spec_to_placements(spec, mesh))
+
+    return tree_map(one, batch)
+
+
 # --------------------------------------------------------------------------
 # Context: mesh + rules active while the model runs
 # --------------------------------------------------------------------------
@@ -213,13 +249,57 @@ def current_context() -> Optional[ShardingContext]:
 
 @contextmanager
 def logical_sharding(mesh, rules: Rules):
-    """Activate ``rules`` on ``mesh`` for ``with_logical_constraint``."""
+    """Activate ``rules`` on ``mesh`` for ``with_logical_constraint``.  On
+    a mesh of more than one device the block also runs under DTensor's
+    ``implicit_replication``: a plain tensor the model makes inside a step
+    (positions, masks, RoPE tables, zeros) meets the DTensors as a
+    replicated one, as a constant does inside ``jax.jit``.  A plain
+    *input* still raises (``require_distributed``)."""
+    import contextlib
+
     ctx = ShardingContext(mesh, rules)
+    replicate = contextlib.nullcontext()
+    if ctx.n_devices > 1:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        replicate = implicit_replication()
+    _stack().append(ctx)
+    try:
+        with replicate:
+            yield ctx
+    finally:
+        _stack().pop()
+
+
+@contextmanager
+def use_context(ctx: Optional[ShardingContext]):
+    """``ctx`` (a context ``logical_sharding`` made, or None) active on this
+    thread inside the block.  The stack is thread-local, and on the card
+    autograd runs a backward on a device thread of its own: remat's
+    recomputation re-enters the forward's context through this
+    (``models.lm.maybe_remat``)."""
+    if ctx is None:
+        yield None
+        return
     _stack().append(ctx)
     try:
         yield ctx
     finally:
         _stack().pop()
+
+
+def require_distributed(what: str, *tensors) -> None:
+    """``TypeError`` where a step's input is a plain tensor inside a
+    context on a mesh of more than one device (``implicit_replication``
+    would take it as replicated: a batch that was never placed)."""
+    ctx = current_context()
+    if ctx is None or ctx.n_devices == 1:
+        return
+    for t in tensors:
+        if t is not None and not isinstance(t, ctx._dtensor):
+            raise TypeError(
+                f"{what} got a plain {type(t).__name__} of shape {tuple(t.shape)} on a mesh "
+                f"of {ctx.n_devices} devices: distribute it first")
 
 
 def with_logical_constraint(x, *axes: Optional[str]):
@@ -250,6 +330,22 @@ def _shape_safe(spec: PartitionSpec, shape: Tuple[int, ...],
         n = entry_shards(entry, sizes)
         out.append(entry if n > 1 and dim % n == 0 else None)
     return P(*out)
+
+
+def is_dtensor(*tensors) -> bool:
+    """Whether any of ``tensors`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """``TypeError`` where a kernel wrapper that takes no DTensor yet is
+    handed one, before it reads any ``data_ptr()``: the SSM and RG-LRU
+    scans and the int8 decode on sharded operands are ROADMAP queue 1 row
+    9b-iii."""
+    if is_dtensor(*tensors):
+        raise TypeError(f"{what} takes no DTensor: sharded {what} is ROADMAP queue 1 row 9b-iii")
 
 
 # --------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from typing import Dict, Mapping
 
 import torch
 
+from repro_torch.dist.sharding import refuse_dtensor
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import decode_ref
 
@@ -149,6 +150,7 @@ def flash_decode_int8(
     over all S slots.  On a CUDA tensor the kernel computes that mean too:
     the wrapper launches it over all S slots with a zero query, whose
     scores are all equal, so its weights are the same uniform weights."""
+    refuse_dtensor("flash_decode_int8", q, k_q, v_q, k_scale, v_scale)
     s = k_q.shape[2]
     if s < 1:
         raise ValueError("flash_decode_int8: the cache holds no position")

@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels import vector_rows
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import ref
@@ -474,6 +475,58 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk if need_k else None, dv if need_v else None, None, None, None
 
 
+def _summed(t):
+    """``t`` with each pending partial sum reduced: onto the batch dim
+    (``Shard(0)``, a reduce-scatter) where no other mesh dim splits the
+    batch and the batch divides, else replicated.  DTensor's sharding
+    propagation may leave a projection's output partial over a mesh dim
+    whose contraction it split (torch 2.11 left qwen's q partial over
+    "data" in a train step's forward); attention needs whole scores."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = list(t.placements)
+    if not any(p.is_partial() for p in placements):
+        return t
+    for i, p in enumerate(placements):
+        if p.is_partial():
+            free = not any(o.is_shard(0) for o in placements)
+            placements[i] = (Shard(0) if free and t.shape[0] % t.device_mesh.size(i) == 0
+                             else Replicate())
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _on_local_shards(q, k, v, *, causal: bool, window: Optional[int],
+                     path: Optional[str]):
+    """Flash of DTensor q, k, v on each rank's local shards: batch over
+    the batch axes and heads over "model" split attention into independent
+    pieces, so each rank runs ``flash_attention`` (the kernel on the card,
+    forward and backward) on its ``to_local()`` shards, differentiably, and
+    the output comes back with q's placements.  No head is gathered.  q, k
+    and v sharded on the sequence or on the head dim (the GQA fallback's
+    ``rules["head"]``), or placed unlike each other, are ROADMAP queue 1
+    row 9b-iii."""
+    from torch.distributed.tensor import DTensor
+
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention got DTensor and plain operands together: "
+                        "distribute every operand")
+    q, k, v = (_summed(t) for t in (q, k, v))
+    placements = tuple(q.placements)
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.placements) != placements or t.device_mesh != q.device_mesh:
+            raise NotImplementedError(
+                f"flash_attention on DTensors placed {placements} for q and "
+                f"{tuple(t.placements)} for {name}: ROADMAP queue 1 row 9b-iii")
+    for p in placements:
+        if p.is_shard() and p.dim % q.dim() not in (0, 2):
+            raise NotImplementedError(
+                f"flash_attention on q placed {placements} (sequence or head dim): "
+                f"ROADMAP queue 1 row 9b-iii")
+    o = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal=causal,
+                        window=window, path=path)
+    return DTensor.from_local(o, q.device_mesh, placements, run_check=False)
+
+
 def flash_attention(
     q: torch.Tensor,   # (B, Sq, Hq, D)
     k: torch.Tensor,   # (B, Skv, Hk, D)
@@ -489,8 +542,11 @@ def flash_attention(
     of ``PATHS`` for the forward on the card (every path computes the same
     function; tests hold each); it raises where that path does not take the
     operands.  Under grad a CUDA call goes through ``FlashAttention``;
-    otherwise it is one forward launch that stores no log-sum-exp."""
+    otherwise it is one forward launch that stores no log-sum-exp.  DTensor
+    operands run on each rank's local shards (``_on_local_shards``)."""
     del q_positions, kv_positions  # contiguous positions assumed, as the reference does
+    if is_dtensor(q, k, v):
+        return _on_local_shards(q, k, v, causal=causal, window=window, path=path)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import refuse_dtensor
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.rglru_scan import ref
 
@@ -259,6 +260,7 @@ def rglru_scan(
     if impl == "associative":
         return ref.rglru_associative(log_a, b)
     if impl == "pallas":
+        refuse_dtensor("rglru_scan", log_a, b)
         if log_a.device.type == b.device.type == "cpu":
             return ref.rglru_associative(log_a, b)
         if torch.is_grad_enabled() and (log_a.requires_grad or b.requires_grad):

@@ -60,6 +60,7 @@ import torch
 
 from repro_torch.kernels import vector_rows
 from repro_torch.kernels.build import load_library
+from repro_torch.dist.sharding import refuse_dtensor
 from repro_torch.kernels.ssd_scan import ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -377,6 +378,7 @@ def ssd(
     if impl == "chunked":
         return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk=chunk)
     if impl == "pallas":
+        refuse_dtensor("ssd_scan", x, dt, a, b_mat, c_mat)
         if all(t.device.type == "cpu" for t in (x, dt, a, b_mat, c_mat)):
             return ref.ssd_chunked(x, dt, a, b_mat, c_mat, chunk=chunk)
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)):

@@ -16,6 +16,37 @@ from repro_torch.device import DeviceLike, resolve_device
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
+def world_backend(device_type: str, world_size: int, ranks_per_device: int = 1) -> str:
+    """The process-group backend of a world, by name: ``gloo`` on the CPU,
+    ``nccl`` for one rank a CUDA device, and ``staged_gloo``
+    (``repro_torch.dist.staged_gloo``: gloo on host copies) for several
+    ranks on one CUDA device, where NCCL refuses to run and gloo, handed
+    CUDA tensors, crashes in DTensor's functional all-gather."""
+    if device_type == "cpu":
+        return "gloo"
+    if device_type != "cuda":
+        raise ValueError(f"no process-group backend for device type {device_type!r}")
+    if ranks_per_device > 1 and world_size > 1:
+        return "staged_gloo"
+    return "nccl"
+
+
+def init_world(rank: int, world_size: int, init_method: str, device_type: str,
+               ranks_per_device: int = 1) -> str:
+    """Start this rank's default process group on the backend
+    ``world_backend`` names (registering ``staged_gloo`` first where it is
+    the one); returns the backend's name.  If it cannot start it raises:
+    nothing falls back to another backend."""
+    backend = world_backend(device_type, world_size, ranks_per_device)
+    if backend == "staged_gloo":
+        from repro_torch.dist import staged_gloo
+
+        staged_gloo.register()
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+    return backend
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
     """The single-pod 16×16 ``("data", "model")`` mesh, or the multi-pod
     2×16×16 ``("pod", "data", "model")`` one, over a world of 256 (512)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import is_dtensor
 
 Params = Dict[str, Any]
 # finite on purpose: the online softmax relies on exp(-1e30 - m) == 0 and on
@@ -458,7 +459,42 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Tuple[Params, Para
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embedding"][tokens].to(_dt(cfg, "compute_dtype"))
+    table = params["embedding"]
+    if is_dtensor(table):
+        return _embed_sharded(table, tokens).to(_dt(cfg, "compute_dtype"))
+    return table[tokens].to(_dt(cfg, "compute_dtype"))
+
+
+def _embed_sharded(table, tokens):
+    """``table[tokens]`` for a DTensor table, vocab-parallel under
+    ``shard_map``: each rank looks up the tokens its block of the
+    vocabulary holds, zeros the rest, and the rows are summed over the
+    vocabulary's shards (one holds each token).  The gradient scatters into
+    each rank's own block; no rank gathers the table's vocabulary."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist import shard_map as SM
+    from repro_torch.dist.sharding import P
+
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    v_axes = tuple(n for n, p in zip(names, table.placements) if p.is_shard(0))
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    b_axes = tuple(n for n, p in zip(names, tokens.placements) if p.is_shard(0))
+
+    def body(tab, tok):
+        v_loc = tab.shape[0]
+        idx = tok.long() - (SM.flat_index(v_axes) * v_loc if v_axes else 0)
+        held = (idx >= 0) & (idx < v_loc)
+        rows = F.embedding(idx.clamp(0, v_loc - 1), tab)
+        rows = torch.where(held[..., None], rows, torch.zeros_like(rows))
+        return SM.psum(rows, v_axes) if v_axes else rows
+
+    spec = P(b_axes or None, *([None] * (tokens.dim() - 1)))
+    fn = SM.shard_map(body, mesh, in_specs=(P(v_axes or None, None), spec),
+                      out_specs=P(*spec, None))
+    return fn(table, tokens)
 
 
 def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -39,7 +39,13 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.sharding import with_logical_constraint
+from repro_torch.dist.sharding import (
+    current_context,
+    is_dtensor,
+    require_distributed,
+    use_context,
+    with_logical_constraint,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import block_apply, block_cache, init_block
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -68,7 +74,9 @@ def maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
     and ``addmm``, which are kept (the reference's
     ``dots_with_no_batch_dims_saveable`` keeps only the unbatched dots; what
     is kept moves memory and time, never the gradients).  Without grad mode
-    nothing is saved for a backward, so ``fn`` runs as it is."""
+    nothing is saved for a backward, so ``fn`` runs as it is.  The
+    recomputation runs inside the ``logical_sharding`` context of the
+    forward, on whatever thread autograd runs it."""
     if cfg.remat == "none":
         return fn
     kw = {}
@@ -78,7 +86,13 @@ def maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        ctx = current_context()
+
+        def in_context(*a):   # the recomputation may run on autograd's device thread
+            with use_context(ctx):
+                return fn(*a)
+
+        return checkpoint(in_context, *args, use_reentrant=False, **kw)
 
     return run
 
@@ -141,7 +155,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig,
 
 def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token embeddings, after the projected ``prefix_embeds`` (B, N, D) if given."""
+    """Token embeddings, after the projected ``prefix_embeds`` (B, N, D) if
+    given.  Inside a context on a mesh of more than one device the tokens
+    (and the prefix) must be DTensors."""
+    require_distributed("embed_inputs", tokens, prefix_embeds)
     x = L.embed(params["tok"], tokens, cfg)
     if prefix_embeds is not None:
         cd = L._dt(cfg, "compute_dtype")
@@ -264,7 +281,10 @@ def chunked_ce(
 
     def ce_chunk(h, t, m):
         logits = L.logits_from_hidden(params["tok"], h, cfg)
-        logits = with_logical_constraint(logits, "act_batch", None, "vocab").float()
+        logits = with_logical_constraint(logits, "act_batch", None, "vocab")
+        if is_dtensor(logits):
+            return _ce_sharded(logits, t, m)
+        logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         tgt = torch.take_along_dim(logits, t[..., None].long(), dim=-1)[..., 0]
         return torch.sum((logz - tgt) * m), torch.sum(m)
@@ -278,6 +298,53 @@ def chunked_ce(
                               mask[:, c0:c0 + chunk])
         tot, cnt = tot + lsum, cnt + lcnt
     return tot, cnt
+
+
+def _ce_sharded(logits, targets, mask):
+    """``ce_chunk``'s sums on DTensor logits (B, S, V), vocab-parallel:
+    under ``shard_map`` each rank holds its rows and its block of the
+    vocabulary; the log-sum-exp takes the max and the sum of exponentials
+    over the vocabulary's shards, the target's logit comes from the one
+    shard that holds it, and the two sums over the batch's shards.  No
+    rank gathers a vocabulary row."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist import shard_map as SM
+    from repro_torch.dist.sharding import P
+
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    by_dim = {0: [], 2: []}
+    for name, p in zip(names, logits.placements):
+        if p.is_shard() and p.dim in by_dim:
+            by_dim[p.dim].append(name)
+    b_axes, v_axes = tuple(by_dim[0]), tuple(by_dim[2])
+
+    def placed(t):
+        if isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    def body(lg, tg, mk):
+        lg = lg.float()
+        v_loc = lg.shape[-1]
+        mx = SM.pmax(lg.amax(-1), v_axes) if v_axes else lg.amax(-1).detach()
+        se = torch.exp(lg - mx[..., None]).sum(-1)
+        logz = mx + torch.log(SM.psum(se, v_axes) if v_axes else se)
+        idx = tg.long() - (SM.flat_index(v_axes) * v_loc if v_axes else 0)
+        held = (idx >= 0) & (idx < v_loc)
+        tl = torch.gather(lg, -1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
+        tl = torch.where(held, tl, torch.zeros_like(tl))
+        tgt = SM.psum(tl, v_axes) if v_axes else tl
+        tot, cnt = torch.sum((logz - tgt) * mk), torch.sum(mk)
+        if b_axes:
+            tot, cnt = SM.psum(tot, b_axes), SM.psum(cnt, b_axes)
+        return tot, cnt
+
+    row = P(b_axes or None, None)
+    fn = SM.shard_map(body, mesh, in_specs=(P(b_axes or None, None, v_axes or None), row, row),
+                      out_specs=(P(), P()))
+    return fn(logits, placed(targets), placed(mask))
 
 
 def next_token_targets(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -143,19 +143,34 @@ def value_and_grad(loss_fn: Callable, params, batch):
     """((loss, metrics), grads) of ``loss_fn(params, batch) -> (loss,
     metrics)``, as ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them:
     ``grads`` is a tree like ``params``, zeros where the loss does not
-    reach a leaf; ``loss`` and ``metrics`` are detached."""
+    reach a leaf; ``loss`` and ``metrics`` are detached.  A DTensor leaf's
+    gradient comes back under the leaf's own placements (a partial sum
+    reduced, as ``jax.jit`` hands a gradient the parameter's sharding)."""
     live = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, live), batch)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else _placed_like(g, p)
                                     for p, g in zip(live, grads)])
     return tree_map(torch.Tensor.detach, (loss, metrics)), grads
+
+
+def _placed_like(g, p):
+    """``g`` under ``p``'s placements where both are DTensors."""
+    placements = getattr(p, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(p.device_mesh, placements)
 
 
 def make_train_step(cfg: ModelConfig):
     """Returns (train_step, optimizer).  train_step: (params, opt_state,
     batch) -> (params, opt_state, metrics{ce, aux, tokens, loss,
-    grad_norm}), new trees: the inputs are left as they were."""
+    grad_norm}), new trees: the inputs are left as they were.  Inside a
+    ``logical_sharding`` context on a mesh of several devices the trees are
+    DTensors (``repro_torch.dist.sharding.distribute``) and so is every
+    output, under its input's placements, as the reference's
+    ``jax.jit(train_step, in_shardings=..., out_shardings=(params_sh,
+    opt_sh, None))`` gives them."""
     fns = model_fns(cfg)
     opt = make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.weight_decay)
 

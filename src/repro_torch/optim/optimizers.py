@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import _is_axes_leaf
+from repro_torch.dist.sharding import _is_axes_leaf, is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -46,8 +46,36 @@ def _as_schedule(lr) -> Schedule:
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(l.float())) for l in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The L2 norm of every leaf together.  On DTensor leaves it is one
+    reduction across the shards: each rank sums the squares of its local
+    shards, a leaf replicated over mesh dims counted once (its sum divided
+    by their size), and one all-reduce of that scalar gives every rank the
+    same norm, a replicated DTensor."""
+    leaves = tree_leaves(tree)
+    if leaves and is_dtensor(*leaves):
+        return _sharded_norm(leaves)
+    sq = [torch.sum(torch.square(l.float())) for l in leaves]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _sharded_norm(leaves) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.shard_map import mesh_sum
+
+    mesh = next(l.device_mesh for l in leaves if isinstance(l, DTensor))
+    total = None
+    for leaf in leaves:
+        if not isinstance(leaf, DTensor) or leaf.device_mesh != mesh:
+            raise TypeError("global_norm of DTensors takes one mesh and no plain leaf")
+        copies = 1
+        for i, p in enumerate(leaf.placements):
+            if p.is_replicate():
+                copies *= mesh.size(i)
+        sq = torch.sum(torch.square(leaf.to_local().float())) / copies
+        total = sq if total is None else total + sq
+    return DTensor.from_local(torch.sqrt(mesh_sum(mesh, total)), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float) -> Tuple[PyTree, torch.Tensor]:
@@ -57,9 +85,17 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> Tuple[PyTree, torch.T
 
 
 def _step0(params: PyTree) -> torch.Tensor:
-    """The int32 step counter, on the parameters' device."""
-    dev = next((l.device for l in tree_leaves(params) if isinstance(l, torch.Tensor)), None)
-    return torch.zeros((), dtype=torch.int32, device=dev)
+    """The int32 step counter, on the parameters' device: a replicated
+    DTensor where the parameters are DTensors."""
+    leaves = [l for l in tree_leaves(params) if isinstance(l, torch.Tensor)]
+    dev = leaves[0].device if leaves else None
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if leaves and is_dtensor(leaves[0]):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = leaves[0].device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return step
 
 
 def _zeros32(params: PyTree) -> PyTree:

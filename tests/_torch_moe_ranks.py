@@ -8,12 +8,16 @@ lives in the pytest process:
 ``ref`` runs the reference's ``moe_ffn`` for every case of ``CASES`` on a
 ``(data, model)`` mesh of the 4 devices and pickles each device's shard of
 the output and of the aux loss, with the numpy params and tokens it used.
-``port`` gives each of 4 gloo ranks the same params (placed by
-``tree_shardings`` under ``default_rules``) and tokens (split over the
-batch axes) as DTensors, runs the port's ``moe_ffn`` and pickles each
-rank's ``to_local()`` of both, which body ran, whether the params' rules
-placed them where the body's in-specs want them, and the errors that a
-plain tensor and a grad-requiring one raise.  Only ``ref`` imports JAX;
+``ref`` also takes ``jax.grad`` of ``sum(y * cot) + aux / 2`` (``cot`` a
+fixed normal cotangent) with respect to the params and the tokens through
+the sharded layer, and of ``sum(y * cot)`` through the sharded and the
+unsharded layer.  ``port`` gives each of 4 gloo ranks the same params
+(placed by ``tree_shardings`` under ``default_rules``) and tokens (split
+over the batch axes) as DTensors, runs the port's ``moe_ffn`` and pickles
+each rank's ``to_local()`` of both, which body ran, whether the params'
+rules placed them where the body's in-specs want them, the error that a
+plain tensor raises, and the gradients of the same loss through
+``torch.autograd`` (each gathered whole, with its placements).  Only ``ref`` imports JAX;
 every world ends with a ``barrier()`` before its process group is destroyed.
 """
 import os
@@ -69,10 +73,17 @@ def inputs(seed, seq):
         size=(BATCH, seq, LAYER["d_model"])).astype(np.float32)
 
 
+def cotangent(seed, shape):
+    import numpy as np
+
+    return np.random.default_rng(100 + seed).normal(size=shape).astype(np.float32)
+
+
 def run_ref(out_dir):
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
+    import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh
 
@@ -94,8 +105,21 @@ def run_ref(out_dir):
         y, aux = jax.jit(lambda p, t, _c=cfg, _m=mesh, _r=resident: moe_ffn(
             p, t, _c, mesh=_m, resident=_r))(host, x)
         local, _ = moe_ffn(host, x, cfg)
+        cot = cotangent(i, x.shape)
+
+        def loss(p, t, m, with_aux, _c=cfg, _r=resident, _cot=cot):
+            y_, aux_ = moe_ffn(p, t, _c, mesh=m, resident=_r)
+            total = jnp.sum(y_.astype(jnp.float32) * _cot)
+            return total + 0.5 * aux_ if with_aux else total
+
+        grads = {}
+        for key, m, with_aux in (("sharded", mesh, True), ("sharded_y", mesh, False),
+                                 ("local_y", None, False)):
+            g = jax.jit(jax.grad(lambda p, t, _m=m, _a=with_aux: loss(p, t, _m, _a),
+                                 argnums=(0, 1)))(host, x)
+            grads[key] = {**{k: np.asarray(v) for k, v in g[0].items()}, "x": np.asarray(g[1])}
         out[name] = {
-            "params": host, "x": x, "local": np.asarray(local),
+            "params": host, "x": x, "local": np.asarray(local), "cot": cot, "grads": grads,
             "shards": {s.device.id: np.asarray(s.data) for s in y.addressable_shards},
             "aux": {s.device.id: float(s.data) for s in aux.addressable_shards}}
     with open(os.path.join(out_dir, "ref.pkl"), "wb") as f:
@@ -172,22 +196,39 @@ def port_rank(rank, out_dir):
             "placements": repr(tuple(y.placements)), "global_shape": tuple(y.shape),
             "bodies": [names[b] for b in bodies], "params_in_place": in_place,
             "collective_bytes": {k: SM.COLLECTIVE_BYTES[k] - before[k] for k in before}}
-        if name == CASES[0][0]:   # the refusals, on the 2 x 2 mesh
+        out["cases"][name]["grads"] = port_grads(torch, mesh, params, x, want["cot"], cfg,
+                                                 resident)
+        if name == CASES[0][0]:   # the refusal, on the 2 x 2 mesh
             try:
                 MOE.moe_ffn(params, torch.from_numpy(want["x"]), cfg, mesh=mesh)
                 out["errors"]["plain"] = None
             except TypeError as e:
                 out["errors"]["plain"] = "TypeError: " + str(e)
-            xg = x.detach().clone().requires_grad_()
-            try:
-                MOE.moe_ffn(params, xg, cfg, mesh=mesh)
-                out["errors"]["grad"] = None
-            except NotImplementedError as e:
-                out["errors"]["grad"] = "NotImplementedError: " + str(e)
     out["collectives"] = collectives(torch, rank, meshes[(2, 2)])
     with open(os.path.join(out_dir, f"port{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     _end_world()
+
+
+def port_grads(torch, mesh, params, x, cot, cfg, resident):
+    """Gradients of ``sum(y * cot) + aux / 2`` with respect to the params
+    and the tokens, each gathered whole, and whether each kept its input's
+    placements."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import moe as MOE
+
+    live = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xg = x.detach().requires_grad_()
+    y, aux = MOE.moe_ffn(live, xg, cfg, mesh=mesh, resident=resident)
+    c = distribute_tensor(torch.from_numpy(cot), mesh, x.placements, src_data_rank=None)
+    loss = (y.float() * c).sum() + 0.5 * aux
+    got = torch.autograd.grad(loss, [*live.values(), xg])
+    names = [*live, "x"]
+    inputs = [*live.values(), xg]
+    return {"full": {k: g.full_tensor().numpy() for k, g in zip(names, got)},
+            "placements_kept": {k: tuple(g.placements) == tuple(t.placements)
+                                for k, g, t in zip(names, got, inputs)}}
 
 
 def collectives(torch, rank, mesh):

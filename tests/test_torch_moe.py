@@ -144,11 +144,10 @@ class _Mesh:
 
 
 def test_moe_ffn_refuses_a_mesh_of_more_than_one_device():
-    """A mesh of one device runs the local path.  On a larger one the
-    sharded body refuses, before any collective, a plain tensor
-    (``TypeError``: it was never distributed) and, in grad mode, an input
-    that requires grad (``NotImplementedError``: the bodies are forward
-    only, ROADMAP queue 1 row 9b-ii).  The bodies themselves run on gloo
+    """A mesh of one device runs the local path, gradients included.  On a
+    larger one the sharded body refuses, before any collective, a plain
+    tensor (``TypeError``: it was never distributed), one that requires
+    grad too.  The bodies themselves, and their gradients, run on gloo
     ranks in ``tests/test_torch_moe_sharded.py``."""
     _, cfg = _cfgs("float32")
     host, x = _inputs(ref_registry.get_config(ARCH, reduced=True), 1, 4)
@@ -161,7 +160,16 @@ def test_moe_ffn_refuses_a_mesh_of_more_than_one_device():
         for impl in ("gather", "ep"):
             with pytest.raises(TypeError, match="distribute it first"):
                 moe.moe_ffn(params, xt, cfg.replace(moe_impl=impl), mesh=_Mesh((2, 2)))
-    with pytest.raises(NotImplementedError, match="row 9b-ii"):
+    grads = []
+    for mesh in (_Mesh((1, 1)), None):
+        live = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        xg = xt.clone().requires_grad_()
+        y, aux = moe.moe_ffn(live, xg, cfg, mesh=mesh)
+        grads.append(torch.autograd.grad(y.sum() + aux, [*live.values(), xg]))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all() and float(a.abs().max()) > 0
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(TypeError, match="distribute it first"):
         moe.moe_ffn(params, xt.clone().requires_grad_(), cfg, mesh=_Mesh((2, 2)))
     with pytest.raises(ValueError):
         moe.moe_ffn(params, xt, cfg, gmm_impl="megablocks")

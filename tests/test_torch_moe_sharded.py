@@ -15,8 +15,15 @@ enough to drop rows.  Tolerances are the reference's: f32 2e-5, bf16 2e-2;
 the aux loss within 2e-5.  The params are placed by ``tree_shardings``
 under ``default_rules``; under EP on the 2 × 2 mesh those are the body's
 in-specs, so the redistribution is a no-op (asserted).  A plain tensor on
-the mesh raises ``TypeError`` and a grad-requiring one
-``NotImplementedError`` (row 9b-ii).
+the mesh raises ``TypeError``.
+
+Gradients: the router's, the experts' and the tokens' gradients of
+``sum(y * cot) + aux / 2`` through ``torch.autograd`` are held against
+``jax.grad`` through the reference's sharded layer (f32 1e-4, bf16 a
+relative norm of 2e-2), and keep their inputs' placements.  The
+reference's own sharded gradient of ``sum(y * cot)`` is held against its
+unsharded one where the body drops no row: JAX's unchecked transposes
+give the global gradient there.
 """
 import os
 import pathlib
@@ -35,6 +42,8 @@ import _torch_moe_ranks as W  # noqa: E402
 TIMEOUT = 300
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+GRADS = dict(rtol=1e-4, atol=1e-4)
+BF16_GRAD_REL = 2e-2
 
 
 def _run(mode, directory):
@@ -101,12 +110,57 @@ def test_rules_place_ep_params_where_the_body_wants_them(worlds):
 
 
 def test_a_plain_or_grad_requiring_input_is_refused(worlds):
+    """A plain tensor is refused; a grad-requiring DTensor is not: it gets
+    its gradient (``test_gradients_match_jax_grad``)."""
     _, ranks = worlds
     for got in ranks:
         assert got["errors"]["plain"].startswith("TypeError"), got["errors"]
         assert "distribute it first" in got["errors"]["plain"]
-        assert got["errors"]["grad"].startswith("NotImplementedError"), got["errors"]
-        assert "row 9b-ii" in got["errors"]["grad"]
+        assert "grad" not in got["errors"]
+        first = got["cases"][W.CASES[0][0]]["grads"]
+        assert all(np.isfinite(g).all() for g in first["full"].values())
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("case", W.CASES, ids=[c[0] for c in W.CASES])
+def test_gradients_match_jax_grad(worlds, case):
+    """Every rank's router, expert and token gradients against
+    ``jax.grad`` through the reference's sharded ``moe_ffn``."""
+    name, _, overrides, _, _ = case
+    ref, ranks = worlds
+    want = ref[name]["grads"]["sharded"]
+    for r, got in enumerate(ranks):
+        grads = got["cases"][name]["grads"]
+        assert all(grads["placements_kept"].values()), (r, grads["placements_kept"])
+        for k, w in want.items():
+            g = grads["full"][k]
+            assert g.shape == w.shape, (k, g.shape, w.shape)
+            assert np.abs(w).max() > 0, k
+            if overrides.get("compute_dtype") == "bfloat16":
+                assert _rel(g, w) < BF16_GRAD_REL, (r, k, _rel(g, w))
+            else:
+                np.testing.assert_allclose(g, w, err_msg=f"rank {r} {k}", **GRADS)
+
+
+@pytest.mark.parametrize("case", [c for c in W.CASES if "drops rows" not in c[0]],
+                         ids=[c[0] for c in W.CASES if "drops rows" not in c[0]])
+def test_reference_sharded_gradient_is_its_unsharded_gradient(worlds, case):
+    """JAX's transposes under ``check_rep=False`` (psum to psum, the output
+    cotangent divided over its replicated axes, a replicated input's
+    cotangent psummed) give the reference's sharded layer the gradient of
+    its unsharded one: no axis-size factor to copy."""
+    name, _, overrides, _, _ = case
+    ref, _ = worlds
+    grads = ref[name]["grads"]
+    for k, w in grads["local_y"].items():
+        g = grads["sharded_y"][k]
+        if overrides.get("compute_dtype") == "bfloat16":
+            assert _rel(g, w) < BF16_GRAD_REL, (k, _rel(g, w))
+        else:
+            np.testing.assert_allclose(g, w, err_msg=k, **GRADS)
 
 
 def test_the_bodies_reduce_over_the_mesh(worlds):

@@ -28,12 +28,28 @@ and the card's wave with cuDNN off against it.
 
     PYTHONPATH=src python tools/torch_client_twin.py --wave [--f64] [--model "cnn + local model"]
 
+``--decisions CID`` takes one client of that wave (the CNN with the local
+tower) apart step by step, in a plain loop of the client's step (its 10
+batches of a fresh twin world, the gradient clipped, the trainer's
+optimizer): on the card (deterministic cuDNN), on the CPU in float32, on
+the CPU in float64 (params and images widened), and on the CPU in float64
+with the card's decisions forced, every ReLU's mask and every 2x2
+max-pool's argmax of both towers taken from the card's run of the same
+step.  For each step it prints each run's gap to the float64 run, how
+many decisions the card and the CPU's float32 run take otherwise than
+float64, and at step 2 every gradient leaf card against float64, free and
+forced.  The loop's card run is also held against the same client in the
+whole wave on the card (``kind_wave``).
+
+    PYTHONPATH=src python tools/torch_client_twin.py --decisions 58
+
 The last line of its output is one JSON object with every reading.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 
@@ -59,11 +75,16 @@ def main() -> int:
                     help="phase 23's round-2 twin: run-to-run drift and every client of the wave")
     ap.add_argument("--f64", action="store_true",
                     help="with --wave: every step count also against a float64 CPU run")
+    ap.add_argument("--decisions", type=int, default=None, metavar="CID",
+                    help="one client of the round-2 wave, decision by decision")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.smi_line()
     print(f"card: {card}", flush=True)
+    if args.decisions is not None:
+        return decisions_study(torch, cs, args.model or "cnn + local model", card,
+                               args.decisions)
     if args.wave:
         return wave_study(torch, cs, args.model or "cnn + local model", card, args.f64)
     args.model = args.model or "resnet"
@@ -210,6 +231,130 @@ def wave_study(torch, cs, model, card, f64=False):
     out["wave"] = wave
     out["twin_clients"] = cs.twin_clients(rounds[1]["cids"])
     out["per_step"] = per_step
+    print(json.dumps(out))
+    return 0
+
+
+def cnn_logits(torch, small, p, x, forced=None, record=None):
+    """``small._apply_single`` of the CNN with its decisions exposed: each
+    ReLU's mask and each max-pool's argmax (flat within a channel's plane)
+    in forward order, appended to ``record``, or taken from the iterator
+    ``forced`` in place of the ones this run would take."""
+    F = torch.nn.functional
+
+    def relu(z):
+        m = next(forced).to(z.device) if forced is not None else z > 0
+        if record is not None:
+            record.append(m)
+        return torch.where(m, z, torch.zeros_like(z))
+
+    def pool(a):
+        out, idx = F.max_pool2d(a, 2, 2, return_indices=True)
+        if forced is not None:
+            idx = next(forced).to(a.device)
+            out = a.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        if record is not None:
+            record.append(idx)
+        return out
+
+    h = x.permute(0, 3, 1, 2)
+    for conv in p["convs"]:
+        h = pool(relu(small._conv_nchw(conv, h)))
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    h = relu(h @ p["fc"]["w"] + p["fc"]["b"])
+    return h @ p["head"]["w"] + p["head"]["b"]
+
+
+def client_steps(torch, cs, mcfg, opt, batches, start, dev, dtype, forced_steps=None):
+    """The client's local steps from ``start`` on ``dev`` in ``dtype``, as
+    ``repro_torch.fed.client.build_step_fn`` takes them (main CE plus the
+    local tower's CE, the gradient clipped to ``CLIP_NORM``, ``opt``'s
+    update), through ``cnn_logits``.  Returns (each step's delta leaves,
+    each step's decisions, each step's gradient leaves), on the host."""
+    from repro_torch.fed.client import CLIP_NORM, batch_to
+    from repro_torch.models import small
+    from repro_torch.optim.optimizers import clip_by_global_norm
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    params = tree_map(lambda t: t.to(dev, dtype), start)
+    base = [t.detach().clone() for t in tree_leaves(params)]
+    state = opt.init(params)
+    deltas, decisions, grads = [], [], []
+    for s, b in enumerate(batches):
+        bt = batch_to(b, torch.device(dev))
+        x, y = bt["x"].to(dtype), bt["y"]
+        live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        p = tree_unflatten(params, live)
+        forced = iter(forced_steps[s]) if forced_steps is not None else None
+        record = []
+        loss = 0.0
+        for tower in ("main", "local"):
+            logits = cnn_logits(torch, small, p[tower], x, forced, record)
+            loss = loss + torch.mean(small.cross_entropy_rows(logits, y))
+        g = torch.autograd.grad(loss, live)
+        grads.append([t.detach().double().cpu() for t in g])
+        decisions.append([r.cpu() for r in record])
+        with torch.no_grad():
+            gt, _ = clip_by_global_norm(tree_unflatten(params, list(g)), CLIP_NORM)
+            params, state = opt.update(gt, state, tree_unflatten(params, [t.detach() for t in live]))
+        deltas.append([(a - b0).float().cpu() for a, b0 in zip(tree_leaves(params), base)])
+    return deltas, decisions, grads
+
+
+def decisions_study(torch, cs, model, card, cid):
+    """One client of phase 23's round-2 wave, decision by decision (see the
+    module docstring)."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    _, fields, dataset, opt_name, lr = next(m for m in cs.CLIENT_MODELS if m[0] == model)
+    mcfg, trainer, rounds, _ = cs.client_rounds(torch, fields, dataset, opt_name, lr,
+                                                deterministic=True)
+    start, wave = rounds[1]["start"], sorted(rounds[1]["cids"])
+    if cid not in wave:
+        raise SystemExit(f"client {cid} is not in round 2's wave {wave}")
+    keys = [k for k, _ in tree_flatten_with_path(start)]
+    clients, _ = cs.client_world(mcfg, dataset)
+    batches = list({c.client_id: c for c in clients}[cid].data.batches(cs.CLIENTS_STEPS))
+    opt = trainer.opt
+    with cs.cudnn_deterministic(torch):
+        card_run = client_steps(torch, cs, mcfg, opt, batches, start, "cuda", torch.float32)
+        in_wave = cs.kind_wave(torch, mcfg, dataset, opt, wave, start, "cuda")[wave.index(cid)]
+    cpu32 = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float32)
+    f64 = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float64)
+    forced = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float64,
+                          forced_steps=card_run[1])
+    cpu32_forced = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float32,
+                                forced_steps=card_run[1])
+
+    def differing(a, b):
+        return int(sum(int((x != y).sum()) for x, y in zip(a, b)))
+
+    def rel(a, b):
+        d, n = float((a - b).norm()), float(b.norm())
+        return d / n if n else (0.0 if d == 0 else math.inf)
+
+    out = {"card": card, "model": model, "client": cid, "wave": wave,
+           "decisions_a_step": int(sum(t.numel() for t in card_run[1][0])),
+           "loop_vs_wave_on_card": cs.wave_gap([card_run[0][-1]], [in_wave]), "steps": []}
+    for s in range(len(batches)):
+        row = {"step": s + 1,
+               "card_vs_f64": cs.wave_gap([card_run[0][s]], [f64[0][s]]),
+               "cpu_f32_vs_f64": cs.wave_gap([cpu32[0][s]], [f64[0][s]]),
+               "card_vs_f64_forced": cs.wave_gap([card_run[0][s]], [forced[0][s]]),
+               "cpu_f32_forced_vs_f64_forced": cs.wave_gap([cpu32_forced[0][s]], [forced[0][s]]),
+               "decisions_differing_card_vs_f64": differing(card_run[1][s], f64[1][s]),
+               "decisions_differing_cpu_f32_vs_f64": differing(cpu32[1][s], f64[1][s]),
+               "decisions_differing_card_vs_cpu_f32": differing(card_run[1][s], cpu32[1][s])}
+        out["steps"].append(row)
+        print(json.dumps(row), flush=True)
+    s = 1   # local step 2
+    out["step2_grads"] = {
+        k: {"card_vs_f64": rel(card_run[2][s][j], f64[2][s][j]),
+            "card_vs_f64_forced": rel(card_run[2][s][j], forced[2][s][j]),
+            "cpu_f32_vs_f64": rel(cpu32[2][s][j], f64[2][s][j])}
+        for j, k in enumerate(keys)}
+    for k, v in out["step2_grads"].items():
+        print(json.dumps({"step 2 gradient": k, **v}), flush=True)
     print(json.dumps(out))
     return 0
 
