@@ -493,7 +493,7 @@ Phases (any failure exits non-zero before the last line is printed):
              params after the steps against the same run unsharded in its
              own process (bf16 RANKS_TRAIN_BF16_TOL, the params as one tree;
              f32 SERVE_TWIN_F32_REL_TOL, every leaf), rank 1's wq shard
-             replaced by its neighbour's failing the f32 limit; (d)
+             replaced by its neighbour's (its q heads) failing the f32 limit; (d)
              olmoe-1b-7b cut to RANKS_OLMOE_LAYERS layers (EP, FSDP, flash,
              remat full, bf16): one train step's cross-entropy and every
              gradient leaf against the unsharded step (``_moe_local``) with
@@ -6011,8 +6011,9 @@ def ranks_qwen_train(torch, rank, device, mesh, counters):
             if dtype == "float32":   # the control: rank 1's wq shard is its neighbour's
                 sh = S.tree_shardings(axes, mesh, rules)
                 wq = params["groups"]["g0"]["p0"]["mixer"]["wq"]
-                if rank == 1:   # the head blocks swapped: rank 1 cuts its neighbour's
-                    wq = torch.cat(list(reversed(wq.chunk(mesh.size(1), dim=2))), dim=2)
+                if rank == 1:   # the q-head blocks ("model" shards dim 1) swapped:
+                    # rank 1 cuts its neighbour's heads
+                    wq = torch.cat(list(reversed(wq.chunk(mesh.size(1), dim=1))), dim=1)
                 ctl = S.distribute(params, sh)
                 ctl["groups"]["g0"]["p0"]["mixer"]["wq"] = S.distribute(
                     wq, sh["groups"]["g0"]["p0"]["mixer"]["wq"])
@@ -6224,7 +6225,7 @@ def train_gates(ranks, say_prefix):
             assert tree < tol, tree
     control = rel_of_sums([q["control logits sums"] for q in qwen])[""]
     gates["(c) control"] = control
-    say(f"{say_prefix}(c) control, f32, rank 1's wq shard its neighbour's: logits relative "
+    say(f"{say_prefix}(c) control, f32, rank 1 holding its neighbour's q heads: logits relative "
         f"{control:.3e} (must exceed {SERVE_TWIN_F32_REL_TOL:g})")
     assert control > SERVE_TWIN_F32_REL_TOL, control
     grads = rel_of_sums([o["grads sums"] for o in olmoe])

@@ -245,8 +245,12 @@ _FNS = None
 
 def psum(x, axes: Axes):
     """The sum of ``x`` over the ranks of ``axes`` (``lax.psum``); its
-    gradient is psum over the same axes."""
-    mesh, names = _active(), entry_axes(axes)
+    gradient is psum over the same axes.  Over no axes it is ``x``, inside
+    a body or not, so a body runs as it is on plain tensors."""
+    names = entry_axes(axes)
+    if not names:
+        return x
+    mesh = _active()
     if _size(mesh, names) == 1:
         return x
     return _autograd()["psum"].apply(x, mesh, names)
@@ -262,10 +266,13 @@ def mesh_sum(mesh, x):
 def pmax(x, axes: Axes):
     """The elementwise max of ``x`` over the ranks of ``axes``
     (``lax.pmax``), as a constant: it carries no gradient (a log-sum-exp's
-    shift, whose gradient is zero)."""
+    shift, whose gradient is zero).  Over no axes it is ``x`` detached."""
     import torch.distributed as dist
 
-    mesh, names = _active(), entry_axes(axes)
+    names = entry_axes(axes)
+    if not names:
+        return x.detach()
+    mesh = _active()
     out = x.detach().clone()
     if _size(mesh, names) == 1:
         return out
@@ -277,7 +284,8 @@ def pmax(x, axes: Axes):
 
 def flat_index(axes: Axes) -> int:
     """This rank's position in the flattened sub-mesh of ``axes``, first
-    axis major (the block of a dim split over ``axes`` that it holds)."""
+    axis major (the block of a dim split over ``axes`` that it holds); 0
+    over no axes."""
     idx = 0
     for a in entry_axes(axes):
         idx = idx * axis_size(a) + axis_index(a)

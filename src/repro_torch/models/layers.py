@@ -22,6 +22,7 @@ Conventions (the reference's)
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import shard_map as SM
 from repro_torch.dist.sharding import is_dtensor
 
 Params = Dict[str, Any]
@@ -459,21 +461,17 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Tuple[Params, Para
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``table[tokens]`` in the compute dtype.  A DTensor table is looked up
+    vocab-parallel under ``shard_map``: each rank runs ``_embed_rows`` on
+    its block of the vocabulary and the rows are summed over the
+    vocabulary's shards (one holds each token); the gradient scatters into
+    each rank's own block, and no rank gathers the table's vocabulary."""
     table = params["embedding"]
-    if is_dtensor(table):
-        return _embed_sharded(table, tokens).to(_dt(cfg, "compute_dtype"))
-    return table[tokens].to(_dt(cfg, "compute_dtype"))
-
-
-def _embed_sharded(table, tokens):
-    """``table[tokens]`` for a DTensor table, vocab-parallel under
-    ``shard_map``: each rank looks up the tokens its block of the
-    vocabulary holds, zeros the rest, and the rows are summed over the
-    vocabulary's shards (one holds each token).  The gradient scatters into
-    each rank's own block; no rank gathers the table's vocabulary."""
+    cd = _dt(cfg, "compute_dtype")
+    if not is_dtensor(table):
+        return _embed_rows(table, tokens).to(cd)
     from torch.distributed.tensor import DTensor, Replicate
 
-    from repro_torch.dist import shard_map as SM
     from repro_torch.dist.sharding import P
 
     mesh = table.device_mesh
@@ -482,19 +480,21 @@ def _embed_sharded(table, tokens):
     if not isinstance(tokens, DTensor):
         tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
     b_axes = tuple(n for n, p in zip(names, tokens.placements) if p.is_shard(0))
-
-    def body(tab, tok):
-        v_loc = tab.shape[0]
-        idx = tok.long() - (SM.flat_index(v_axes) * v_loc if v_axes else 0)
-        held = (idx >= 0) & (idx < v_loc)
-        rows = F.embedding(idx.clamp(0, v_loc - 1), tab)
-        rows = torch.where(held[..., None], rows, torch.zeros_like(rows))
-        return SM.psum(rows, v_axes) if v_axes else rows
-
     spec = P(b_axes or None, *([None] * (tokens.dim() - 1)))
-    fn = SM.shard_map(body, mesh, in_specs=(P(v_axes or None, None), spec),
-                      out_specs=P(*spec, None))
-    return fn(table, tokens)
+    fn = SM.shard_map(functools.partial(_embed_rows, v_axes=v_axes), mesh,
+                      in_specs=(P(v_axes or None, None), spec), out_specs=P(*spec, None))
+    return fn(table, tokens).to(cd)
+
+
+def _embed_rows(tab: torch.Tensor, tok: torch.Tensor, v_axes=()) -> torch.Tensor:
+    """The rows of ``tok`` that ``tab``, this rank's block of the
+    vocabulary along ``v_axes`` (the whole table over none), holds, zeros
+    for the rest, summed over ``v_axes``."""
+    v_loc = tab.shape[0]
+    idx = tok.long() - SM.flat_index(v_axes) * v_loc
+    held = (idx >= 0) & (idx < v_loc)
+    rows = F.embedding(idx.clamp(0, v_loc - 1), tab)
+    return SM.psum(torch.where(held[..., None], rows, torch.zeros_like(rows)), v_axes)
 
 
 def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import shard_map as SM
 from repro_torch.dist.sharding import (
     current_context,
     is_dtensor,
@@ -284,10 +285,7 @@ def chunked_ce(
         logits = with_logical_constraint(logits, "act_batch", None, "vocab")
         if is_dtensor(logits):
             return _ce_sharded(logits, t, m)
-        logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.take_along_dim(logits, t[..., None].long(), dim=-1)[..., 0]
-        return torch.sum((logz - tgt) * m), torch.sum(m)
+        return _ce_sums(logits, t, m)
 
     if chunk == s:
         return ce_chunk(hidden, targets, mask)
@@ -301,15 +299,11 @@ def chunked_ce(
 
 
 def _ce_sharded(logits, targets, mask):
-    """``ce_chunk``'s sums on DTensor logits (B, S, V), vocab-parallel:
-    under ``shard_map`` each rank holds its rows and its block of the
-    vocabulary; the log-sum-exp takes the max and the sum of exponentials
-    over the vocabulary's shards, the target's logit comes from the one
-    shard that holds it, and the two sums over the batch's shards.  No
-    rank gathers a vocabulary row."""
+    """``_ce_sums`` on DTensor logits (B, S, V), vocab-parallel under
+    ``shard_map``: each rank holds its rows and its block of the
+    vocabulary, and no rank gathers a vocabulary row."""
     from torch.distributed.tensor import DTensor, Replicate
 
-    from repro_torch.dist import shard_map as SM
     from repro_torch.dist.sharding import P
 
     mesh = logits.device_mesh
@@ -325,26 +319,29 @@ def _ce_sharded(logits, targets, mask):
             return t
         return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
-    def body(lg, tg, mk):
-        lg = lg.float()
-        v_loc = lg.shape[-1]
-        mx = SM.pmax(lg.amax(-1), v_axes) if v_axes else lg.amax(-1).detach()
-        se = torch.exp(lg - mx[..., None]).sum(-1)
-        logz = mx + torch.log(SM.psum(se, v_axes) if v_axes else se)
-        idx = tg.long() - (SM.flat_index(v_axes) * v_loc if v_axes else 0)
-        held = (idx >= 0) & (idx < v_loc)
-        tl = torch.gather(lg, -1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
-        tl = torch.where(held, tl, torch.zeros_like(tl))
-        tgt = SM.psum(tl, v_axes) if v_axes else tl
-        tot, cnt = torch.sum((logz - tgt) * mk), torch.sum(mk)
-        if b_axes:
-            tot, cnt = SM.psum(tot, b_axes), SM.psum(cnt, b_axes)
-        return tot, cnt
-
     row = P(b_axes or None, None)
-    fn = SM.shard_map(body, mesh, in_specs=(P(b_axes or None, None, v_axes or None), row, row),
+    fn = SM.shard_map(functools.partial(_ce_sums, b_axes=b_axes, v_axes=v_axes), mesh,
+                      in_specs=(P(b_axes or None, None, v_axes or None), row, row),
                       out_specs=(P(), P()))
     return fn(logits, placed(targets), placed(mask))
+
+
+def _ce_sums(lg, tg, mk, b_axes=(), v_axes=()):
+    """(sum of the masked tokens' cross-entropy, mask count) of logits
+    ``lg`` (B, S, V_loc): this rank's rows along ``b_axes`` and block of
+    the vocabulary along ``v_axes`` (all of either over no axes).  The
+    log-sum-exp takes the max and the sum of exponentials over the
+    vocabulary's shards, the target's logit comes from the one shard that
+    holds it, and both sums are summed over the batch's shards."""
+    lg = lg.float()
+    v_loc = lg.shape[-1]
+    mx = SM.pmax(lg.amax(-1), v_axes)
+    logz = mx + torch.log(SM.psum(torch.exp(lg - mx[..., None]).sum(-1), v_axes))
+    idx = tg.long() - SM.flat_index(v_axes) * v_loc
+    held = (idx >= 0) & (idx < v_loc)
+    tl = torch.gather(lg, -1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
+    tgt = SM.psum(torch.where(held, tl, torch.zeros_like(tl)), v_axes)
+    return SM.psum(torch.sum((logz - tgt) * mk), b_axes), SM.psum(torch.sum(mk), b_axes)
 
 
 def next_token_targets(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -52,28 +52,26 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     by their size), and one all-reduce of that scalar gives every rank the
     same norm, a replicated DTensor."""
     leaves = tree_leaves(tree)
-    if leaves and is_dtensor(*leaves):
-        return _sharded_norm(leaves)
-    sq = [torch.sum(torch.square(l.float())) for l in leaves]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
-
-
-def _sharded_norm(leaves) -> torch.Tensor:
+    mesh = next((l.device_mesh for l in leaves if is_dtensor(l)), None)
+    sq = []
+    for leaf in leaves:
+        copies = 1
+        if mesh is not None:
+            if not is_dtensor(leaf) or leaf.device_mesh != mesh:
+                raise TypeError("global_norm of DTensors takes one mesh and no plain leaf")
+            for i, p in enumerate(leaf.placements):
+                if p.is_replicate():
+                    copies *= mesh.size(i)
+            leaf = leaf.to_local()
+        total = torch.sum(torch.square(leaf.float()))
+        sq.append(total / copies if copies > 1 else total)
+    total = torch.sum(torch.stack(sq))
+    if mesh is None:
+        return torch.sqrt(total)
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.dist.shard_map import mesh_sum
 
-    mesh = next(l.device_mesh for l in leaves if isinstance(l, DTensor))
-    total = None
-    for leaf in leaves:
-        if not isinstance(leaf, DTensor) or leaf.device_mesh != mesh:
-            raise TypeError("global_norm of DTensors takes one mesh and no plain leaf")
-        copies = 1
-        for i, p in enumerate(leaf.placements):
-            if p.is_replicate():
-                copies *= mesh.size(i)
-        sq = torch.sum(torch.square(leaf.to_local().float())) / copies
-        total = sq if total is None else total + sq
     return DTensor.from_local(torch.sqrt(mesh_sum(mesh, total)), mesh,
                               [Replicate()] * mesh.ndim, run_check=False)
 

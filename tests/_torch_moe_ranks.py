@@ -152,6 +152,7 @@ def port_rank(rank, out_dir):
     from repro_torch.dist import sharding as S
     from repro_torch.models import moe as MOE
 
+    torch.set_num_threads(1)   # 4 ranks on a shared host: no oversubscribed cores
     _init_world(rank, WORLD, out_dir)
     with open(os.path.join(out_dir, "ref.pkl"), "rb") as f:
         ref = pickle.load(f)

@@ -4,6 +4,7 @@ count) ever lives in the pytest process:
 
     python tests/_torch_train_ranks.py ref  DIR   # JAX, 4 forced host devices
     python tests/_torch_train_ranks.py port DIR   # torch, 4 gloo ranks
+    python tests/_torch_train_ranks.py summary DIR  # both worlds' worst leaves
 
 ``ref`` first pickles every case's numpy params (the reference's init,
 randomized further) and tokens (``inputs.pkl``); ``port`` starts on them
@@ -17,6 +18,16 @@ by the dry run's batch axes (``("act_batch", None)``), as
 shard of the placed params, the logits, the gradients, and the params and
 state after the step, with the loss and metrics.
 
+A bf16 MoE case (``routed``) runs with the reference's top-k choices
+forced on the port: ``ref`` runs those cases first, records every router
+call's choices (``jax.debug.callback``, keyed by the router's first
+values, one table a layer and program, with the probabilities) and
+pickles them (``routing.pkl``); ``port`` routes its prefill and its step,
+sharded and unsharded, by those tables, and rank 0 also records the
+choices its unsharded step takes free.  A bf16 run flips a token's k-th
+expert where two probabilities tie within bf16's rounding of the
+activations, and one flip moves every MoE gradient leaf far past 2e-2.
+
 ``port`` gives each of 4 gloo ranks the same numpy params and batch,
 places them with ``sharding.distribute`` under the same rules and runs
 the port's prefill, ``value_and_grad`` and ``make_train_step`` inside
@@ -26,6 +37,7 @@ what a plain batch and the scans, the int8 decode and flash on a sequence
 or head-dim sharded q raise.  Only ``ref`` imports JAX; every world ends
 with a ``barrier()`` before its process group is destroyed.
 """
+import contextlib
 import os
 import pickle
 import sys
@@ -38,9 +50,9 @@ WORLD = 4
 BATCH, SEQ = 8, 16
 #: (name, arch, (data, model), overrides): both meshes' shapes and the
 #: model axis alone, the chunked and the flash route (the plain version on
-#: the CPU, through the local-shard wrapper), both MoE bodies, FSDP on and
-#: off, remat none and full, the cross-entropy over 4 sequence chunks, f32
-#: and bf16 compute
+#: the CPU, through the local-shard wrapper), both MoE bodies (each in f32
+#: and the gather body in bf16 too), FSDP on and off, remat none and full,
+#: the cross-entropy over 4 sequence chunks, f32 and bf16 compute
 CASES = (
     ("qwen 2x2 chunked f32", "qwen1.5-0.5b", (2, 2), {}),
     ("qwen 2x2 pallas fsdp remat loss-chunks f32", "qwen1.5-0.5b", (2, 2),
@@ -51,10 +63,78 @@ CASES = (
      dict(fsdp_params=True, remat="full")),
     ("olmoe 2x2 ep pallas fsdp remat f32", "olmoe-1b-7b", (2, 2),
      dict(attn_impl="pallas", fsdp_params=True, remat="full")),
+    ("olmoe 2x2 gather fsdp f32", "olmoe-1b-7b", (2, 2),
+     dict(moe_impl="gather", fsdp_params=True)),
     ("olmoe 1x4 gather bf16", "olmoe-1b-7b", (1, 4),
      dict(moe_impl="gather", compute_dtype="bfloat16")),
 )
 OPT_STATE_KEYS = ("m", "v")
+#: the programs whose routing a routed case records and forces
+PROGRAMS = ("prefill", "step")
+
+
+def routed(case) -> bool:
+    """A bf16 MoE case: the port takes the reference's top-k choices."""
+    return case[1] == "olmoe-1b-7b" and case[3].get("compute_dtype") == "bfloat16"
+
+
+def _router_key(values):
+    """A router's identity across the packages: its first four values (the
+    f32 router is carried bit for bit, and every layer's differs)."""
+    return tuple(float(v) for v in values)
+
+
+@contextlib.contextmanager
+def recorded_routes(jax, np, rmoe, calls):
+    """The reference's ``route`` as it is, each call's top-k choices
+    appended to ``calls`` as (router key, choices) when the program runs."""
+    real = rmoe.route
+
+    def record(router_w, x_flat, cfg):
+        top_p, top_i, probs = real(router_w, x_flat, cfg)
+        jax.debug.callback(lambda key, idx, pr: calls.append(
+            (_router_key(key), np.asarray(idx), np.asarray(pr))),
+            router_w.reshape(-1)[:4], top_i, probs)
+        return top_p, top_i, probs
+
+    rmoe.route = record
+    try:
+        yield calls
+    finally:
+        rmoe.route = real
+
+
+def routing_table(np, calls):
+    """One (top-k choices, probabilities) pair a router: every device and
+    every call of a program (the gradient's forward and the step's) must
+    have chosen the same."""
+    table = {}
+    for key, idx, probs in calls:
+        have = table.setdefault(key, (idx, probs))
+        if not np.array_equal(have[0], idx):
+            raise AssertionError(f"the reference routed one layer two ways in one program: {key}")
+    return table
+
+
+@contextlib.contextmanager
+def forced_routes(torch, moe, table):
+    """The port's ``route`` with the top-k choices of ``table`` (by router)
+    and the probabilities of its own router product."""
+    real = moe.route
+
+    def forced(router_w, x_flat, cfg):
+        probs = torch.softmax(x_flat.float() @ router_w, dim=-1)
+        top_i = torch.from_numpy(table[_router_key(router_w.detach().reshape(-1)[:4].tolist())][0])
+        top_i = top_i.long().to(x_flat.device)
+        assert top_i.shape[0] == x_flat.shape[0], (top_i.shape, x_flat.shape)
+        top_p = torch.gather(probs, 1, top_i)
+        return top_p / top_p.sum(-1, keepdim=True), top_i, probs
+
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = real
 
 
 def _path(keypath):
@@ -102,8 +182,13 @@ def run_ref(out_dir):
                     f)
     os.replace(os.path.join(out_dir, "inputs.tmp"), os.path.join(out_dir, "inputs.pkl"))
 
-    out = {}
-    for name, arch, shape, overrides in CASES:
+    import repro.models.moe as rmoe
+
+    out, routing = {}, {}
+    # the routed cases first: the port's world waits for their routing
+    for case in sorted(CASES, key=lambda c: not routed(c)):
+        name, arch, shape, overrides = case
+        calls = {program: [] for program in PROGRAMS}
         t0 = time.time()
         cfg = get_config(arch, reduced=True).replace(**overrides)
         fns = model_fns(cfg)
@@ -118,13 +203,18 @@ def run_ref(out_dir):
             p = jax.device_put(host, params_sh)
             b = jax.device_put({"tokens": tokens}, batch_sh)
             s = jax.device_put(opt.init(host), opt_sh)
-            logits, _ = jax.jit(fns.prefill, in_shardings=(params_sh, batch_sh))(p, b)
+            with (recorded_routes(jax, np, rmoe, calls["prefill"]) if routed(case)
+                  else contextlib.nullcontext()):
+                logits, _ = jax.jit(fns.prefill, in_shardings=(params_sh, batch_sh))(p, b)
             # the gradients and the step in one program: one compile
             vag = jax.value_and_grad(fns.loss, has_aux=True)
-            ((loss, metrics), grads), (p2, s2, m2) = jax.jit(
-                lambda p_, s_, b_: (vag(p_, b_), step(p_, s_, b_)),
-                in_shardings=(params_sh, opt_sh, batch_sh),
-                out_shardings=((None, params_sh), (params_sh, opt_sh, None)))(p, s, b)
+            with (recorded_routes(jax, np, rmoe, calls["step"]) if routed(case)
+                  else contextlib.nullcontext()):
+                ((loss, metrics), grads), (p2, s2, m2) = jax.jit(
+                    lambda p_, s_, b_: (vag(p_, b_), step(p_, s_, b_)),
+                    in_shardings=(params_sh, opt_sh, batch_sh),
+                    out_shardings=((None, params_sh), (params_sh, opt_sh, None)))(p, s, b)
+                jax.effects_barrier()
         out[name] = {
             "placed": shards(p), "logits": shards(logits),
             "loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
@@ -132,6 +222,12 @@ def run_ref(out_dir):
             "state_after": {k: shards(s2[k]) for k in OPT_STATE_KEYS},
             "step_metrics": {k: float(v) for k, v in m2.items()},
             "seconds": time.time() - t0}
+        if routed(case):
+            routing[name] = out[name]["routing"] = {
+                program: routing_table(np, calls[program]) for program in PROGRAMS}
+            with open(os.path.join(out_dir, "routing.tmp"), "wb") as f:
+                pickle.dump(routing, f)
+            os.replace(os.path.join(out_dir, "routing.tmp"), os.path.join(out_dir, "routing.pkl"))
     with open(os.path.join(out_dir, "ref.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -164,7 +260,7 @@ def _fulls(tree):
             for k, v in tree_flatten_with_path(tree)}
 
 
-def port_case(torch, rank, mesh, name, arch, overrides, want):
+def port_case(torch, rank, mesh, name, arch, overrides, want, routing=None):
     from repro_torch.bridge import params_from_numpy
     from repro_torch.configs.registry import get_config
     from repro_torch.dist import sharding as S
@@ -172,6 +268,13 @@ def port_case(torch, rank, mesh, name, arch, overrides, want):
     from repro_torch.models.registry import value_and_grad
     from repro_torch.optim.optimizers import opt_state_axes
     from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    from repro_torch.models import moe
+
+    def routes(program):   # the reference's choices, where the case is routed
+        if routing is None:
+            return contextlib.nullcontext()
+        return forced_routes(torch, moe, routing[program])
 
     t0 = time.time()
     cfg = get_config(arch, reduced=True).replace(**overrides)
@@ -189,10 +292,11 @@ def port_case(torch, rank, mesh, name, arch, overrides, want):
                                                  mesh, rules))
         b = S.distribute(batch, S.batch_shardings(batch, mesh, rules))
         out["placed"] = _locals(p)
-        with torch.no_grad():
+        with torch.no_grad(), routes("prefill"):
             logits, _ = fns.prefill(p, b)
-        (loss, metrics), grads = value_and_grad(fns.loss, p, b)
-        p2, s2, m2 = step(p, s, b)
+        with routes("step"):
+            (loss, metrics), grads = value_and_grad(fns.loss, p, b)
+            p2, s2, m2 = step(p, s, b)
         try:
             fns.loss(p, batch)
             out["plain_batch"] = None
@@ -216,15 +320,32 @@ def port_case(torch, rank, mesh, name, arch, overrides, want):
     full = {"logits": logits.full_tensor().float().numpy(), "grads": _fulls(grads),
             "params_after": _fulls(p2)}
     if rank == 0:
-        with torch.no_grad():
+        with torch.no_grad(), routes("prefill"):
             u_logits, _ = fns.prefill(host, batch)
-        (u_loss, _), u_grads = value_and_grad(fns.loss, host, batch)
-        u_p2, _, _ = step(host, state, batch)
+        with routes("step"):
+            (u_loss, _), u_grads = value_and_grad(fns.loss, host, batch)
+            u_p2, _, _ = step(host, state, batch)
         out["unsharded"] = {
             "loss": float(u_loss), "logits": u_logits.float().numpy(),
             "grads": {k: v.float().numpy() for k, v in tree_flatten_with_path(u_grads)},
             "params_after": {k: v.float().numpy() for k, v in tree_flatten_with_path(u_p2)},
             "sharded": full}
+        if routing is not None:   # the choices the unsharded step takes free
+            free = []
+            real = moe.route
+
+            def record(router_w, x_flat, cfg_):
+                top_p, top_i, probs = real(router_w, x_flat, cfg_)
+                free.append((_router_key(router_w.detach().reshape(-1)[:4].tolist()),
+                             top_i.numpy().copy()))
+                return top_p, top_i, probs
+
+            moe.route = record
+            try:
+                value_and_grad(fns.loss, host, batch)
+            finally:
+                moe.route = real
+            out["free_routing"] = free
     out["seconds"] = time.time() - t0
     return out
 
@@ -269,27 +390,37 @@ def refusals(torch, mesh):
     return out
 
 
-def port_rank(rank, out_dir):
-    import torch
-    from torch.distributed.device_mesh import init_device_mesh
-
-    _init_world(rank, WORLD, out_dir)
-    path = os.path.join(out_dir, "inputs.pkl")
-    deadline = time.time() + 300
-    while not os.path.exists(path):   # the reference's world writes it first
+def _wait_for(path, seconds=300):
+    """The pickle the reference's world writes at ``path``, once it is there."""
+    deadline = time.time() + seconds
+    while not os.path.exists(path):
         if time.time() > deadline:
             raise TimeoutError(f"no {path}")
         time.sleep(0.2)
     with open(path, "rb") as f:
-        ref = pickle.load(f)
+        return pickle.load(f)
+
+
+def port_rank(rank, out_dir):
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)   # 4 ranks beside the reference's world: no oversubscribed cores
+    _init_world(rank, WORLD, out_dir)
+    ref = _wait_for(os.path.join(out_dir, "inputs.pkl"))
     meshes = {}
     out = {"cases": {}}
-    for name, arch, shape, overrides in CASES:
+    routing = None
+    for case in CASES:
+        name, arch, shape, overrides = case
         mesh = meshes.get(shape)
         if mesh is None:
             mesh = meshes[shape] = init_device_mesh("cpu", shape,
                                                     mesh_dim_names=("data", "model"))
-        out["cases"][name] = port_case(torch, rank, mesh, name, arch, overrides, ref[name])
+        if routed(case) and routing is None:
+            routing = _wait_for(os.path.join(out_dir, "routing.pkl"))
+        out["cases"][name] = port_case(torch, rank, mesh, name, arch, overrides, ref[name],
+                                       routing[name] if routed(case) else None)
     out["refusals"] = refusals(torch, meshes[(2, 2)])
     with open(os.path.join(out_dir, f"port{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -302,6 +433,46 @@ def run_port(out_dir):
     mp.spawn(port_rank, args=(out_dir,), nprocs=WORLD, join=True)
 
 
+def summary(out_dir):
+    """Print, from both worlds' pickles in ``out_dir``, each case's worst
+    leaf against the reference (relative, over the ranks) for the
+    gradients, the params after the step and AdamW's moments, and for a
+    routed case how many tokens its free unsharded step routes otherwise
+    than the reference, with their k-th and k+1-th probabilities' gaps."""
+    import numpy as np
+
+    with open(os.path.join(out_dir, "ref.pkl"), "rb") as f:
+        ref = pickle.load(f)
+    ranks = []
+    for r in range(WORLD):
+        with open(os.path.join(out_dir, f"port{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+
+    def rel(got, want):
+        norm = float(np.linalg.norm(want))
+        return float(np.linalg.norm(got - want)) / norm if norm else float(np.abs(got).max())
+
+    for case in CASES:
+        name = case[0]
+        trees = {"grads": lambda c: c["grads"], "params after": lambda c: c["params_after"]}
+        trees.update({f"state {k}": (lambda c, k=k: c["state_after"][k]) for k in OPT_STATE_KEYS})
+        want = {"grads": ref[name]["grads"], "params after": ref[name]["params_after"]}
+        want.update({f"state {k}": ref[name]["state_after"][k] for k in OPT_STATE_KEYS})
+        for what, pick in trees.items():
+            worst = max((rel(pick(ranks[r]["cases"][name])[path], shards[r]), path, r)
+                        for r in range(WORLD) for path, shards in want[what].items())
+            print(f"{name}: {what} worst leaf {worst[0]:.3e} ({worst[1]}, rank {worst[2]})")
+        if routed(case):
+            table = ref[name]["routing"]["step"]
+            for key, idx in ranks[0]["cases"][name]["free_routing"]:
+                want_idx, probs = table[key]
+                flipped = np.nonzero((np.sort(idx, -1) != np.sort(want_idx, -1)).any(-1))[0]
+                ranked = -np.sort(-probs[flipped], -1)
+                k = idx.shape[-1]
+                print(f"{name}: free routing, router {key[0]:.6f}: {len(flipped)} of {len(idx)} "
+                      f"tokens otherwise, gaps {(ranked[:, k - 1] - ranked[:, k]).tolist()}")
+
+
 if __name__ == "__main__":
     mode, directory = sys.argv[1], sys.argv[2]
-    {"ref": run_ref, "port": run_port}[mode](directory)
+    {"ref": run_ref, "port": run_port, "summary": summary}[mode](directory)

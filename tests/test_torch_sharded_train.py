@@ -13,19 +13,19 @@ placed by ``sharding.distribute``.  Both meshes put rank / device r at
 for bit, the last-token logits, the loss and metrics, every gradient
 leaf, and the params and AdamW moments after the step.  Tolerances are the
 reference's: f32 2e-5 (logits, loss), gradients and the step's trees
-1e-4 leaf by leaf; bf16 compute 2e-2, relative, the trees as one vector
-(a leaf whose gradient is rounding noise, as the key bias's, has no
-relative error of its own).  One bf16 reading misses that against the
-reference, unsharded as much as sharded: olmoe's MoE gradients in bf16
-differ between the packages by 0.13 on the router (the port's unsharded
-step against the reference's unsharded step), so that case is held
-against the reference at ``BF16_MOE_VS_REF`` and against the port's own
-unsharded step at 2e-2.
+1e-4 leaf by leaf; bf16 compute 2e-2, relative.  qwen's bf16 trees are
+held as one vector (a leaf whose gradient is rounding noise, as the key
+bias's, has no relative error of its own); olmoe's bf16 trees also leaf
+by leaf, with the reference's top-k choices forced on the port: a bf16
+run flips a token's k-th expert where two router probabilities tie
+within bf16's rounding, and one flip moves every MoE leaf by ~0.1
+(``test_free_bf16_routing_differs_only_at_near_ties`` pins where).
 
 Cases (``_torch_train_ranks.CASES``): the 2 × 2, 1 × 4 and 4 × 1 meshes;
 the chunked and the flash route (on the CPU the flash wrapper takes each
 rank's local shards to the plain version); the EP and the gather MoE
-bodies; FSDP on and off; remat none and full; the cross-entropy in one
+bodies, each in f32 (the gather body under FSDP) and the gather body in
+bf16 too; FSDP on and off; remat none and full; the cross-entropy in one
 chunk and over 4 sequence chunks; f32 and bf16 compute.  The
 dense cases are also held against the port's own step unsharded.  A
 plain batch on the mesh raises ``TypeError``; the scans, the int8 decode
@@ -50,9 +50,10 @@ TIMEOUT = 400
 F32 = dict(rtol=2e-5, atol=2e-5)
 GRADS = dict(rtol=1e-4, atol=1e-4)
 BF16_REL = 2e-2
-#: olmoe's bf16 trees against the reference: the packages' unsharded bf16
-#: MoE gradients are 0.13 apart on the router, sharding or not
-BF16_MOE_VS_REF = 2e-1
+#: a free bf16 route may choose another k-th expert than the reference only
+#: where the reference's k-th and k+1-th probabilities are this close
+#: (bf16 keeps 8 bits of the activations that feed the router)
+NEAR_TIE = 2.0 ** -8
 CASE_IDS = [c[0] for c in W.CASES]
 
 
@@ -95,14 +96,17 @@ def _rel(got, want):
     return float(np.linalg.norm(got - want)) / norm if norm else float(np.abs(got).max())
 
 
-def _bf16_vs_ref(case):
-    """The relative bound of a bf16 case's trees against the reference."""
-    return BF16_MOE_VS_REF if case[1] == "olmoe-1b-7b" else BF16_REL
+def _bf16_rel(case):
+    """A case's bf16 bound: (relative bound, leaf by leaf), or None in f32."""
+    if not _bf16(case[3]):
+        return None
+    return BF16_REL, W.routed(case)
 
 
 def _hold_trees(got, want, rank, rel, what):
     """Rank ``rank``'s local tree against device ``rank``'s shards: leaf by
-    leaf at ``GRADS`` (``rel`` None), else as one vector within ``rel``."""
+    leaf at ``GRADS`` (``rel`` None), else within ``rel = (bound,
+    leafwise)`` relative, as one vector and, if ``leafwise``, leaf by leaf."""
     assert sorted(got) == sorted(want), what
     diff = norm = 0.0
     for path, shards in want.items():
@@ -110,10 +114,12 @@ def _hold_trees(got, want, rank, rel, what):
         assert g.shape == w.shape, (what, path, g.shape, w.shape)
         if rel is None:
             np.testing.assert_allclose(g, w, err_msg=f"{what} rank {rank} {path}", **GRADS)
+        elif rel[1]:
+            assert _rel(g, w) < rel[0], (what, rank, path, _rel(g, w))
         diff += float(np.sum((g - w).astype(np.float64) ** 2))
         norm += float(np.sum(w.astype(np.float64) ** 2))
     if rel is not None:
-        assert (diff / norm) ** 0.5 < rel, (what, rank, (diff / norm) ** 0.5)
+        assert (diff / norm) ** 0.5 < rel[0], (what, rank, (diff / norm) ** 0.5)
 
 
 @pytest.mark.parametrize("case", W.CASES, ids=CASE_IDS)
@@ -153,8 +159,7 @@ def test_loss_and_every_gradient_leaf_match_shard_for_shard(worlds, case):
         for key in ("ce", "aux", "tokens"):
             np.testing.assert_allclose(mine["metrics"][key], want["metrics"][key],
                                        err_msg=key, **(dict(tol, atol=2e-5)))
-        _hold_trees(mine["grads"], want["grads"], r,
-                    _bf16_vs_ref(case) if _bf16(overrides) else None, "grads")
+        _hold_trees(mine["grads"], want["grads"], r, _bf16_rel(case), "grads")
 
 
 @pytest.mark.parametrize("case", W.CASES, ids=CASE_IDS)
@@ -170,7 +175,7 @@ def test_one_train_step_matches_shard_for_shard(worlds, case):
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(mine["step_metrics"][key], want["step_metrics"][key],
                                        err_msg=key, **tol)
-        rel = _bf16_vs_ref(case) if _bf16(overrides) else None
+        rel = _bf16_rel(case)
         _hold_trees(mine["params_after"], want["params_after"], r, rel, "params after")
         for k in W.OPT_STATE_KEYS:
             _hold_trees(mine["state_after"][k], want["state_after"][k], r, rel, f"state {k}")
@@ -210,7 +215,30 @@ def test_the_sharded_step_is_the_unsharded_step(worlds, case):
         np.testing.assert_allclose(sharded["logits"], u["logits"], **F32)
     for what in ("grads", "params_after"):
         want = {k: {0: v} for k, v in u[what].items()}
-        _hold_trees(sharded[what], want, 0, BF16_REL if _bf16(overrides) else None, what)
+        _hold_trees(sharded[what], want, 0, _bf16_rel(case), what)
+
+
+ROUTED = [c for c in W.CASES if W.routed(c)]
+
+
+@pytest.mark.parametrize("case", ROUTED, ids=[c[0] for c in ROUTED])
+def test_free_bf16_routing_differs_only_at_near_ties(worlds, case):
+    """Why the bf16 MoE cases take the reference's routing: the port's
+    unsharded step, routed free, chooses another top-k set than the
+    reference's jitted step only for a few tokens, each with its k-th and
+    k+1-th reference probabilities within ``NEAR_TIE``."""
+    ref, ranks = worlds
+    table = ref[case[0]]["routing"]["step"]
+    free = ranks[0]["cases"][case[0]]["free_routing"]
+    assert len(free) == len(table) and {key for key, _ in free} == set(table)
+    for key, idx in free:
+        want_idx, probs = table[key]
+        k = idx.shape[-1]
+        flipped = np.nonzero((np.sort(idx, -1) != np.sort(want_idx, -1)).any(-1))[0]
+        assert len(flipped) <= len(idx) // 32, (key, len(flipped))
+        ranked = -np.sort(-probs[flipped], -1)
+        gaps = ranked[:, k - 1] - ranked[:, k]
+        assert (gaps < NEAR_TIE).all(), (key, gaps)
 
 
 def test_a_plain_batch_is_refused(worlds):

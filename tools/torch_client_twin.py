@@ -39,7 +39,12 @@ step.  For each step it prints each run's gap to the float64 run, how
 many decisions the card and the CPU's float32 run take otherwise than
 float64, and at step 2 every gradient leaf card against float64, free and
 forced.  The loop's card run is also held against the same client in the
-whole wave on the card (``kind_wave``).
+whole wave on the card (``kind_wave``).  Then the same for the wave
+itself: the client's decisions at every step of the card's wave and of
+the CPU's float32 wave (``recorded_wave``: each wave's own vmapped
+rounding), counted against float64's, and the float64 loop run again
+with each wave's decisions forced, against that wave's client after its
+10 steps.
 
     PYTHONPATH=src python tools/torch_client_twin.py --decisions 58
 
@@ -301,6 +306,47 @@ def client_steps(torch, cs, mcfg, opt, batches, start, dev, dtype, forced_steps=
     return deltas, decisions, grads
 
 
+def recorded_wave(torch, cs, mcfg, dataset, opt, cids, params, dev, cid):
+    """``cs.kind_wave`` of the CNN with the local tower, its loss taken
+    through ``cnn_logits`` (the values and gradients of
+    ``small._apply_single``), with client ``cid``'s decisions at every step
+    carried out of ``torch.func.vmap`` as an auxiliary metric.  Returns
+    (the wave's deltas as ``kind_wave`` gives them, each step's decisions
+    of ``cid`` on the host, in ``client_steps``' order)."""
+    from unittest import mock
+
+    from repro_torch.fed import client as fed_client
+    from repro_torch.models import small
+
+    at, steps, real_vmap = cids.index(cid), [], torch.func.vmap
+
+    def loss(p, mcfg_, batch):
+        record = []
+        x, y = batch["x"], batch["y"]
+        logits = cnn_logits(torch, small, p["main"], x, record=record)
+        ce = torch.mean(small.cross_entropy_rows(logits, y))
+        acc = torch.mean((torch.argmax(logits, -1) == y).float())
+        local = cnn_logits(torch, small, p["local"], x, record=record)
+        total = ce + torch.mean(small.cross_entropy_rows(local, y))
+        return total, {"ce": ce, "acc": acc, "decisions": record}
+
+    def vmap(fn, *a, **kw):
+        mapped = real_vmap(fn, *a, **kw)
+
+        def run(*args):
+            out = mapped(*args)
+            if isinstance(out, tuple) and len(out) == 3 and "decisions" in out[2]:
+                steps.append([t[at].cpu() for t in out[2].pop("decisions")])
+            return out
+
+        return run
+
+    with mock.patch.object(fed_client, "small_loss", loss), \
+            mock.patch.object(torch.func, "vmap", vmap):
+        deltas = cs.kind_wave(torch, mcfg, dataset, opt, cids, params, dev)
+    return deltas, steps
+
+
 def decisions_study(torch, cs, model, card, cid):
     """One client of phase 23's round-2 wave, decision by decision (see the
     module docstring)."""
@@ -325,6 +371,16 @@ def decisions_study(torch, cs, model, card, cid):
                           forced_steps=card_run[1])
     cpu32_forced = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float32,
                                 forced_steps=card_run[1])
+    # the wave itself: each wave's own decisions, and f64 forced by them
+    with cs.cudnn_deterministic(torch):
+        card_wave, card_wave_dec = recorded_wave(torch, cs, mcfg, dataset, opt, wave, start,
+                                                 "cuda", cid)
+    cpu_wave, cpu_wave_dec = recorded_wave(torch, cs, mcfg, dataset, opt, wave, start, "cpu", cid)
+    card_wave, cpu_wave = card_wave[wave.index(cid)], cpu_wave[wave.index(cid)]
+    f64_card_wave = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float64,
+                                 forced_steps=card_wave_dec)
+    f64_cpu_wave = client_steps(torch, cs, mcfg, opt, batches, start, "cpu", torch.float64,
+                                forced_steps=cpu_wave_dec)
 
     def differing(a, b):
         return int(sum(int((x != y).sum()) for x, y in zip(a, b)))
@@ -347,6 +403,23 @@ def decisions_study(torch, cs, model, card, cid):
                "decisions_differing_card_vs_cpu_f32": differing(card_run[1][s], cpu32[1][s])}
         out["steps"].append(row)
         print(json.dumps(row), flush=True)
+    last = len(batches) - 1
+    out["wave"] = {
+        "recorded_card_wave_vs_wave": cs.wave_gap([card_wave], [in_wave]),
+        "recorded_card_wave_bit_equal": cs.same_bits(torch, card_wave, in_wave),
+        "card_wave_vs_f64": cs.wave_gap([card_wave], [f64[0][last]]),
+        "cpu_wave_vs_f64": cs.wave_gap([cpu_wave], [f64[0][last]]),
+        "card_wave_vs_f64_forced_by_it": cs.wave_gap([card_wave], [f64_card_wave[0][last]]),
+        "cpu_wave_vs_f64_forced_by_it": cs.wave_gap([cpu_wave], [f64_cpu_wave[0][last]]),
+        "decisions_differing": [
+            {"step": s + 1,
+             "card_wave_vs_f64": differing(card_wave_dec[s], f64[1][s]),
+             "cpu_wave_vs_f64": differing(cpu_wave_dec[s], f64[1][s]),
+             "card_wave_vs_cpu_wave": differing(card_wave_dec[s], cpu_wave_dec[s]),
+             "card_wave_vs_card_loop": differing(card_wave_dec[s], card_run[1][s])}
+            for s in range(len(batches))]}
+    for k, v in out["wave"].items():
+        print(json.dumps({"wave " + k: v}), flush=True)
     s = 1   # local step 2
     out["step2_grads"] = {
         k: {"card_vs_f64": rel(card_run[2][s][j], f64[2][s][j]),
