@@ -459,7 +459,7 @@ Phases (any failure exits non-zero before the last line is printed):
              distributed by ``tree_shardings`` as DTensors: ``to_local()``
              bit-identical, local bytes = the plain tree's, no kernel
              launched; the process group is destroyed at the end.
-34. sharded bodies and train steps — 4 ranks forked from the preloaded
+34. sharded bodies, train and serve steps — 4 ranks forked from the preloaded
              forkserver (``preloaded_context``), every rank on cuda:0 in a
              ``staged_gloo`` world (NCCL refuses two ranks on one device;
              ``launch.mesh.init_world`` picks the backend by name): (a) olmoe-1b-7b's
@@ -501,9 +501,24 @@ Phases (any failure exits non-zero before the last line is printed):
              bf16 RANKS_TRAIN_BF16_TOL, rank 1's experts shifted by one
              failing it; every flash call (forward and backward) and every
              expert product a kernel launch (wgmma, bwd_wgmma, gmm, tgmm;
-             ffma and bwd_ffma for f32), none on a plain version.  Spawn to
+             ffma and bwd_ffma for f32), none on a plain version; (e)
+             qwen1.5-0.5b cut to RANKS_QWEN_LAYERS layers (flash route, f32
+             params) served on DTensors as the reference's dry run places a
+             serve cell: the (c) batch prefilled under the prefill shape's
+             rules into a cache of ``decode_cache_len`` slots, the cache
+             moved onto the decode shape's placements by
+             ``sharding.distribute``, RANKS_SERVE_STEPS greedy steps of
+             ``make_serve_step``, each writing its K/V slot into every
+             rank's local shard, in bf16 and f32; after each step the same
+             step unsharded from the same cache and token, every rank
+             holding its logits and its cache shards against it (bf16
+             RANKS_TRAIN_BF16_TOL, f32 SERVE_TWIN_F32_REL_TOL, every leaf),
+             its local storage and placements kept; rank 1's k shards
+             holding its neighbour's heads (f32) failing the limit; the
+             prefill's flash on wgmma (bf16) and ffma (f32).  Spawn to
              ready, each body's and step's wall a rank, the collective bytes
-             and the bytes staged through the host printed.
+             and the bytes staged through the host (a decode step's too)
+             printed.
 
 The last three lines are ``{"kernels": [...]}`` (``gmm`` with the launches
 of phases 3, 18, 23, 24, 25, 26, 29 and 34 (by path and rank too), ``tgmm`` with those of phases 3, 23, 24, 25, 26, 29 and 34, by path too, with worst
@@ -5889,10 +5904,12 @@ def ranks_batch(torch, cfg, device):
     return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
 
 
-def sums_against(tree, want):
+def sums_against(tree, want, by_layer=False):
     """{path: [sum of squared differences, sum of squares of want]} of this
     rank's local shards of DTensor ``tree`` against plain ``want`` cut the
-    same way (a replicated shard counts on every rank, in both sums)."""
+    same way (a replicated shard counts on every rank, in both sums); with
+    ``by_layer``, a stacked group's leaf (``groups/...``, layers on dim 0,
+    never sharded) once a layer, as ``path[l]``."""
     from repro_torch.tree import tree_flatten_with_path
 
     got = dict(tree_flatten_with_path(tree))
@@ -5906,7 +5923,10 @@ def sums_against(tree, want):
 
             wl = distribute_tensor(w, g.device_mesh, g.placements,
                                    src_data_rank=None).to_local().float()
-        out[path] = [float((gl - wl).square().sum()), float(wl.square().sum())]
+        pairs = ([(f"{path}[{l}]", gl[l], wl[l]) for l in range(gl.shape[0])]
+                 if by_layer and path.startswith("groups/") else [(path, gl, wl)])
+        for key, a, b in pairs:
+            out[key] = [float((a - b).square().sum()), float(b.square().sum())]
     return out
 
 
@@ -6071,7 +6091,8 @@ def forced_routing(torch, moe, tables):
         yield
 
 
-def ranks_olmoe_train(torch, rank, device, mesh, counters):
+def ranks_olmoe_train(torch, rank, device, mesh, counters, compute_dtype="bfloat16",
+                      by_layer=False):
     """Phase 34 (d) on one rank: olmoe-1b-7b at its published width cut to
     RANKS_OLMOE_LAYERS layers (EP, FSDP, 4 token chunks, flash route, bf16
     compute, f32 params, remat full) on DTensors over the 2 x 2 mesh: the
@@ -6080,13 +6101,16 @@ def ranks_olmoe_train(torch, rank, device, mesh, counters):
     experts).  Every rank then runs the unsharded step (``_moe_local``)
     from the same params and batch with the sharded run's top-k choices
     (gathered over "data") forced, and sums its shards' gaps; rank 1's
-    experts shifted by one is the control.  Returns this rank's reading."""
+    experts shifted by one is the control.  ``compute_dtype`` and
+    ``by_layer`` (the gradient sums a layer, ``sums_against``) serve
+    ``tools/torch_ranks_margin.py``.  Returns this rank's reading."""
     from repro_torch.dist import sharding as S
     from repro_torch.models import moe
     from repro_torch.models.registry import model_fns, shapes_and_axes, value_and_grad
 
     cfg = ranks_config(OLMOE_ARCH, RANKS_OLMOE_LAYERS, device, attn_impl="pallas",
-                       compute_dtype="bfloat16", remat="full", moe_impl="ep", fsdp_params=True)
+                       compute_dtype=compute_dtype, remat="full", moe_impl="ep",
+                       fsdp_params=True)
     fns = model_fns(cfg)
     params = fns.init(torch.Generator(device=device).manual_seed(RANKS_TRAIN_SEED), device)[0]
     batch = ranks_batch(torch, cfg, device)
@@ -6133,8 +6157,119 @@ def ranks_olmoe_train(torch, rank, device, mesh, counters):
     sync(torch, device)
     out["walls"]["unsharded step"] = time.perf_counter() - t0
     out["unsharded_ce"], out["unsharded_aux"] = float(u_loss), float(u_metrics["aux"])
-    out["grads sums"] = sums_against(grads, u_grads)
-    out["control grads sums"] = sums_against(ctl_grads, u_grads)
+    out["grads sums"] = sums_against(grads, u_grads, by_layer)
+    out["control grads sums"] = sums_against(ctl_grads, u_grads, by_layer)
+    return out
+
+
+RANKS_SERVE_STEPS = 4              # greedy decode steps on DTensors
+
+
+def ranks_qwen_serve(torch, rank, device, mesh, counters):
+    """Phase 34 (e) on one rank: qwen1.5-0.5b at its published width cut to
+    RANKS_QWEN_LAYERS layers (flash route) served on DTensors over the 2 x
+    2 (data, model) mesh, as the reference's dry run places a serve cell:
+    the params by ``tree_shardings`` and a prefill of the (c) batch into a
+    cache of ``decode_cache_len`` slots under the prefill shape's rules,
+    the cache moved onto the decode shape's placements
+    (``sharding.distribute``), then RANKS_SERVE_STEPS greedy steps of
+    ``make_serve_step``, each writing its slot into this rank's local
+    shards; in bf16 and in f32 compute.  After each step the same step runs
+    unsharded from the same params, cache and token, and this rank sums
+    its gaps: the logits, and its cache shards against the matching slices
+    of the unsharded cache.  The control (f32): one step from the prefilled
+    cache with rank 1's k shards its neighbour's heads.  Returns this
+    rank's reading."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist import sharding as S
+    from repro_torch.models.registry import decode_cache_len, make_serve_step, model_fns
+    from repro_torch.models.registry import shapes_and_axes
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+
+    out = {"walls": {}}
+    for dtype in ("bfloat16", "float32"):
+        cfg = ranks_config(SERVE_ARCH, RANKS_QWEN_LAYERS, device, attn_impl="pallas",
+                           compute_dtype=dtype)
+        fns = model_fns(cfg)
+        step = make_serve_step(cfg)
+        params = fns.init(torch.Generator(device=device).manual_seed(RANKS_TRAIN_SEED),
+                          device)[0]
+        prompt = ranks_batch(torch, cfg, device)["tokens"]
+        batch_size, seq = prompt.shape
+        n_slots = decode_cache_len(seq)
+        _, axes = shapes_and_axes(fns.init, torch.Generator().manual_seed(0))
+        _, cache_axes = shapes_and_axes(fns.make_cache, batch_size, n_slots)
+        shape = {kind: InputShape(kind, seq, batch_size, kind) for kind in ("prefill", "decode")}
+        walls, sums = out["walls"].setdefault(dtype, {}), []
+        with torch.no_grad():
+            sync(torch, device)
+            t0 = time.perf_counter()
+            rules = S.default_rules(cfg, mesh, shape["prefill"])
+            with S.logical_sharding(mesh, rules):
+                p = S.distribute(params, S.tree_shardings(axes, mesh, rules))
+                b = S.distribute({"tokens": prompt},
+                                 S.batch_shardings({"tokens": prompt}, mesh, rules))
+                sync(torch, device)
+                walls["placement"], t0 = time.perf_counter() - t0, time.perf_counter()
+                before = kernel_counts(*counters)
+                logits, cache = fns.prefill(p, dict(b, cache_len=n_slots))
+                sync(torch, device)
+                walls["prefill"] = time.perf_counter() - t0
+                out[f"{dtype} prefill counts"] = counts_between(before, kernel_counts(*counters))
+            u_logits, u_cache = fns.prefill(params, {"tokens": prompt, "cache_len": n_slots})
+            rules = S.default_rules(cfg, mesh, shape["decode"])
+            cache_sh = S.tree_shardings(cache_axes, mesh, rules)
+            t0 = time.perf_counter()
+            with S.logical_sharding(mesh, rules):
+                cache = S.distribute(cache, cache_sh)
+            sync(torch, device)
+            walls["cache placement"] = time.perf_counter() - t0
+            out[f"{dtype} prefill sums"] = sums_against(logits, u_logits)
+            if dtype == "float32":   # the control's cache: rank 1 holds its neighbour's heads
+                ctl = tree_map(torch.clone, u_cache)
+                if rank == 1:
+                    for path, t in tree_flatten_with_path(ctl):
+                        if path.endswith("/k"):   # (layers, B, slots, Hk, D): heads on dim 3
+                            t.copy_(torch.roll(t, t.shape[3] // mesh.size(1), dims=3))
+                with S.logical_sharding(mesh, rules):
+                    ctl = S.distribute(ctl, cache_sh)
+            storage = [(t.to_local().data_ptr(), tuple(t.placements)) for t in tree_leaves(cache)]
+            tokens = []
+            for i in range(RANKS_SERVE_STEPS):
+                token = full_of(logits).argmax(-1).to(torch.int32)
+                tokens.append(token)
+                pos = torch.tensor(seq + i, dtype=torch.int32, device=device)
+                db = S.distribute({"token": token, "pos": pos},
+                                  S.batch_shardings({"token": token, "pos": pos}, mesh, rules))
+                if dtype == "float32" and i == 0:   # the control, before the cache moves on
+                    with S.logical_sharding(mesh, rules):
+                        ctl_logits, ctl = step(p, ctl, db)
+                    u_first, u_first_cache = step(params, tree_map(torch.clone, u_cache),
+                                                  {"token": token, "pos": seq})
+                    out["control logits sums"] = sums_against(ctl_logits, u_first)
+                    out["control cache sums"] = {k: v for k, v in
+                                                 sums_against(ctl, u_first_cache).items()
+                                                 if k.endswith("/k")}
+                    del ctl, u_first_cache
+                sync(torch, device)
+                t0 = time.perf_counter()
+                before = kernel_counts(*counters)
+                with S.logical_sharding(mesh, rules):
+                    logits, cache = step(p, cache, db)
+                sync(torch, device)
+                walls[f"step {i + 1}"] = time.perf_counter() - t0
+                if i == RANKS_SERVE_STEPS - 1:
+                    out[f"{dtype} step counts"] = counts_between(before, kernel_counts(*counters))
+                u_logits, u_cache = step(params, u_cache, {"token": token, "pos": seq + i})
+                sums.append({"logits": sums_against(logits, u_logits),
+                             "cache": sums_against(cache, u_cache)})
+            out[f"{dtype} storage kept"] = storage == [
+                (t.to_local().data_ptr(), tuple(t.placements)) for t in tree_leaves(cache)]
+        out[f"{dtype} sums"] = sums
+        out[f"{dtype} tokens"] = [t.tolist() for t in tokens]
+        del p, cache, u_cache, params
+        if device == "cuda":
+            free_card(torch)
     return out
 
 
@@ -6142,7 +6277,7 @@ def ranks_worker(rank, directory, t_spawn, device):
     """One of phase 34's 4 ranks: a world on ``device`` (every rank on
     cuda:0, where NCCL refuses two ranks on one device: the backend
     ``launch.mesh.world_backend`` names, ``staged_gloo``; plain gloo on the
-    CPU), then (a) to (d); the reading goes to ``directory``."""
+    CPU), then (a) to (e); the reading goes to ``directory``."""
     import pickle
 
     import torch
@@ -6186,6 +6321,9 @@ def ranks_worker(rank, directory, t_spawn, device):
         t0 = time.perf_counter()
         out["olmoe"] = ranks_olmoe_train(torch, rank, device, mesh, counters)
         out["olmoe_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serve"] = ranks_qwen_serve(torch, rank, device, mesh, counters)
+        out["serve_s"] = time.perf_counter() - t0
     out["plain_calls"] = plain
     with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -6245,21 +6383,58 @@ def train_gates(ranks, say_prefix):
     return gates
 
 
+def serve_gates(ranks, say_prefix):
+    """Phase 34 (e)'s readings over the ranks, and their gates: every
+    step's logits and every cache leaf within the dtype's limit of the
+    unsharded step, each rank's cache storage kept, and the control's
+    logits and k leaves (rank 1 holding its neighbour's heads) outside
+    f32's."""
+    serve = [r["serve"] for r in ranks]
+    gates = {}
+    for dtype, tol in (("bfloat16", RANKS_TRAIN_BF16_TOL), ("float32", SERVE_TWIN_F32_REL_TOL)):
+        prefill = rel_of_sums([s[f"{dtype} prefill sums"] for s in serve])[""]
+        logits, leaves = [], []
+        for i in range(RANKS_SERVE_STEPS):
+            logits.append(rel_of_sums([s[f"{dtype} sums"][i]["logits"] for s in serve])[""])
+            per_leaf = rel_of_sums([s[f"{dtype} sums"][i]["cache"] for s in serve])
+            leaves.append(max(per_leaf.items(), key=lambda kv: kv[1]))
+        kept = [s[f"{dtype} storage kept"] for s in serve]
+        gates[f"(e) {dtype}"] = {"prefill logits": prefill, "step logits": logits,
+                                 "worst cache leaf by step": leaves, "storage kept": kept,
+                                 "tol": tol}
+        say(f"{say_prefix}(e) {SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) served on DTensors, "
+            f"{dtype}: prefill logits relative {prefill:.3e}; {RANKS_SERVE_STEPS} greedy steps' "
+            f"logits {['%.3e' % x for x in logits]}, worst cache leaf a step "
+            f"{['%s %.3e' % kv for kv in leaves]}; local storage kept {kept} (limit {tol:g})")
+        assert prefill < tol and max(logits) < tol, gates[f"(e) {dtype}"]
+        assert max(v for _, v in leaves) < tol and all(kept), gates[f"(e) {dtype}"]
+    ctl_logits = rel_of_sums([s["control logits sums"] for s in serve])[""]
+    ctl_k = min(rel_of_sums([s["control cache sums"] for s in serve]).values())
+    gates["(e) control"] = {"logits": ctl_logits, "k leaves (least)": ctl_k}
+    say(f"{say_prefix}(e) control, f32, rank 1 holding its neighbour's k heads: first step's "
+        f"logits relative {ctl_logits:.3e}, k leaves at least {ctl_k:.3e} (both must exceed "
+        f"{SERVE_TWIN_F32_REL_TOL:g})")
+    assert min(ctl_logits, ctl_k) > SERVE_TWIN_F32_REL_TOL, gates["(e) control"]
+    return gates
+
+
 def run_ranks_phase(torch, smi, device="cuda"):
-    """Phase 34: the sharded MoE bodies, the sharded dense wave and two
-    models' train steps on DTensors, on 4 ranks (forked from the preloaded
-    forkserver) sharing the one
-    card (see ``ranks_moe``, ``ranks_wave``, ``ranks_qwen_train`` and
-    ``ranks_olmoe_train``).  Returns (the kernel launches of the main
+    """Phase 34: the sharded MoE bodies, the sharded dense wave, two
+    models' train steps and a model's serve steps on DTensors, on 4 ranks
+    (forked from the preloaded forkserver) sharing the one card (see
+    ``ranks_moe``, ``ranks_wave``, ``ranks_qwen_train``,
+    ``ranks_olmoe_train`` and ``ranks_qwen_serve``).  Returns (the kernel launches of the main
     path's runs, summed over the ranks, and the phase's row)."""
     import pickle
 
-    say(f"PHASE 34 sharded bodies and train steps: {RANKS_WORLD} ranks on the one card; "
+    say(f"PHASE 34 sharded bodies, train and serve steps: {RANKS_WORLD} ranks on the one card; "
         f"{OLMOE_ARCH}'s MoE layer on a {RANKS_MOE_MESH[0]} x {RANKS_MOE_MESH[1]} (data, model) "
         f"mesh through the EP, resident and gather bodies; phase 23's CNN wave of "
         f"{RANKS_WAVE_CLIENTS} clients over a (data,) mesh against the same wave unsharded; "
         f"{SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) and {OLMOE_ARCH} ({RANKS_OLMOE_LAYERS} "
-        f"layers) trained on DTensors against the unsharded steps")
+        f"layers) trained on DTensors against the unsharded steps; {SERVE_ARCH} "
+        f"({RANKS_QWEN_LAYERS} layers) prefilled and decoded {RANKS_SERVE_STEPS} steps on "
+        f"DTensors, its cache written in each rank's local shard, against the unsharded steps")
     say(f"  card: {smi}")
     t_phase = time.perf_counter()
     ctx = preloaded_context()
@@ -6319,9 +6494,12 @@ def run_ranks_phase(torch, smi, device="cuda"):
             f"{w['control'][0]:.3e} (limit relative {limit:g})")
         assert w["gap"][0] < limit < w["control"][0], (setting, w)
     train = train_gates(ranks, "  ")
+    serve = serve_gates(ranks, "  ")
     parts = {"(c) bfloat16": [r["qwen"]["bfloat16 counts"] for r in ranks],
              "(c) float32": [r["qwen"]["float32 counts"] for r in ranks],
-             "(d)": [r["olmoe"]["counts"] for r in ranks]}
+             "(d)": [r["olmoe"]["counts"] for r in ranks],
+             "(e) bfloat16": [r["serve"]["bfloat16 prefill counts"] for r in ranks],
+             "(e) float32": [r["serve"]["float32 prefill counts"] for r in ranks]}
     for r, row in enumerate(ranks):
         q, o = row["qwen"], row["olmoe"]
         say(f"  (c) rank {r}: walls s " + ", ".join(f"{k} {v:.3f}" for k, v in q["walls"].items())
@@ -6332,8 +6510,19 @@ def run_ranks_phase(torch, smi, device="cuda"):
             + f"; gmm {o['counts']['gmm']}, tgmm {o['counts']['tgmm']} by path "
             f"{o['counts']['tgmm_paths']}, flash {o['counts']['flash']}; bytes staged "
             f"{o['counts']['staged_bytes']}; plain calls (c) and (d) {row['plain_calls']}")
+        e = row["serve"]
+        say(f"  (e) rank {r}: walls s " + "; ".join(
+            f"{dtype} " + ", ".join(f"{k} {v:.3f}" for k, v in w.items())
+            for dtype, w in e["walls"].items())
+            + f"; flash launches by path, prefill, bf16 {e['bfloat16 prefill counts']['flash']}, "
+            f"f32 {e['float32 prefill counts']['flash']}; bytes staged through the host a decode "
+            f"step, bf16 {e['bfloat16 step counts']['staged_bytes']}, f32 "
+            f"{e['float32 step counts']['staged_bytes']}; flash a decode step "
+            f"{e['bfloat16 step counts']['flash']}")
         if device == "cuda":   # every product and attention on a kernel, none on a plain version
             assert row["backend"] == "staged_gloo", row["backend"]
+            assert e["bfloat16 prefill counts"]["flash"]["wgmma"] > 0, e["bfloat16 prefill counts"]
+            assert e["float32 prefill counts"]["flash"]["ffma"] > 0, e["float32 prefill counts"]
             assert not row["plain_calls"], (r, row["plain_calls"])
             assert q["bfloat16 counts"]["flash"]["wgmma"] > 0, q["bfloat16 counts"]
             assert q["bfloat16 counts"]["flash"]["bwd_wgmma"] > 0, q["bfloat16 counts"]
@@ -6352,9 +6541,14 @@ def run_ranks_phase(torch, smi, device="cuda"):
     say(f"  phase 34 {phase_s:.1f} s (ranks: moe " + ", ".join(f"{r['moe_s']:.1f}" for r in ranks)
         + ", wave " + ", ".join(f"{r['wave_s']:.1f}" for r in ranks)
         + ", (c) " + ", ".join(f"{r['qwen_s']:.1f}" for r in ranks)
-        + ", (d) " + ", ".join(f"{r['olmoe_s']:.1f}" for r in ranks) + " s)")
+        + ", (d) " + ", ".join(f"{r['olmoe_s']:.1f}" for r in ranks)
+        + ", (e) " + ", ".join(f"{r['serve_s']:.1f}" for r in ranks) + " s)")
     return launches, {
-        "train": train, "qwen_s": [r["qwen_s"] for r in ranks],
+        "train": train, "serve": serve, "qwen_s": [r["qwen_s"] for r in ranks],
+        "serve_s": [r["serve_s"] for r in ranks],
+        "serve_walls_by_rank": [r["serve"]["walls"] for r in ranks],
+        "serve_step_counts_by_rank": [{dtype: r["serve"][f"{dtype} step counts"]
+                                       for dtype in ("bfloat16", "float32")} for r in ranks],
         "olmoe_s": [r["olmoe_s"] for r in ranks],
         "train_walls_by_rank": [{"(c)": r["qwen"]["walls"], "(d)": r["olmoe"]["walls"]}
                                 for r in ranks],
@@ -6783,10 +6977,13 @@ def main() -> int:
                                        "flash_attention_by_path": paths}
                    for k, (counts, paths) in bwd_runs.items()}
     lru_train = {f"{k} (phase 32)": (counts, paths) for k, (counts, paths) in lru_bwd_runs.items()}
-    # phase 34 (c) and (d): the train steps on DTensors, every rank's launches summed
-    ranks_parts = {f"{SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) on {RANKS_WORLD} ranks, "
-                   f"{part[4:]} (phase 34 (c))" if part.startswith("(c)") else
-                   f"{ranks_train_key}": paths
+    # phase 34 (c)-(e): the train and serve steps on DTensors, every rank's launches summed
+    ranks_names = {"(c)": f"{SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) on {RANKS_WORLD} ranks, "
+                          "{} (phase 34 (c))",
+                   "(d)": ranks_train_key,
+                   "(e)": f"{SERVE_ARCH} ({RANKS_QWEN_LAYERS} layers) served on DTensors, "
+                          f"{RANKS_WORLD} ranks, {{}} prefill (phase 34 (e))"}
+    ranks_parts = {ranks_names[part[:3]].format(part[4:]): paths
                    for part, paths in ranks_launches["flash"].items()}
     flash_train.update({k: {"flash_attention": sum(paths[p] for p in fa_ops.PATHS),
                             "flash_attention_by_path": {p: paths[p] for p in fa_ops.PATHS}}

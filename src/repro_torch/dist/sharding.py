@@ -343,9 +343,9 @@ def refuse_dtensor(what: str, *tensors) -> None:
     """``TypeError`` where a kernel wrapper that takes no DTensor yet is
     handed one, before it reads any ``data_ptr()``: the SSM and RG-LRU
     scans and the int8 decode on sharded operands are ROADMAP queue 1 row
-    9b-iii."""
+    9b-iv."""
     if is_dtensor(*tensors):
-        raise TypeError(f"{what} takes no DTensor: sharded {what} is ROADMAP queue 1 row 9b-iii")
+        raise TypeError(f"{what} takes no DTensor: sharded {what} is ROADMAP queue 1 row 9b-iv")
 
 
 # --------------------------------------------------------------------------

@@ -504,7 +504,7 @@ def _on_local_shards(q, k, v, *, causal: bool, window: Optional[int],
     the output comes back with q's placements.  No head is gathered.  q, k
     and v sharded on the sequence or on the head dim (the GQA fallback's
     ``rules["head"]``), or placed unlike each other, are ROADMAP queue 1
-    row 9b-iii."""
+    row 9b-v."""
     from torch.distributed.tensor import DTensor
 
     if not all(isinstance(t, DTensor) for t in (q, k, v)):
@@ -516,12 +516,12 @@ def _on_local_shards(q, k, v, *, causal: bool, window: Optional[int],
         if tuple(t.placements) != placements or t.device_mesh != q.device_mesh:
             raise NotImplementedError(
                 f"flash_attention on DTensors placed {placements} for q and "
-                f"{tuple(t.placements)} for {name}: ROADMAP queue 1 row 9b-iii")
+                f"{tuple(t.placements)} for {name}: ROADMAP queue 1 row 9b-v")
     for p in placements:
         if p.is_shard() and p.dim % q.dim() not in (0, 2):
             raise NotImplementedError(
                 f"flash_attention on q placed {placements} (sequence or head dim): "
-                f"ROADMAP queue 1 row 9b-iii")
+                f"ROADMAP queue 1 row 9b-v")
     o = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal=causal,
                         window=window, path=path)
     return DTensor.from_local(o, q.device_mesh, placements, run_check=False)

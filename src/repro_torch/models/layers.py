@@ -191,7 +191,11 @@ def attention_reference(
     window: Optional[int] = None,
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Full-materialization oracle attention (O(Sq·Skv) memory)."""
+    """Full-materialization oracle attention (O(Sq·Skv) memory).  DTensor
+    q, k, v attend on each rank's local shards (``_reference_sharded``)."""
+    if is_dtensor(q, k, v):
+        return _reference_sharded(q, k, v, q_positions, kv_positions, causal=causal,
+                                  window=window, softmax_scale=softmax_scale)
     b, sq, hq, d = q.shape
     n_kv = k.shape[2]
     g = hq // n_kv
@@ -205,6 +209,57 @@ def attention_reference(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _reference_sharded(q, k, v, q_positions, kv_positions, **kw) -> torch.Tensor:
+    """``attention_reference`` of DTensor q, k, v under ``shard_map``: rows
+    split over the batch axes and KV heads split over the others are
+    independent pieces, so each rank attends its own rows and heads (torch
+    2.11's DTensor cannot flatten the einsum's sharded batch dim without a
+    redistribution).  k and v (a decode step's cache) stay where they are,
+    and q, the plain positions (replicated) and the output take their
+    split: one token's q may be reduced (a pending sum) or cut, never the
+    cache gathered.  k and v split unlike each other, or on another dim (a
+    sequence-sharded cache, the GQA head-dim fallback), and q split on one,
+    are ROADMAP queue 1 row 9b-v."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.sharding import P
+
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("attention_reference got DTensor and plain operands together: "
+                        "distribute every operand")
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+
+    def split(t):   # (batch axes, heads axes) of a (B, S, H, D) operand
+        by_dim = {0: [], 2: []}
+        for name, p in zip(names, t.placements):
+            if p.is_shard() and p.dim % t.dim() not in by_dim:
+                raise NotImplementedError(
+                    f"attention_reference on an operand placed {tuple(t.placements)} "
+                    f"(sequence or head dim): ROADMAP queue 1 row 9b-v")
+            if p.is_shard():
+                by_dim[p.dim % t.dim()].append(name)
+        return tuple(by_dim[0]), tuple(by_dim[2])
+
+    split(q)
+    b_axes, h_axes = split(k)
+    if split(v) != (b_axes, h_axes) or {k.device_mesh, v.device_mesh} != {mesh}:
+        raise NotImplementedError(
+            f"attention_reference on DTensors placed {tuple(k.placements)} for k and "
+            f"{tuple(v.placements)} for v: ROADMAP queue 1 row 9b-v")
+
+    def placed(t):
+        if isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    heads = P(b_axes or None, None, h_axes or None, None)
+    rows = P(b_axes or None, None)
+    fn = SM.shard_map(functools.partial(attention_reference, **kw), mesh,
+                      in_specs=(heads, heads, heads, rows, rows), out_specs=heads)
+    return fn(q, k, v, placed(q_positions), placed(kv_positions))
 
 
 def attention_chunked(
@@ -354,20 +409,49 @@ def update_cache(
     ring: bool,
 ) -> Dict[str, torch.Tensor]:
     """Write one step (Sq=1) of k/v at ``pos`` (ring: pos % size), in place;
-    returns ``cache``."""
+    returns ``cache``.
+
+    A DTensor cache is written in each rank's ``to_local()`` shard: the new
+    slot, moved to the leaf's placements (a local slice where it is
+    replicated or placed alike), lands in the rank's own storage, and the
+    placements stay.  A cache whose sequence dim is sharded (``cache_seq``)
+    raises ``NotImplementedError`` before any leaf is written: each rank
+    would have to write only the slots it holds, the split-KV decode of
+    ROADMAP queue 1 row 9b-v (DTensor's own ``__setitem__`` gathers such a
+    leaf and drops the write without a word)."""
     size = cache["k"].shape[1]
     slot = min(max(pos % size if ring else pos, 0), size - 1)  # clamped, as dynamic_update_slice
     if "k_scale" in cache:  # int8 cache
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
-        cache["k"][:, slot:slot + 1] = kq
-        cache["v"][:, slot:slot + 1] = vq
-        cache["k_scale"][:, slot:slot + 1] = ks
-        cache["v_scale"][:, slot:slot + 1] = vs
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
-        cache["k"][:, slot:slot + 1] = k_new.to(cache["k"].dtype)
-        cache["v"][:, slot:slot + 1] = v_new.to(cache["v"].dtype)
+        new = {"k": k_new, "v": v_new}
+    for name in new:
+        _refuse_sequence_sharded(name, cache[name])
+    for name, t in new.items():
+        _write_slot(cache[name], t, slot)
     return cache
+
+
+def _refuse_sequence_sharded(name: str, leaf: torch.Tensor) -> None:
+    for p in getattr(leaf, "placements", ()):
+        if p.is_shard(1):
+            raise NotImplementedError(
+                f"a decode write into cache leaf {name!r} placed {tuple(leaf.placements)}, its "
+                f"sequence dim sharded: ROADMAP queue 1 row 9b-v (split-KV decode)")
+
+
+def _write_slot(dst: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``dst[:, slot:slot + 1] = new`` in place; a DTensor ``dst`` (sequence
+    dim whole) in its local shard, the DTensor ``new`` moved to ``dst``'s
+    placements first."""
+    if not is_dtensor(dst):
+        dst[:, slot:slot + 1] = new.to(dst.dtype)
+        return
+    if tuple(new.placements) != tuple(dst.placements):
+        new = new.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local()[:, slot:slot + 1] = new.to_local().to(dst.dtype)
 
 
 def cache_kv_arrays(cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -383,12 +467,14 @@ def cache_kv_arrays(cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch
 def prefill_cache_from_kv(
     k: torch.Tensor, v: torch.Tensor, size: int, *, ring: bool, quantized: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """Build a cache of ``size`` slots from a full prefill's k/v (B,S,Hk,D)."""
+    """Build a cache of ``size`` slots from a full prefill's k/v (B,S,Hk,D).
+    A linear cache of DTensor k/v whose sequence dim is whole on every rank
+    is padded (or cut) in each rank's local shard, under k/v's placements:
+    nothing is sent (torch 2.11's DTensor fails to plan a redistribution
+    for ``F.pad`` of k sharded on batch and heads)."""
     b, s, hk, d = k.shape
     if not ring:
-        pad = size - s
-        kk = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad > 0 else k[:, :size]
-        vv = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad > 0 else v[:, :size]
+        kk, vv = _slots(k, size), _slots(v, size)
     else:
         # ring: keep the last `size` positions, placed at slot = abs_pos % size
         take = min(s, size)
@@ -402,6 +488,24 @@ def prefill_cache_from_kv(
         vq, vs = quantize_kv(vv)
         return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     return {"k": kk.contiguous(), "v": vv.contiguous()}
+
+
+def _slots(t: torch.Tensor, size: int) -> torch.Tensor:
+    """``t`` (B, S, ...) zero-padded or cut to ``size`` along dim 1; a
+    DTensor whose dim 1 no mesh dim shards, in its local shard."""
+    def resized(x):
+        pad = size - x.shape[1]
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad > 0 else x[:, :size]
+
+    placements = getattr(t, "placements", None)
+    if placements is None or any(p.is_shard(1) for p in placements):
+        return resized(t)
+    from torch.distributed.tensor import DTensor
+
+    shape = (t.shape[0], size, *t.shape[2:])
+    return DTensor.from_local(resized(t.to_local()), t.device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 # --------------------------------------------------------------------------

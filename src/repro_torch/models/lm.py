@@ -174,7 +174,9 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def _layer(tree, r: int):
-    """Layer ``r`` of a stacked tree: views, so writes reach the stack."""
+    """Layer ``r`` of a stacked tree: views, so writes reach the stack (a
+    DTensor's select on its unsharded layer axis is a DTensor whose local
+    shard is a view of the stack's)."""
     return tree_map(lambda t: t[r], tree)
 
 
@@ -425,7 +427,9 @@ def lm_decode_step(
     cfg: ModelConfig,
 ):
     """One decode step.  Returns (logits (B,V), cache): ``cache`` is written
-    in place and returned (the reference donates its buffer instead)."""
+    in place and returned (the reference donates its buffer instead).
+    ``pos`` may be a replicated DTensor scalar: ``int`` reads its local
+    value, with no collective."""
     x = embed_inputs(params, token[:, None], cfg)
     hidden, caches, _ = lm_hidden(params, x, cfg, mode="decode", pos=int(pos), cache=cache)
     logits = L.logits_from_hidden(params["tok"], hidden, cfg)

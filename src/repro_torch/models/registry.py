@@ -199,7 +199,18 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """One decode step: (params, cache, batch{token,pos}) -> (logits, cache);
-    the cache is written in place."""
+    the cache is written in place.  Inside a ``logical_sharding`` context
+    on a mesh of several devices params, cache and batch are DTensors
+    (``repro_torch.dist.sharding.distribute``: the cache by
+    ``tree_shardings`` of ``make_cache``'s axes under a ``decode`` shape's
+    ``default_rules``, the batch by ``batch_shardings``, ``pos``
+    replicated).  What comes back is the logits, a DTensor under
+    ``("act_batch", "vocab")``, and the cache under its input's placements,
+    each leaf the same DTensor, written in each rank's local shard, as the
+    reference's ``jax.jit(serve_step, in_shardings=(params_sh, cache_sh,
+    batch_sh), out_shardings=(None, cache_sh))`` gives them.  A cache whose
+    sequence dim is sharded raises ``NotImplementedError`` (ROADMAP queue 1
+    row 9b-v)."""
     fns = model_fns(cfg)
 
     def serve_step(params, cache, batch):
